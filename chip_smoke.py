@@ -1,0 +1,502 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's fixed-bridge datagen path once on one CUDA card.
+
+    python3 chip_smoke.py [--seed 0] [--quick]
+
+Phases, each of which raises on failure (exit code not 0):
+
+1. the card's name and power limit (nvidia-smi);
+2. build the CUDA kernels from ``openpystruct_tpu_torch/ops/csrc``;
+3. each kernel against its plain PyTorch version at full width (B = 16384
+   lanes, n = 101): the plain version runs in float64 on the card as the
+   truth, and the kernel's per-lane error, at the median and the 99th
+   percentile, must be no more than twice the plain float32 version's, or
+   1e-5 of the output's per-lane scale, whichever is larger; the validity
+   masks (pivot > 1e-9) must be identical;
+4. the main path: ``generate_dataset`` (DATAGEN_OPT, refine 1, lane
+   compaction) over two 16384-lane batches, the 13-key JSON written and
+   read back, both kernels launched and no plain version called;
+5. the whole optimizer on 512 lanes with the kernels, with the plain
+   float32 path and with the plain float64 path: the kernel path's median
+   per-lane loss gap to float64 no more than twice the plain float32
+   path's (or 1e-4), mean epochs of the two float32 paths within 5%;
+6. times: CUDA events, median of 20 launches per kernel, beside the plain
+   version's time and the kernel's bound (bytes read once and written
+   once at 3.35 TB/s against the flops at 67 TFLOP/s float32, H100 SXM).
+
+Prints the card line, a JSON line of kernel results, and last
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
+repository, it fails before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SOURCE = "openpystruct_tpu_torch/ops/csrc/beam_kernel.cu"
+REPLACES = {
+    "beam_analysis": "openpystruct_tpu/ops/beam_kernel.py:751",
+    "beam_opt_step": "openpystruct_tpu/ops/beam_kernel.py:819",
+}
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM
+F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+PIVOT_TOL = 1e-9
+BATCH = 16384          # lanes per batch: the JAX package's datagen batch
+SAMPLES = 2 * BATCH    # two batches on the main path
+CHECK_BATCH = 512      # lanes of the whole-optimizer check (phase 5)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Bounds.  Bytes: every input read once, every output written once.  Flops
+# per node and lane, counted from csrc/beam_kernel.cu (an FMA counts 2):
+#   stiffness 10, assembly 32 (+7 axial chain), scaling 20,
+#   factor+forward sweep 45 without C (+12 saving C, +13 axial pivot),
+#   back sweep 14 without C / 8 with C, substitution = 14 + back sweep,
+#   refinement sweep = residual 138 + substitution + 2,
+#   force recovery 23, loss 23, Adam 15;
+#   adjoint extra: force cotangents 27, g_hat 16, stash 27, substitution,
+#   `refine` sweeps, banded products 12.
+# ---------------------------------------------------------------------------
+
+
+def flops_per_lane(n, refine, kind):
+    with_c = kind == "analysis"
+    bsub = 8 if with_c else 14
+    subst = 14 + bsub
+    sweep = 138 + subst + 2
+    per_node = 10 + 32 + 20 + 45 + bsub + refine * sweep + 23
+    if kind == "analysis":
+        per_node += 7 + 12 + 13
+    else:
+        per_node += 23 + 15
+        if kind == "adjoint":
+            per_node += 27 + 16 + 27 + (14 + 14) + refine * (138 + 28 + 2) + 12
+    return per_node * n
+
+
+def bytes_per_lane(n, kind):
+    nelem = n - 1
+    # I, Le, free (n, 3), loads (n), udl
+    inputs = 2 * nelem + 3 * n + n + 1
+    if kind == "analysis":
+        outputs = 3 * n + 2 * nelem + 1            # u, V, M, pivot
+    else:
+        inputs += 2 * nelem                        # mu, nu
+        outputs = 3 * nelem + 4                    # I, mu, nu, stats
+    return 4 * (inputs + outputs)
+
+
+def bound_ms(B, n, refine, kind):
+    t_bytes = B * bytes_per_lane(n, kind) / HBM_BYTES_PER_S
+    t_ops = B * flops_per_lane(n, refine, kind) / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_ms(torch, fn, reps, warmup=2):
+    """Median over ``reps`` launches of CUDA-event time, in ms."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def lane_errors(torch, x, truth):
+    """Per-lane error of ``x`` against ``truth``, relative to the lane's
+    largest |truth| value."""
+    x = x.double().reshape(x.shape[0], -1)
+    truth = truth.reshape(truth.shape[0], -1)
+    scale = truth.abs().amax(1).clamp_min(1e-300)
+    return (x - truth).abs().amax(1) / scale
+
+
+def hold(torch, name, kern, plain32, truth, floor=1e-5):
+    ek = lane_errors(torch, kern, truth)
+    ep = lane_errors(torch, plain32, truth)
+    row = {}
+    for q in (0.5, 0.99):
+        k, p = ek.quantile(q).item(), ep.quantile(q).item()
+        limit = max(2.0 * p, floor)
+        row[q] = (k, p, limit)
+        if not k <= limit:
+            raise AssertionError(
+                f"{name}: kernel error {k:.3e} at q={q} exceeds "
+                f"{limit:.3e} (plain float32 {p:.3e})")
+    log(f"  {name:>14}: kernel err p50 {row[0.5][0]:.3e} p99 "
+        f"{row[0.99][0]:.3e} | plain f32 p50 {row[0.5][1]:.3e} p99 "
+        f"{row[0.99][1]:.3e} | max |kernel - f64| "
+        f"{(kern.double() - truth).abs().max().item():.3e}")
+    return (kern.double() - truth).abs().max().item()
+
+
+def check_kernels(torch, tk, inputs, scalars, E, A, G, refine):
+    """Run each kernel (wrapper) and its plain version in float32 and
+    float64 on the same inputs; returns max abs errors per kernel."""
+    def cast(dtype, keys):
+        return [inputs[k].to(dtype) for k in keys]
+
+    ana_keys = ("I", "Le", "free", "loads", "udl")
+    opt_keys = ("I", "mu", "nu", "Le", "free", "loads", "udl")
+    errs = {}
+
+    log("phase 3: beam_analysis vs plain (refine=%d)" % refine)
+    kern = tk.beam_analysis(*cast(torch.float32, ana_keys), E, A, refine)
+    p32 = tk.beam_analysis_reference(*cast(torch.float32, ana_keys), E, A,
+                                     refine)
+    p64 = tk.beam_analysis_reference(*cast(torch.float64, ana_keys), E, A,
+                                     refine)
+    torch.cuda.synchronize()
+    names = ("u", "V", "M")
+    for nm, k, p, t in zip(names, kern[:3], p32[:3], p64[:3]):
+        e = hold(torch, nm, k, p, t)
+        if nm == "u":
+            errs["beam_analysis"] = e
+    hold(torch, "pivot", kern[3][:, None], p32[3][:, None], p64[3][:, None])
+    masks = [(x[3] > PIVOT_TOL) for x in (kern, p32, p64)]
+    if not (torch.equal(masks[0], masks[2]) and torch.equal(masks[1],
+                                                            masks[2])):
+        raise AssertionError("valid masks (pivot > 1e-9) differ")
+    log(f"  valid lanes {int(masks[0].sum())}/{masks[0].numel()} "
+        "(identical in kernel, plain f32, plain f64)")
+
+    errs["beam_opt_step"] = 0.0
+    for semi in (True, False):
+        mode = "semi" if semi else "adjoint"
+        log(f"phase 3: beam_opt_step ({mode}, refine={refine}) vs plain")
+        tail = (*scalars, E, A, G)
+        kw = dict(grad_semi=semi, refine=refine)
+        kern = tk.beam_opt_step(*cast(torch.float32, opt_keys), *tail, **kw)
+        p32 = tk.beam_opt_step_reference(*cast(torch.float32, opt_keys),
+                                         *tail, **kw)
+        p64 = tk.beam_opt_step_reference(*cast(torch.float64, opt_keys),
+                                         *tail, **kw)
+        torch.cuda.synchronize()
+        for nm, k, p, t in zip(("I", "mu", "nu"), kern, p32, p64):
+            e = hold(torch, nm, k, p, t)
+            if nm == "I":
+                errs["beam_opt_step"] = max(errs["beam_opt_step"], e)
+        for c, nm in enumerate(("total", "primary", "bending", "shear")):
+            hold(torch, nm, kern[3][:, c:c + 1], p32[3][:, c:c + 1],
+                 p64[3][:, c:c + 1])
+    return errs
+
+
+def profile_batch(torch, run_batch, sample_scenarios, seed, B, beam, opt,
+                  refine):
+    """One batch program under torch.profiler: the device's busy share of
+    the wall time (the profiler's own host overhead makes the idle share
+    an upper bound) and the kernels that take the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sc = sample_scenarios(torch.Generator().manual_seed(seed), B,
+                          device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch = run_batch(sc, beam, opt, refine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) * 1e-6
+    epochs = int(batch.result.n_epochs.max())
+    log(f"  profiled batch ({B} lanes, {epochs} epochs): wall {wall:.2f} s "
+        "under the profiler, device busy "
+        + (f"{busy:.2f} s ({busy / wall:.1%})" if busy > 0
+           else "not measured (no device events)"))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total * 1e-3:9.1f} ms  {e.count:6d}x  "
+            f"{e.key[:70]}")
+    cpu = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_cpu_time_total)[:6]
+    for e in cpu:
+        log(f"    host {e.self_cpu_time_total * 1e-3:9.1f} ms  {e.count:6d}x  "
+            f"{e.key[:60]}")
+
+
+def make_inputs(torch, sample_scenarios, constraint_mask, seed, B, device):
+    gen = torch.Generator().manual_seed(seed)
+    sc = sample_scenarios(gen, B, device=device, dtype=torch.float32)
+    nelem = sc.num_nodes - 1
+    # I lognormal around 0.5 (bench.py's inputs); Adam moments of a few
+    # epochs' scale
+    I = torch.exp(torch.randn((B, nelem), generator=gen) * 0.3) * 0.5
+    mu = torch.randn((B, nelem), generator=gen) * 0.1
+    nu = torch.rand((B, nelem), generator=gen) * 1e-2 + 1e-4
+    return dict(
+        I=I.to(device), mu=mu.to(device), nu=nu.to(device),
+        Le=torch.diff(sc.node_x, dim=-1),
+        free=(~constraint_mask(sc)).to(torch.float32),
+        loads=sc.point_loads, udl=sc.udl,
+    )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quick", action="store_true",
+                    help="phases 1-3 only (a first check of a new kernel)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs one CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from openpystruct_tpu_torch.config import DATAGEN_OPT, BeamConfig
+    from openpystruct_tpu_torch.datagen import (
+        SCHEMA_KEYS,
+        generate_dataset,
+        read_json_dataset,
+        run_batch,
+        sample_scenarios,
+        write_json_dataset,
+    )
+    from openpystruct_tpu_torch.fem.beam import constraint_mask
+    from openpystruct_tpu_torch.ops import _build
+    from openpystruct_tpu_torch.ops import beam_kernel as tk
+    from openpystruct_tpu_torch.opt.beam_opt import (
+        _adam_scalars,
+        optimize_beam_batched,
+    )
+
+    # FEM math never runs in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    # ---- phase 1: the card ------------------------------------------------
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(f"phase 1: card {card} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | device count {torch.cuda.device_count()}")
+
+    # ---- phase 2: build ---------------------------------------------------
+    info = _build.build(["beam_kernel"])["beam_kernel"]
+    log(f"phase 2: built {Path(info['path']).name} in "
+        f"{info['seconds']:.1f} s")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  ptxas: " + line.strip())
+
+    beam = BeamConfig(udl=-1000.0)
+    E, A, G = beam.E, beam.A, beam.G
+    refine = 1
+
+    # ---- phase 3: kernels against their plain versions --------------------
+    B = BATCH if not args.quick else min(BATCH, 2048)
+    inputs = make_inputs(torch, sample_scenarios, constraint_mask, args.seed,
+                         B, dev)
+    n = inputs["I"].shape[1] + 1
+    scalars = _adam_scalars(DATAGEN_OPT, 3, torch.float32)
+    errs = check_kernels(torch, tk, inputs, scalars, E, A, G, refine)
+    if args.quick:
+        log(f"quick check passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+
+    # ---- phase 4: the main path -------------------------------------------
+    log(f"phase 4: generate_dataset(seed={args.seed}, {SAMPLES}, "
+        f"batch_size={BATCH}) on {kind}")
+    epochs, stamps, valid, lanes = [], [], 0, 0
+
+    def on_batch(batch):
+        nonlocal valid, lanes
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        res = batch.result
+        epochs.append(res.n_epochs.double().mean().item())
+        valid += int(batch.valid.sum())
+        lanes += batch.valid.numel()
+        # physics: no deflection at the pin and the rollers, u_x == 0
+        defl = res.solution.deflections
+        if not (defl[:, 0] == 0).all() or not (
+                defl[batch.scenario.roller_mask] == 0).all():
+            raise AssertionError("nonzero deflection at a support")
+        if not (res.solution.displacements[..., 0] == 0).all():
+            raise AssertionError("nonzero axial displacement")
+
+    tk.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols = generate_dataset(args.seed, SAMPLES, batch_size=BATCH,
+                            device="cuda", on_batch=on_batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    plain = dict(tk.PLAIN_CALLS)
+    log(f"  launches {launches} plain calls {plain}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if any(v != 0 for v in plain.values()):
+        raise AssertionError(f"a plain version ran on the main path: {plain}")
+    n_batches = -(-SAMPLES // BATCH)
+    mean_epochs = statistics.fmean(epochs)
+    log(f"  valid {valid}/{lanes} ({valid / lanes:.4f}) | mean epochs "
+        f"{mean_epochs:.2f} | {lanes / wall:.1f} lanes/s, "
+        f"{valid / wall:.1f} valid samples/s | wall {wall:.2f} s")
+    log(f"  first batch program (sample + optimize + gate) "
+        f"{stamps[0] - t0:.2f} s | last batch to columnar lists "
+        f"{t0 + wall - stamps[-1]:.2f} s")
+    if valid == 0 or len(cols["I_values"]) != valid:
+        raise AssertionError("dataset rows do not match the valid lanes")
+    profile_batch(torch, run_batch, sample_scenarios, args.seed + 2,
+                  BATCH, beam, DATAGEN_OPT, refine)
+
+    tmp = REPO / ".smoke_tmp"
+    tmp.mkdir(exist_ok=True)
+    try:
+        path = tmp / "dataset.json"
+        t0 = time.perf_counter()
+        write_json_dataset(cols, str(path))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = read_json_dataset(str(path))
+        t_read = time.perf_counter() - t0
+        size_mb = path.stat().st_size / 2**20
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if set(back) != set(SCHEMA_KEYS) or any(
+            len(back[k]) != valid for k in SCHEMA_KEYS):
+        raise AssertionError("JSON round trip lost keys or rows")
+    if back["I_values"][0] != cols["I_values"][0] or any(
+            len(r) != n - 1 for r in back["I_values"]):
+        raise AssertionError("JSON round trip changed the I rows")
+    log(f"  JSON {size_mb:.1f} MiB: write {t_write:.1f} s, read "
+        f"{t_read:.1f} s, {len(SCHEMA_KEYS)} keys x {valid} rows")
+
+    # ---- phase 5: the whole optimizer, kernels vs plain -------------------
+    log(f"phase 5: optimize_beam_batched on {CHECK_BATCH} lanes: "
+        "kernels, plain f32, plain f64")
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    sc = sample_scenarios(gen, CHECK_BATCH, device="cpu",
+                          dtype=torch.float64)
+    runs = {}
+    for name, device, dtype in (("kernel", "cuda", torch.float32),
+                                ("plain32", "cpu", torch.float32),
+                                ("plain64", "cpu", torch.float64)):
+        scen = sc.map(lambda x: (x.to(dtype) if x.is_floating_point() else x)
+                      .to(device))
+        t0 = time.perf_counter()
+        res = optimize_beam_batched(scen, beam, DATAGEN_OPT, refine=refine)
+        runs[name] = (res.loss.total.double().cpu(),
+                      res.n_epochs.double().cpu(), time.perf_counter() - t0)
+    truth = runs["plain64"][0]
+    gaps = {k: ((runs[k][0] - truth).abs() / truth.abs()).median().item()
+            for k in ("kernel", "plain32")}
+    ep = {k: runs[k][1].mean().item() for k in runs}
+    log(f"  median loss gap to f64: kernel {gaps['kernel']:.3e}, plain f32 "
+        f"{gaps['plain32']:.3e} | mean epochs kernel {ep['kernel']:.2f} "
+        f"plain32 {ep['plain32']:.2f} plain64 {ep['plain64']:.2f} | "
+        + ", ".join(f"{k} {runs[k][2]:.1f} s" for k in runs))
+    if not gaps["kernel"] <= max(2.0 * gaps["plain32"], 1e-4):
+        raise AssertionError(f"loss gap: {gaps}")
+    if not abs(ep["kernel"] - ep["plain32"]) <= 0.05 * ep["plain32"]:
+        raise AssertionError(f"mean epochs differ: {ep}")
+
+    # ---- phase 6: times -----------------------------------------------------
+    log(f"phase 6: times at B={B}, n={n} (CUDA events, median)")
+    lanes_last, lanes_first = tk._lanes_last, tk._lanes_first
+    ana = [inputs[k] for k in ("I", "Le", "free", "loads", "udl")]
+    opt = [inputs[k] for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
+    ana_t = [lanes_last(x) for x in ana[:-1]] + [ana[-1]]
+    opt_t = [lanes_last(x) for x in opt[:-1]] + [opt[-1]]
+    opt_kw = dict(grad_semi=True, refine=refine)
+    counts_before = dict(tk.LAUNCHES)
+    cases = {
+        "beam_analysis": dict(
+            wrapper=lambda: tk.beam_analysis(*ana, E, A, refine),
+            kernel=lambda: tk.launch_beam_analysis(*ana_t, E, A, refine),
+            layout=lambda: ([lanes_last(x) for x in ana[:-1]],
+                            [lanes_first(x) for x in (
+                                ana_t[2], ana_t[0], ana_t[0])]),
+            plain=lambda: tk.beam_analysis_reference(*ana, E, A, refine),
+            kind="analysis"),
+        "beam_opt_step": dict(
+            wrapper=lambda: tk.beam_opt_step(*opt, *scalars, E, A, G,
+                                             **opt_kw),
+            kernel=lambda: tk.launch_beam_opt_step(*opt_t, *scalars, E, G,
+                                                   **opt_kw),
+            layout=lambda: ([lanes_last(x) for x in opt[:-1]],
+                            [lanes_first(x) for x in opt_t[:3]]),
+            plain=lambda: tk.beam_opt_step_reference(*opt, *scalars, E, A,
+                                                     G, **opt_kw),
+            kind="semi"),
+    }
+    adjoint_ms = time_ms(torch, lambda: tk.launch_beam_opt_step(
+        *opt_t, *scalars, E, G, grad_semi=False, refine=refine), 20)
+    kernels = []
+    for name, c in cases.items():
+        t_wrap = time_ms(torch, c["wrapper"], 20)
+        t_kern = time_ms(torch, c["kernel"], 20)
+        t_layout = time_ms(torch, c["layout"], 20)
+        t_plain = time_ms(torch, c["plain"], 5, warmup=1)
+        b_ms, b_by = bound_ms(B, n, refine, c["kind"])
+        per_batch = launches[name] / n_batches
+        log(f"  {name}: wrapper {t_wrap:.3f} ms = kernel {t_kern:.3f} ms + "
+            f"layout ~{t_layout:.3f} ms | plain {t_plain:.3f} ms | bound "
+            f"{1e3 * b_ms:.1f} us ({b_by}) | {per_batch:.1f} launches/batch")
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            launches=launches[name], max_abs_err=errs[name], ms=t_wrap,
+            plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            kernel_only_ms=t_kern, layout_ms=t_layout,
+            launches_per_batch=per_batch,
+        ))
+    kernels[1]["adjoint_kernel_only_ms"] = adjoint_ms
+    kernels[1]["adjoint_bound_ms"] = bound_ms(B, n, refine, "adjoint")[0]
+    log(f"  beam_opt_step adjoint: kernel {adjoint_ms:.3f} ms | bound "
+        f"{1e3 * kernels[1]['adjoint_bound_ms']:.1f} us")
+    log("  library_ms: no single PyTorch call computes either function")
+    if dict(tk.LAUNCHES) == counts_before:
+        raise AssertionError("timing loop launched nothing")
+    log(f"done in {time.perf_counter() - t_start:.1f} s")
+
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""Random-scenario training-data generation (fixed-bridge path)."""
+
+from openpystruct_tpu_torch.datagen.generate import (  # noqa: F401
+    DatagenBatch,
+    generate_batch,
+    generate_dataset,
+    run_batch,
+)
+from openpystruct_tpu_torch.datagen.io import (  # noqa: F401
+    SCHEMA_KEYS,
+    batch_to_columnar,
+    columnar_from_fields,
+    merge_columnar,
+    read_json_dataset,
+    write_json_dataset,
+    write_npz_shard,
+)
+from openpystruct_tpu_torch.datagen.sampler import sample_scenarios  # noqa: F401

@@ -1,0 +1,524 @@
+"""Fused beam FEA kernels: the whole linear-static analysis, and one whole
+Adam iteration, per launch (port of the JAX package's
+``ops/beam_kernel.py`` bending-only kernels).
+
+Two public wrappers keep the JAX launchers' argument order and shapes:
+
+- ``beam_analysis`` (``pallas_beam_analysis``, kernel ``_beam_kernel_b2``):
+  element stiffness -> masked bending-only 2x2 block-tridiagonal assembly
+  -> Jacobi scaling -> block-Thomas factorization (Schur inverses and
+  back-substitution multipliers saved) fused with the forward sweep -> back
+  sweep -> ``refine`` compensated-residual sweeps -> unscaling -> shear V
+  and moment M recovery.  The min Schur pivot keeps its 3-DOF meaning:
+  det3(S_i) = a_i * det2(S_i), with a_i the axial chain's scalar pivot.
+- ``beam_opt_step`` (``pallas_beam_opt_step``, kernel
+  ``_beam_opt_kernel_b2``): the same solve, the combined loss, its
+  gradient (semi, or the exact adjoint: one more substitution pair and
+  ``refine`` sweeps on the saved factors), and the Adam update with clamp.
+
+The straight-beam system is block-diagonal per DOF class: the axial DOF
+couples only to itself and has no load in the scenario schema, so u_x is
+exactly 0 and the 2x2 bending chain carries the whole solution.
+
+Each wrapper sends a CPU tensor to the plain PyTorch version beside it
+(``beam_analysis_reference``, ``beam_opt_step_reference``), and launches the
+CUDA kernel (``csrc/beam_kernel.cu``) on a CUDA tensor, or raises.  There is
+no fallback from the kernel to the plain version.  ``LAUNCHES`` counts
+kernel launches and ``PLAIN_CALLS`` the calls the wrappers sent to the
+plain versions.
+
+The plain versions repeat the kernels' arithmetic in the same order:
+vectorised over the batch and, where no recurrence runs, over the nodes;
+the recurrences are Python loops over nodes.  They are dtype-generic
+(float64 on the CPU in the tests, float32 or float64 on the card in
+``chip_smoke.py``) and use the kernels' analytic gradient formulas, not
+autograd.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from openpystruct_tpu_torch.fem.solve import two_prod, two_sum
+from openpystruct_tpu_torch.ops import _build
+
+LAUNCHES = {"beam_analysis": 0, "beam_opt_step": 0}
+PLAIN_CALLS = {"beam_analysis": 0, "beam_opt_step": 0}
+
+
+def reset_counts() -> None:
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions.  Per-node quantities are (B, n) tensors, one per
+# component; recurrences walk lists of (B,) columns.
+# ---------------------------------------------------------------------------
+
+
+def _stiffness(I, Le, E, EA):
+    """ks per element: EA/Le, 12EI/Le^3, 6EI/Le^2, 4EI/Le, 2EI/Le."""
+    inv_le = 1.0 / Le
+    eil = E * I * inv_le
+    eil2 = eil * inv_le
+    eil3 = eil2 * inv_le
+    return (EA * inv_le, 12.0 * eil3, 6.0 * eil2, 4.0 * eil, 2.0 * eil)
+
+
+def _assemble_b2(ks, Le, free, loads, udl):
+    """Masked bending-only assembly: diag [d_ww, d_wt, d_tt], upper
+    [u00, u01, u10, u11] (row i couples node i to i+1; the last row is 0),
+    RHS [f_w, f_t], and the axial chain's unmasked-diagonal d00 and u00.
+    Constrained rows/columns are zeroed and the original diagonal entry
+    restored on the diagonal."""
+    ea_p, k11_p, k12_p, k13_p, _ = (F.pad(k, (1, 0)) for k in ks)  # elem i-1
+    ea_n, k11_n, k12_n, k13_n, k2_n = (F.pad(k, (0, 1)) for k in ks)  # elem i
+    d11 = k11_p + k11_n
+    d12 = -k12_p + k12_n
+    d22 = k13_p + k13_n
+    f0, f1, f2 = free.unbind(-1)
+    fn0, fn1, fn2 = torch.cat([free[:, 1:], free[:, -1:]], dim=1).unbind(-1)
+    diag = (d11 * (f1 * f1 + (1.0 - f1)), d12 * (f1 * f2),
+            d22 * (f2 * f2 + (1.0 - f2)))
+    upper = (-(k11_n * (f1 * fn1)), k12_n * (f1 * fn2),
+             -(k12_n * (f2 * fn1)), k2_n * (f2 * fn2))
+    # consistent UDL loads + nodal point loads (no axial load exists)
+    Le_p, Le_n = F.pad(Le, (1, 0)), F.pad(Le, (0, 1))
+    w = udl[:, None]
+    fy = (Le_p + Le_n) * w * 0.5 + loads
+    fm = (Le_n * Le_n - Le_p * Le_p) * w / 12.0
+    rhs = (fy * f1, fm * f2)
+    ax = ((ea_p + ea_n) * (f0 * f0 + (1.0 - f0)), -ea_n * (f0 * fn0))
+    return diag, upper, rhs, ax
+
+
+def _scale_b2(diag, upper, rhs):
+    """Jacobi scaling s = rsqrt(diag) of the bending system."""
+    s0, s1 = torch.rsqrt(diag[0]), torch.rsqrt(diag[2])
+    diag = (diag[0] * s0 * s0, diag[1] * s0 * s1, diag[2] * s1 * s1)
+    rhs = (rhs[0] * s0, rhs[1] * s1)
+    one = torch.ones_like(s0[:, :1])
+    n0, n1 = torch.cat([s0[:, 1:], one], 1), torch.cat([s1[:, 1:], one], 1)
+    upper = (upper[0] * s0 * n0, upper[1] * s0 * n1,
+             upper[2] * s1 * n0, upper[3] * s1 * n1)
+    return diag, upper, rhs, (s0, s1)
+
+
+def _inv2_sym(m0, m1, m2):
+    """Inverse and determinant of the symmetric 2x2 [[m0, m1], [m1, m2]]."""
+    det = m0 * m2 - m1 * m1
+    inv_det = 1.0 / det
+    return m2 * inv_det, -(m1 * inv_det), m0 * inv_det, det
+
+
+def _cols(ts):
+    return [list(t.unbind(1)) for t in ts]
+
+
+def _stack(cols):
+    return tuple(torch.stack(c, dim=1) for c in cols)
+
+
+def _factor_b2(diag, upper, rhs, with_c, ax=None):
+    """Block-Thomas factorization of the bending chain fused with the
+    forward sweep.  Returns (sinv, c or None, y, pivot or None); the pivot
+    is min_i a_i |det2(S_i)| when the axial chain ``ax`` is given."""
+    d0, d1, d2 = _cols(diag)
+    u00, u01, u10, u11 = _cols(upper)
+    r0, r1 = _cols(rhs)
+    n = len(d0)
+    s00, s01, s11, det = _inv2_sym(d0[0], d1[0], d2[0])
+    S = [[s00], [s01], [s11]]
+    if with_c:
+        C = [[s00 * u00[0] + s01 * u10[0]], [s00 * u01[0] + s01 * u11[0]],
+             [s01 * u00[0] + s11 * u10[0]], [s01 * u01[0] + s11 * u11[0]]]
+    Y = [[s00 * r0[0] + s01 * r1[0]], [s01 * r0[0] + s11 * r1[0]]]
+    det = torch.abs(det)
+    if ax is not None:
+        a0, a1 = _cols(ax)
+        r = torch.rsqrt(a0[0])
+        a_prev = a0[0] * (r * r)
+        piv = a_prev * det
+    for i in range(1, n):
+        p00, p01, p10, p11 = u00[i - 1], u01[i - 1], u10[i - 1], u11[i - 1]
+        if with_c:
+            w00, w01, w10, w11 = (C[k][i - 1] for k in range(4))
+        else:
+            q00, q01, q11 = S[0][i - 1], S[1][i - 1], S[2][i - 1]
+            w00 = q00 * p00 + q01 * p10
+            w01 = q00 * p01 + q01 * p11
+            w10 = q01 * p00 + q11 * p10
+            w11 = q01 * p01 + q11 * p11
+        # S_i = D_i - U^T W (symmetric)
+        s00, s01, s11, det = _inv2_sym(
+            d0[i] - (p00 * w00 + p10 * w10),
+            d1[i] - (p00 * w01 + p10 * w11),
+            d2[i] - (p01 * w01 + p11 * w11),
+        )
+        S[0].append(s00)
+        S[1].append(s01)
+        S[2].append(s11)
+        if with_c:
+            C[0].append(s00 * u00[i] + s01 * u10[i])
+            C[1].append(s00 * u01[i] + s01 * u11[i])
+            C[2].append(s01 * u00[i] + s11 * u10[i])
+            C[3].append(s01 * u01[i] + s11 * u11[i])
+        # fused forward substitution y_i = Sinv_i (f_i - U^T y_{i-1})
+        y0, y1 = Y[0][i - 1], Y[1][i - 1]
+        q0 = r0[i] - (p00 * y0 + p10 * y1)
+        q1 = r1[i] - (p01 * y0 + p11 * y1)
+        Y[0].append(s00 * q0 + s01 * q1)
+        Y[1].append(s01 * q0 + s11 * q1)
+        if ax is not None:
+            # axial Schur chain a_i = d00s_i - u00s_{i-1}^2 / a_{i-1}
+            r_prev, r_cur = torch.rsqrt(a0[i - 1]), torch.rsqrt(a0[i])
+            u00s = a1[i - 1] * r_prev * r_cur
+            d00s = a0[i] * r_cur * r_cur
+            a_prev = d00s - u00s * u00s / a_prev
+            piv = torch.minimum(piv, a_prev * torch.abs(det))
+    return (_stack(S), _stack(C) if with_c else None, Y,
+            piv if ax is not None else None)
+
+
+def _bsub_b2(X, upper, sinv, c=None):
+    """x_i = y_i - C_i x_{i+1} in place on the column lists ``X`` (C from
+    ``c`` when saved, else Sinv_i (U_i x_{i+1}))."""
+    n = len(X[0])
+    if c is not None:
+        c00, c01, c10, c11 = _cols(c)
+    else:
+        u00, u01, u10, u11 = _cols(upper)
+        s00, s01, s11 = _cols(sinv)
+    for i in range(n - 2, -1, -1):
+        x0, x1 = X[0][i + 1], X[1][i + 1]
+        if c is not None:
+            v0 = c00[i] * x0 + c01[i] * x1
+            v1 = c10[i] * x0 + c11[i] * x1
+        else:
+            t0 = u00[i] * x0 + u01[i] * x1
+            t1 = u10[i] * x0 + u11[i] * x1
+            v0 = s00[i] * t0 + s01[i] * t1
+            v1 = s01[i] * t0 + s11[i] * t1
+        X[0][i] = X[0][i] - v0
+        X[1][i] = X[1][i] - v1
+    return X
+
+
+def _subst_b2(rhs, upper, sinv, c=None):
+    """Solve K_s x = rhs with the saved factors; returns (x0, x1)."""
+    X = _cols(rhs)
+    u00, u01, u10, u11 = _cols(upper)
+    s00, s01, s11 = _cols(sinv)
+    r0, r1 = X[0][0], X[1][0]
+    X[0][0] = s00[0] * r0 + s01[0] * r1
+    X[1][0] = s01[0] * r0 + s11[0] * r1
+    for i in range(1, len(s00)):
+        x0, x1 = X[0][i - 1], X[1][i - 1]
+        r0 = X[0][i] - (u00[i - 1] * x0 + u10[i - 1] * x1)
+        r1 = X[1][i] - (u01[i - 1] * x0 + u11[i - 1] * x1)
+        X[0][i] = s00[i] * r0 + s01[i] * r1
+        X[1][i] = s01[i] * r0 + s11[i] * r1
+    return _stack(_bsub_b2(X, upper, sinv, c))
+
+
+def _refine_b2(refine, diag, upper, sinv, rhs, x, c=None):
+    """``refine`` sweeps: an error-free residual r = rhs - K_s x, one
+    substitution against the saved factors, x += correction."""
+    n = x[0].shape[1]
+    ar = torch.arange(n, device=x[0].device)
+    ip, iq = (ar - 1).clamp(min=0), ar.clamp(max=n - 2)
+    d0, d1, d2 = diag
+    lm = [[upper[0][:, ip], upper[2][:, ip]],
+          [upper[1][:, ip], upper[3][:, ip]]]          # U_{i-1}^T
+    um = [[upper[0][:, iq], upper[1][:, iq]],
+          [upper[2][:, iq], upper[3][:, iq]]]          # U_i
+    md = [[d0, d1], [d1, d2]]
+    for _ in range(refine):
+        x_p = [F.pad(v[:, :-1], (1, 0)) for v in x]
+        x_n = [F.pad(v[:, 1:], (0, 1)) for v in x]
+        work = []
+        for a in range(2):
+            acc_s = rhs[a]
+            acc_c = torch.zeros_like(acc_s)
+            for b in range(2):
+                for mat, vec in ((md, x), (lm, x_p), (um, x_n)):
+                    p, e = two_prod(-mat[a][b], vec[b])
+                    acc_s, e2 = two_sum(acc_s, p)
+                    acc_c = acc_c + e2 + e
+            work.append(acc_s + acc_c)
+        corr = _subst_b2(work, upper, sinv, c)
+        x = (x[0] + corr[0], x[1] + corr[1])
+    return x
+
+
+def _forces(ks, Le, udl, uy, th):
+    """Element end shear V and moment M: k_e [u_i; u_j] - f_eq."""
+    _, k11, k12, k13, k2 = ks
+    uy_i, th_i, uy_j, th_j = uy[:, :-1], th[:, :-1], uy[:, 1:], th[:, 1:]
+    w = udl[:, None]
+    V = k11 * uy_i + k12 * th_i - k11 * uy_j + k12 * th_j - w * Le * 0.5
+    M = (k12 * uy_i + k13 * th_i - k12 * uy_j + k2 * th_j
+         - w * Le * Le / 12.0)
+    return V, M
+
+
+def _solve_b2(I, Le, free, point_loads, udl, E, A, refine, analysis):
+    ks = _stiffness(I, Le, E, E * A)
+    diag, upper, rhs, ax = _assemble_b2(ks, Le, free, point_loads, udl)
+    diag, upper, rhs, s = _scale_b2(diag, upper, rhs)
+    # the analysis saves C and tracks the axial chain; the opt step
+    # recomputes Sinv (U x) in the back sweep and reads no pivot
+    sinv, c, Y, piv = _factor_b2(diag, upper, rhs, with_c=analysis,
+                                 ax=ax if analysis else None)
+    y = _stack(_bsub_b2(Y, upper, sinv, c))
+    y = _refine_b2(refine, diag, upper, sinv, rhs, y, c)
+    return ks, diag, upper, rhs, s, sinv, c, y, piv
+
+
+def beam_analysis_reference(I, Le, free_mask, point_loads, udl, E, A,
+                            refine=1):
+    """Plain version of the fused analysis.  I, Le (B, nelem); free_mask
+    (B, n, 3) 0/1; point_loads (B, n); udl (B,).  Returns u (B, n, 3), V,
+    M (B, nelem), pivot (B,)."""
+    ks, _, _, _, s, _, _, y, piv = _solve_b2(
+        I, Le, free_mask, point_loads, udl, E, A, refine, analysis=True)
+    uy, th = y[0] * s[0], y[1] * s[1]
+    ux = (y[0][:, :1] * 0.0).expand_as(uy)      # u_x == 0 exactly
+    V, M = _forces(ks, Le, udl, uy, th)
+    return torch.stack([ux, uy, th], dim=-1), V, M, piv
+
+
+def beam_opt_step_reference(I, mu, nu, Le, free_mask, point_loads, udl,
+                            lr_t, bc1, bc2, E, A, G, alpha_m=1e-2,
+                            alpha_s=1e-2, clamp_min=1e-8, grad_semi=True,
+                            refine=1):
+    """Plain version of one fused Adam iteration.  Returns I_new, mu_new,
+    nu_new (B, nelem) and stats (B, 4): total, primary, bending, shear."""
+    ks, diag, upper, _, s, sinv, _, y, _ = _solve_b2(
+        I, Le, free_mask, point_loads, udl, E, A, refine, analysis=False)
+    uy, th = y[0] * s[0], y[1] * s[1]
+    V, M = _forces(ks, Le, udl, uy, th)
+
+    den_b = 2.0 * E * I + 1e-6
+    den_s = G * (0.03 * torch.sqrt(I))
+    be = M * M / den_b
+    se = V * V / den_s
+    # explicit dL/dI with M, V held constant: the semi-gradient
+    g = 1.0 - alpha_m * be * 2.0 * E / den_b - alpha_s * 0.5 * se / I
+    if not grad_semi:
+        # loss cotangents on the force fields
+        gV = alpha_s * 2.0 * V / den_s
+        gM = alpha_m * 2.0 * M / den_b
+        # (dK_e/dI_e) u_e rows; also the direct dV/dI, dM/dI at fixed u
+        uy_i, th_i, uy_j, th_j = uy[:, :-1], th[:, :-1], uy[:, 1:], th[:, 1:]
+        c1 = E / (Le * Le * Le)
+        r_uyi = c1 * (12.0 * (uy_i - uy_j) + 6.0 * Le * (th_i + th_j))
+        r_thi = c1 * Le * (6.0 * (uy_i - uy_j)
+                           + Le * (4.0 * th_i + 2.0 * th_j))
+        r_thj = c1 * Le * (6.0 * (uy_i - uy_j)
+                           + Le * (2.0 * th_i + 4.0 * th_j))
+        g = g + gV * r_uyi + gM * r_thi
+        # adjoint RHS g_hat = (dV/du)^T gV + (dM/du)^T gM, masked, scaled
+        gV_p, gM_p = F.pad(gV, (1, 0)), F.pad(gM, (1, 0))
+        gV_n, gM_n = F.pad(gV, (0, 1)), F.pad(gM, (0, 1))
+        nelem = I.shape[1]
+        ar = torch.arange(nelem + 1, device=I.device)
+        jp, jn = (ar - 1).clamp(0, nelem - 1), ar.clamp(0, nelem - 1)
+        k1, k2_, k3, k4 = ks[1], ks[2], ks[3], ks[4]
+        gy = (gV_n * k1[:, jn] + gM_n * k2_[:, jn]
+              - gV_p * k1[:, jp] - gM_p * k2_[:, jp])
+        gt = (gV_n * k2_[:, jn] + gM_n * k3[:, jn]
+              + gV_p * k2_[:, jp] + gM_p * k4[:, jp])
+        ghat = (gy * free_mask[..., 1] * s[0], gt * free_mask[..., 2] * s[1])
+        # K lam = g_hat with the saved factors (K is symmetric)
+        lam = _subst_b2(ghat, upper, sinv)
+        lam = _refine_b2(refine, diag, upper, sinv, ghat, lam)
+        ly, lt = lam[0] * s[0], lam[1] * s[1]
+        g = g - ((ly[:, :-1] - ly[:, 1:]) * r_uyi + lt[:, :-1] * r_thi
+                 + lt[:, 1:] * r_thj)
+
+    stats = torch.stack([I.sum(1) + alpha_m * be.sum(1) + alpha_s * se.sum(1),
+                         I.sum(1), alpha_m * be.sum(1), alpha_s * se.sum(1)],
+                        dim=1)
+    # Adam, torch-identical: bias-corrected moments, post-step clamp on I
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    mu_new = b1 * mu + (1.0 - b1) * g
+    nu_new = b2 * nu + (1.0 - b2) * g * g
+    step = lr_t * (mu_new * bc1) / (torch.sqrt(nu_new * bc2) + eps)
+    I_new = torch.clamp_min(I - step, clamp_min)
+    return I_new, mu_new, nu_new, stats
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("beam_kernel")
+    lib.beam_analysis_f32.argtypes = [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P]
+    lib.beam_opt_step_f32.argtypes = ([_P] * 12 + [_I] * 4 + [_F] * 8
+                                      + [_P])
+    lib.beam_ws_floats_per_node.argtypes = [_I]
+    for fn in (lib.beam_analysis_f32, lib.beam_opt_step_f32,
+               lib.beam_ws_floats_per_node):
+        fn.restype = _I
+    return lib
+
+
+def _check(device, **tensors):
+    """Raise unless every tensor is float32 on ``device`` with the given
+    shape (``name=(tensor, shape)``)."""
+    for name, (t, shape) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernels take float32")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+
+
+def _lanes_last(t):
+    """(B, ...) -> contiguous (..., B): neighbouring threads (lanes) read
+    neighbouring addresses."""
+    return t.movedim(0, -1).contiguous()
+
+
+def _lanes_first(t):
+    return t.movedim(-1, 0).contiguous()
+
+
+def _run(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def launch_beam_analysis(I_t, Le_t, free_t, loads_t, udl, E, A, refine=1):
+    """Launch the analysis kernel on lane-innermost inputs: I_t, Le_t
+    (nelem, B), free_t (n, 3, B), loads_t (n, B), udl (B,), all contiguous
+    float32 on one card.  Returns u_t (n, 3, B), V_t, M_t (nelem, B),
+    pivot (B,)."""
+    nelem, B = I_t.shape
+    n = nelem + 1
+    dev = I_t.device
+    for t in (I_t, Le_t, free_t, loads_t, udl):
+        if not t.is_contiguous():
+            raise ValueError("launch inputs must be contiguous")
+    _check(dev, I_t=(I_t, (nelem, B)), Le_t=(Le_t, (nelem, B)),
+           free_t=(free_t, (n, 3, B)), loads_t=(loads_t, (n, B)),
+           udl=(udl, (B,)))
+    lib = _lib()
+    u = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
+    V = torch.empty((nelem, B), dtype=torch.float32, device=dev)
+    M = torch.empty_like(V)
+    piv = torch.empty((B,), dtype=torch.float32, device=dev)
+    ws = torch.empty((n, lib.beam_ws_floats_per_node(0), B),
+                     dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.beam_analysis_f32(
+            I_t.data_ptr(), Le_t.data_ptr(), free_t.data_ptr(),
+            loads_t.data_ptr(), udl.data_ptr(), u.data_ptr(), V.data_ptr(),
+            M.data_ptr(), piv.data_ptr(), ws.data_ptr(),
+            B, n, int(refine), float(E), float(E * A), stream)
+    _run(rc, "beam_analysis")
+    return u, V, M, piv
+
+
+def launch_beam_opt_step(I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl,
+                         lr_t, bc1, bc2, E, G, alpha_m=1e-2, alpha_s=1e-2,
+                         clamp_min=1e-8, grad_semi=True, refine=1):
+    """Launch the opt-step kernel on lane-innermost inputs (layouts of
+    ``launch_beam_analysis``; mu_t, nu_t (nelem, B)).  Returns I_t, mu_t,
+    nu_t (nelem, B) and stats_t (4, B)."""
+    nelem, B = I_t.shape
+    n = nelem + 1
+    dev = I_t.device
+    for t in (I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl):
+        if not t.is_contiguous():
+            raise ValueError("launch inputs must be contiguous")
+    _check(dev, I_t=(I_t, (nelem, B)), mu_t=(mu_t, (nelem, B)),
+           nu_t=(nu_t, (nelem, B)), Le_t=(Le_t, (nelem, B)),
+           free_t=(free_t, (n, 3, B)), loads_t=(loads_t, (n, B)),
+           udl=(udl, (B,)))
+    lib = _lib()
+    I_o, mu_o, nu_o = (torch.empty_like(I_t) for _ in range(3))
+    stats = torch.empty((4, B), dtype=torch.float32, device=dev)
+    ws = torch.empty((n, lib.beam_ws_floats_per_node(1 if grad_semi else 2),
+                      B), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.beam_opt_step_f32(
+            I_t.data_ptr(), mu_t.data_ptr(), nu_t.data_ptr(),
+            Le_t.data_ptr(), free_t.data_ptr(), loads_t.data_ptr(),
+            udl.data_ptr(), I_o.data_ptr(), mu_o.data_ptr(), nu_o.data_ptr(),
+            stats.data_ptr(), ws.data_ptr(),
+            B, n, int(refine), int(bool(grad_semi)),
+            float(E), float(G), float(alpha_m), float(alpha_s),
+            float(clamp_min), float(lr_t), float(bc1), float(bc2), stream)
+    _run(rc, "beam_opt_step")
+    return I_o, mu_o, nu_o, stats
+
+
+def beam_analysis(I, Le, free_mask, point_loads, udl, E, A, refine=1):
+    """Fused batched beam FEA (``pallas_beam_analysis``).
+
+    I, Le (B, nelem); free_mask (B, n, 3) float 0/1, 1 where the DOF is
+    free; point_loads (B, n) nodal Fy; udl (B,).  Returns u (B, n, 3),
+    V (B, nelem), M (B, nelem) and the min Schur pivot (B,).  CPU tensors
+    run the plain version; CUDA tensors (float32) launch the kernel.
+    """
+    if not I.is_cuda:
+        PLAIN_CALLS["beam_analysis"] += 1
+        return beam_analysis_reference(I, Le, free_mask, point_loads, udl,
+                                       E, A, refine)
+    B, nelem = I.shape
+    _check(I.device, I=(I, (B, nelem)), Le=(Le, (B, nelem)),
+           free_mask=(free_mask, (B, nelem + 1, 3)),
+           point_loads=(point_loads, (B, nelem + 1)), udl=(udl, (B,)))
+    u, V, M, piv = launch_beam_analysis(
+        _lanes_last(I), _lanes_last(Le), _lanes_last(free_mask),
+        _lanes_last(point_loads), udl.contiguous(), E, A, refine)
+    return _lanes_first(u), _lanes_first(V), _lanes_first(M), piv
+
+
+def beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1,
+                  bc2, E, A, G, alpha_m=1e-2, alpha_s=1e-2, clamp_min=1e-8,
+                  grad_semi=True, refine=1):
+    """One fused optimizer iteration for the whole batch
+    (``pallas_beam_opt_step``): solve, combined loss, its gradient (semi or
+    exact adjoint), Adam update and clamp.  ``lr_t``, ``bc1``, ``bc2`` are
+    the epoch's learning rate and bias corrections 1/(1-b1^t), 1/(1-b2^t).
+    Returns I_new, mu_new, nu_new (B, nelem) and stats (B, 4): total,
+    primary, bending energy, shear energy.  CPU tensors run the plain
+    version; CUDA tensors (float32) launch the kernel.
+    """
+    if not I.is_cuda:
+        PLAIN_CALLS["beam_opt_step"] += 1
+        return beam_opt_step_reference(
+            I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1, bc2, E,
+            A, G, alpha_m, alpha_s, clamp_min, grad_semi, refine)
+    B, nelem = I.shape
+    _check(I.device, I=(I, (B, nelem)), mu=(mu, (B, nelem)),
+           nu=(nu, (B, nelem)), Le=(Le, (B, nelem)),
+           free_mask=(free_mask, (B, nelem + 1, 3)),
+           point_loads=(point_loads, (B, nelem + 1)), udl=(udl, (B,)))
+    I_t, mu_t, nu_t, stats = launch_beam_opt_step(
+        _lanes_last(I), _lanes_last(mu), _lanes_last(nu), _lanes_last(Le),
+        _lanes_last(free_mask), _lanes_last(point_loads), udl.contiguous(),
+        lr_t, bc1, bc2, E, G, alpha_m, alpha_s, clamp_min, grad_semi, refine)
+    return (_lanes_first(I_t), _lanes_first(mu_t), _lanes_first(nu_t),
+            _lanes_first(stats))

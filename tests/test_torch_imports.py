@@ -1,0 +1,70 @@
+"""Port hygiene: the port and chip_smoke.py never import JAX or the JAX
+package, and chip_smoke.py fails without a card, printing no result."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "openpystruct_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "openpystruct_tpu")
+FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_pulls_in_no_jax():
+    modules = sorted(
+        "openpystruct_tpu_torch." + ".".join(
+            p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in modules)
+        + "bad = [m for m in sys.modules if m.split('.')[0] in "
+        + repr(FORBIDDEN) + "]\n"
+        + "assert not bad, bad\n"
+        + "print(len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    runs = [(REPO, REPO / "chip_smoke.py")]
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    runs.append((tmp_path, alone))
+    for cwd, script in runs:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env=dict(os.environ, PYTHONPATH=""))
+        assert out.returncode != 0
+        for line in out.stdout.splitlines():
+            if line.startswith("{"):
+                assert "ok" not in json.loads(line)
