@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fixed-bridge datagen path once on one CUDA card.
+"""Drive the PyTorch port's datagen paths once on one CUDA card: the
+fixed bridge, the random bridge and the 201-node mesh with their float64
+rescue.
 
     python3 chip_smoke.py [--seed 0] [--quick]
 
@@ -7,31 +9,50 @@ Phases, each of which raises on failure (exit code not 0):
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``openpystruct_tpu_torch/ops/csrc``;
-3. each kernel against its plain PyTorch version at full width (B = 16384
-   lanes, n = 101): the plain version runs in float64 on the card as the
-   truth, and the kernel's per-lane error, at the median and the 99th
-   percentile, must be no more than twice the plain float32 version's, or
-   1e-5 of the output's per-lane scale, whichever is larger; the validity
-   masks (pivot > 1e-9) must be identical;
+3. each float32 kernel against its plain PyTorch version at full width
+   (B = 16384 lanes, n = 101): the plain version runs in float64 on the
+   card as the truth, and the kernel's per-lane error, at the median and
+   the 99th percentile, must be no more than twice the plain float32
+   version's, or 1e-5 of the output's per-lane scale, whichever is larger;
+   the validity masks (pivot > 1e-9) must be identical;
+3b. each float64 rescue kernel against its plain version (float64 inside,
+   float32 in and out) on 16384 random-bridge lanes plus the four
+   quasi-cantilever lanes float32 cannot solve: per-lane error no more than
+   1e-5 of the lane's scale, pivots within a relative 1e-3; the float32
+   kernel's error on the quasi-cantilever lanes is printed beside them;
 4. the main path: ``generate_dataset`` (DATAGEN_OPT, refine 1, lane
-   compaction) over two 16384-lane batches, the 13-key JSON written and
-   read back, both kernels launched and no plain version called;
+   compaction) over two 16384-lane fixed-bridge batches, the 13-key JSON
+   written and read back, both kernels launched and no plain version
+   called;
+4b. random-bridge ``generate_dataset`` over two 16384-lane batches with the
+   default rescue: at least 99% valid, the lanes the float32 pass kept
+   bitwise equal to a run without rescue, rescued lanes pinned at their
+   supports, every kernel launched, no plain version and no host rescue;
+4c. one 4096-lane fixed-bridge batch at n = 201, where the float32 gate
+   rejects the lanes and the rescue keeps them;
 5. the whole optimizer on 512 lanes with the kernels, with the plain
    float32 path and with the plain float64 path: the kernel path's median
    per-lane loss gap to float64 no more than twice the plain float32
    path's (or 1e-4), mean epochs of the two float32 paths within 5%;
+5b. the rescue in "dd" (float64 kernels) and "f64" (plain float64 on the
+   host) on the same 256 rejected random-bridge lanes, 100 epochs: equal
+   valid masks, equal epochs on the rescued lanes, I within 1e-3 relative
+   (1e-7 absolute), deflections within 1e-3 of the lane's scale;
 6. times: CUDA events, median of 20 launches per kernel, beside the plain
    version's time and the kernel's bound (bytes read once and written
-   once at 3.35 TB/s against the flops at 67 TFLOP/s float32, H100 SXM).
+   once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
+   float64, H100 SXM).
 
-Prints the card line, a JSON line of kernel results, and last
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
-repository, it fails before printing any result.
+``--quick`` stops after phase 3b.  Prints the card line, a JSON line of
+kernel results, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or away from the repository, it fails before printing any result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import shutil
 import statistics
@@ -45,13 +66,19 @@ SOURCE = "openpystruct_tpu_torch/ops/csrc/beam_kernel.cu"
 REPLACES = {
     "beam_analysis": "openpystruct_tpu/ops/beam_kernel.py:751",
     "beam_opt_step": "openpystruct_tpu/ops/beam_kernel.py:819",
+    "beam_analysis_dd": "openpystruct_tpu/ops/beam_kernel_dd.py:337",
+    "beam_opt_step_dd": "openpystruct_tpu/ops/beam_kernel_dd.py:376",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+F64_FLOPS_PER_S = 34e12        # H100 SXM, float64 outside the tensor cores
 PIVOT_TOL = 1e-9
 BATCH = 16384          # lanes per batch: the JAX package's datagen batch
 SAMPLES = 2 * BATCH    # two batches on the main path
 CHECK_BATCH = 512      # lanes of the whole-optimizer check (phase 5)
+FINE_BATCH = 4096      # lanes of the 201-node batch (phase 4c)
+RESCUE_CHECK = 256     # rejected lanes of the dd vs f64 check (phase 5b)
+DD_TOL = 1e-5          # float64 kernel vs plain, of the lane's scale
 
 
 def log(*a):
@@ -68,10 +95,17 @@ def log(*a):
 #   force recovery 23, loss 23, Adam 15;
 #   adjoint extra: force cotangents 27, g_hat 16, stash 27, substitution,
 #   `refine` sweeps, banded products 12.
+# The float64 kernels (kinds "analysis_dd", "opt_dd") run stiffness,
+# assembly with the axial chain, scaling, the factor without C with the
+# axial pivot, the back sweep without C and force recovery, no refinement;
+# the opt step adds loss and Adam, all counted at the float64 rate.
 # ---------------------------------------------------------------------------
 
 
 def flops_per_lane(n, refine, kind):
+    if kind in ("analysis_dd", "opt_dd"):
+        per_node = 10 + 32 + 7 + 20 + 45 + 13 + 14 + 23
+        return (per_node + (23 + 15 if kind == "opt_dd" else 0)) * n
     with_c = kind == "analysis"
     bsub = 8 if with_c else 14
     subst = 14 + bsub
@@ -88,19 +122,21 @@ def flops_per_lane(n, refine, kind):
 
 def bytes_per_lane(n, kind):
     nelem = n - 1
-    # I, Le, free (n, 3), loads (n), udl
+    # I, Le, free (n, 3), loads (n), udl: float32 in every kernel
     inputs = 2 * nelem + 3 * n + n + 1
-    if kind == "analysis":
+    if kind.startswith("analysis"):
         outputs = 3 * n + 2 * nelem + 1            # u, V, M, pivot
     else:
         inputs += 2 * nelem                        # mu, nu
         outputs = 3 * nelem + 4                    # I, mu, nu, stats
+        outputs += kind == "opt_dd"                # pivot
     return 4 * (inputs + outputs)
 
 
 def bound_ms(B, n, refine, kind):
+    rate = F64_FLOPS_PER_S if kind.endswith("_dd") else F32_FLOPS_PER_S
     t_bytes = B * bytes_per_lane(n, kind) / HBM_BYTES_PER_S
-    t_ops = B * flops_per_lane(n, refine, kind) / F32_FLOPS_PER_S
+    t_ops = B * flops_per_lane(n, refine, kind) / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -207,6 +243,157 @@ def check_kernels(torch, tk, inputs, scalars, E, A, G, refine):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 3b: the float64 rescue kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def quasi_cantilever(torch, BeamScenario, constraint_mask, gen, device):
+    """The four lanes of tests/test_beam_kernel_dd.py float32 cannot solve:
+    one roller 1-5 nodes from the pin leaves a ~195 m overhang; I is a mild
+    ripple around 0.05.  Inputs in make_inputs' layout, float32."""
+    n = 101
+    node_x = torch.linspace(0.0, 200.0, n, dtype=torch.float64).repeat(4, 1)
+    roller = torch.zeros((4, n), dtype=torch.bool)
+    loads = torch.zeros((4, n), dtype=torch.float64)
+    for b, r in enumerate((1, 2, 3, 5)):
+        roller[b, r] = True
+        loads[b, 60 + 5 * b] = -3.5e5
+    sc = BeamScenario(node_x=node_x, roller_mask=roller, point_loads=loads,
+                      udl=torch.full((4,), -1000.0, dtype=torch.float64))
+    x = dict(
+        I=0.05 * (0.8 + 0.4 * torch.rand((4, n - 1), generator=gen)),
+        mu=torch.randn((4, n - 1), generator=gen) * 0.1,
+        nu=torch.rand((4, n - 1), generator=gen) * 1e-2 + 1e-4,
+        Le=torch.diff(node_x, dim=-1), free=(~constraint_mask(sc)).double(),
+        loads=loads, udl=sc.udl,
+    )
+    return {k: v.to(device=device, dtype=torch.float32) for k, v in x.items()}
+
+
+def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G):
+    """Both float64 kernels (wrappers) against their plain versions on the
+    same float32 inputs; the last ``n_qc`` lanes are the quasi-cantilever
+    ones.  Returns max abs errors per kernel."""
+    ana = [inputs[k] for k in ("I", "Le", "free", "loads", "udl")]
+    opt = [inputs[k] for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
+    kern = tkd.beam_analysis_dd(*ana, E, A)
+    plain = tkd.beam_analysis_dd_reference(*ana, E, A)
+    kern_o = tkd.beam_opt_step_dd(*opt, *scalars, E, A, G)
+    plain_o = tkd.beam_opt_step_dd_reference(*opt, *scalars, E, A, G)
+    torch.cuda.synchronize()
+    B = ana[0].shape[0]
+    log(f"phase 3b: float64 kernels vs plain float64 versions, {B} lanes "
+        f"({B - n_qc} random-bridge + {n_qc} quasi-cantilever)")
+    for name, k, p in (("u", kern[0], plain[0]), ("V", kern[1], plain[1]),
+                       ("M", kern[2], plain[2]), ("I_new", kern_o[0],
+                                                  plain_o[0]),
+                       ("mu", kern_o[1], plain_o[1]),
+                       ("nu", kern_o[2], plain_o[2]),
+                       ("stats", kern_o[3], plain_o[3])):
+        e = lane_errors(torch, k, p.double())
+        worst = e.max().item()
+        log(f"  {name:>6}: per-lane err p50 {e.quantile(0.5).item():.3e} p99 "
+            f"{e.quantile(0.99).item():.3e} max {worst:.3e}")
+        if not worst <= DD_TOL:
+            raise AssertionError(f"{name}: float64 kernel error {worst:.3e} "
+                                 f"exceeds {DD_TOL:.0e} of the lane's scale")
+    for name, k, p in (("analysis", kern[3], plain[3]),
+                       ("opt step", kern_o[4], plain_o[4])):
+        ratio = k.double() / p.double()
+        log(f"  pivot ratio kernel/plain ({name}): min "
+            f"{ratio.min().item():.9f} max {ratio.max().item():.9f}")
+        if not ((ratio - 1.0).abs() <= 1e-3).all():
+            raise AssertionError(f"{name} pivot off by more than 1e-3")
+    # the lanes the rescue exists for: the float32 kernel fails on them
+    qc = [t[-n_qc:] for t in ana]
+    u32 = tk.beam_analysis(*qc, E, A, 1)[0]
+    torch.cuda.synchronize()
+    truth = plain[0][-n_qc:, :, 1].double()
+    e32 = lane_errors(torch, u32[..., 1], truth).tolist()
+    e64 = lane_errors(torch, kern[0][-n_qc:, :, 1], truth).tolist()
+    log("  quasi-cantilever deflection error per lane: float32 kernel "
+        + ", ".join(f"{e:.3e}" for e in e32) + " | float64 kernel "
+        + ", ".join(f"{e:.3e}" for e in e64) + " | float64 pivots "
+        + ", ".join(f"{p:.3e}" for p in plain[3][-n_qc:].tolist()))
+    return {"beam_analysis_dd": (kern[0].double() - plain[0].double())
+            .abs().max().item(),
+            "beam_opt_step_dd": (kern_o[0].double() - plain_o[0].double())
+            .abs().max().item()}
+
+
+# ---------------------------------------------------------------------------
+# Phases 4b, 4c, 5b: the rescue
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_rescues(torch, gen_mod, record):
+    """Record mode, rejected lanes and wall seconds of every rescue the
+    datagen entry points run inside the block."""
+    orig = gen_mod._rescue_local
+
+    def timed(batch, beam_cfg, opt_cfg, mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rejected = int((~batch.valid).sum())
+        out = orig(batch, beam_cfg, opt_cfg, mode)
+        torch.cuda.synchronize()
+        record.append(dict(mode=mode, rejected=rejected,
+                           seconds=time.perf_counter() - t0))
+        return out
+
+    gen_mod._rescue_local = timed
+    try:
+        yield record
+    finally:
+        gen_mod._rescue_local = orig
+
+
+def check_supports(torch, batch, lanes):
+    """Exact zero deflection at the pin and the rollers, and u_x == 0, on
+    the selected lanes; finite I."""
+    sol = batch.result.solution
+    defl = sol.deflections[lanes]
+    if not ((defl[:, 0] == 0).all()
+            and (defl[batch.scenario.roller_mask[lanes]] == 0).all()
+            and (sol.displacements[lanes][..., 0] == 0).all()):
+        raise AssertionError("nonzero displacement at a support")
+    if not torch.isfinite(batch.result.I[lanes]).all():
+        raise AssertionError("non-finite I on a kept lane")
+
+
+def check_rescued(torch, batch, first):
+    """``batch`` (rescued) against ``first`` (the same draws, no rescue):
+    the float32-kept lanes bitwise unchanged, the rescued lanes pinned at
+    their supports.  Returns the number of rescued lanes."""
+    kept = first.valid
+    if not batch.valid[kept].all():
+        raise AssertionError("a lane the float32 pass kept was dropped")
+    for a, b in ((batch.result.I, first.result.I),
+                 (batch.result.n_epochs, first.result.n_epochs),
+                 (batch.result.solution.deflections,
+                  first.result.solution.deflections)):
+        if not torch.equal(a[kept], b[kept]):
+            raise AssertionError("the rescue changed a float32-kept lane")
+    rescued = batch.valid & ~kept
+    check_supports(torch, batch, rescued)
+    return int(rescued.sum())
+
+
+def reset_counts(*modules):
+    for m in modules:
+        m.reset_counts()
+
+
+def read_counts(*modules):
+    launches, plain = {}, {}
+    for m in modules:
+        launches.update(m.LAUNCHES)
+        plain.update(m.PLAIN_CALLS)
+    return launches, plain
+
+
 def profile_batch(torch, run_batch, sample_scenarios, seed, B, beam, opt,
                   refine):
     """One batch program under torch.profiler: the device's busy share of
@@ -243,9 +430,11 @@ def profile_batch(torch, run_batch, sample_scenarios, seed, B, beam, opt,
             f"{e.key[:60]}")
 
 
-def make_inputs(torch, sample_scenarios, constraint_mask, seed, B, device):
+def make_inputs(torch, sample_scenarios, constraint_mask, seed, B, device,
+                cfg=None):
     gen = torch.Generator().manual_seed(seed)
-    sc = sample_scenarios(gen, B, device=device, dtype=torch.float32)
+    kw = {} if cfg is None else dict(cfg=cfg)
+    sc = sample_scenarios(gen, B, device=device, dtype=torch.float32, **kw)
     nelem = sc.num_nodes - 1
     # I lognormal around 0.5 (bench.py's inputs); Adam moments of a few
     # epochs' scale
@@ -264,7 +453,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quick", action="store_true",
-                    help="phases 1-3 only (a first check of a new kernel)")
+                    help="phases 1-3b only (a first check of a new kernel)")
     args = ap.parse_args(argv)
 
     import torch
@@ -274,18 +463,25 @@ def main(argv=None) -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from openpystruct_tpu_torch.config import DATAGEN_OPT, BeamConfig
+    from openpystruct_tpu_torch.config import (
+        DATAGEN_OPT,
+        BeamConfig,
+        ScenarioConfig,
+    )
     from openpystruct_tpu_torch.datagen import (
         SCHEMA_KEYS,
+        generate_batch,
         generate_dataset,
         read_json_dataset,
         run_batch,
         sample_scenarios,
         write_json_dataset,
     )
-    from openpystruct_tpu_torch.fem.beam import constraint_mask
+    from openpystruct_tpu_torch.datagen import generate as gen_mod
+    from openpystruct_tpu_torch.fem.beam import BeamScenario, constraint_mask
     from openpystruct_tpu_torch.ops import _build
     from openpystruct_tpu_torch.ops import beam_kernel as tk
+    from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
     from openpystruct_tpu_torch.opt.beam_opt import (
         _adam_scalars,
         optimize_beam_batched,
@@ -329,6 +525,16 @@ def main(argv=None) -> int:
     n = inputs["I"].shape[1] + 1
     scalars = _adam_scalars(DATAGEN_OPT, 3, torch.float32)
     errs = check_kernels(torch, tk, inputs, scalars, E, A, G, refine)
+
+    # ---- phase 3b: the float64 rescue kernels against their plain versions
+    rb_cfg = ScenarioConfig(random_bridge=True)
+    rb_inputs = make_inputs(torch, sample_scenarios, constraint_mask,
+                            args.seed + 3, B, dev, cfg=rb_cfg)
+    qc = quasi_cantilever(torch, BeamScenario, constraint_mask,
+                          torch.Generator().manual_seed(args.seed + 4), dev)
+    errs.update(check_dd_kernels(
+        torch, tk, tkd, {k: torch.cat([rb_inputs[k], qc[k]]) for k in qc},
+        4, scalars, E, A, G))
     if args.quick:
         log(f"quick check passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -354,17 +560,17 @@ def main(argv=None) -> int:
         if not (res.solution.displacements[..., 0] == 0).all():
             raise AssertionError("nonzero axial displacement")
 
-    tk.reset_counts()
+    reset_counts(tk, tkd)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cols = generate_dataset(args.seed, SAMPLES, batch_size=BATCH,
                             device="cuda", on_batch=on_batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(tk.LAUNCHES)
-    plain = dict(tk.PLAIN_CALLS)
+    launches, plain = read_counts(tk, tkd)
     log(f"  launches {launches} plain calls {plain}")
-    if not all(v > 0 for v in launches.values()):
+    # the default rescue is off for the fixed bridge at n = 101
+    if not (launches["beam_analysis"] > 0 and launches["beam_opt_step"] > 0):
         raise AssertionError(f"a kernel was not launched: {launches}")
     if any(v != 0 for v in plain.values()):
         raise AssertionError(f"a plain version ran on the main path: {plain}")
@@ -403,6 +609,77 @@ def main(argv=None) -> int:
     log(f"  JSON {size_mb:.1f} MiB: write {t_write:.1f} s, read "
         f"{t_read:.1f} s, {len(SCHEMA_KEYS)} keys x {valid} rows")
 
+    # ---- phase 4b: random-bridge datagen with the rescue on the card -------
+    log(f"phase 4b: random-bridge generate_dataset(seed={args.seed}, "
+        f"{SAMPLES}, batch_size={BATCH}), default rescue")
+    rescues, batches = [], []
+    reset_counts(tk, tkd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_rescues(torch, gen_mod, rescues):
+        cols_rb = generate_dataset(args.seed, SAMPLES, batch_size=BATCH,
+                                   scen_cfg=rb_cfg, device="cuda",
+                                   on_batch=batches.append)
+    torch.cuda.synchronize()
+    wall_rb = time.perf_counter() - t0
+    launches_rb, plain_rb = read_counts(tk, tkd)
+    log(f"  launches {launches_rb} plain calls {plain_rb}")
+    if not all(v > 0 for v in launches_rb.values()):
+        raise AssertionError(f"a kernel was not launched: {launches_rb}")
+    if any(v != 0 for v in plain_rb.values()):
+        raise AssertionError(f"a plain version ran: {plain_rb}")
+    if [r["mode"] for r in rescues] != ["dd"] * len(batches):
+        raise AssertionError(f"the rescue did not run on the card: {rescues}")
+    lanes_rb = sum(b.valid.numel() for b in batches)
+    valid_rb = sum(int(b.valid.sum()) for b in batches)
+    rejected = sum(r["rejected"] for r in rescues)
+    t_rescue = sum(r["seconds"] for r in rescues)
+    # the same draws without the rescue: the float32 pass alone
+    gen = torch.Generator().manual_seed(args.seed)
+    firsts = [generate_batch(gen, b.valid.numel(), rb_cfg, rescue=False,
+                             device="cuda") for b in batches]
+    rescued = sum(check_rescued(torch, b, f) for b, f in zip(batches, firsts))
+    log(f"  float32 pass rejected {rejected}/{lanes_rb} "
+        f"({rejected / lanes_rb:.4f}); rescued {rescued} | rescue wall "
+        f"{t_rescue:.2f} s (" + ", ".join(f"{r['seconds']:.2f}"
+                                         for r in rescues) + ")")
+    log(f"  valid {valid_rb}/{lanes_rb} ({valid_rb / lanes_rb:.4f}) | "
+        f"{valid_rb / wall_rb:.1f} valid samples/s | wall {wall_rb:.2f} s")
+    if valid_rb < 0.99 * lanes_rb:
+        raise AssertionError(f"valid share {valid_rb / lanes_rb:.4f} < 0.99")
+    if len(cols_rb["I_values"]) != valid_rb or len(set(cols_rb["L"])) < (
+            0.99 * valid_rb):
+        raise AssertionError("dataset rows or per-lane L do not match")
+
+    # ---- phase 4c: a mesh finer than 101 nodes ---------------------------
+    fine_cfg = ScenarioConfig(num_nodes=201)
+    log(f"phase 4c: generate_batch({FINE_BATCH}, num_nodes=201), default "
+        "rescue")
+    rescues = []
+    reset_counts(tk, tkd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_rescues(torch, gen_mod, rescues):
+        fine = generate_batch(torch.Generator().manual_seed(args.seed),
+                              FINE_BATCH, fine_cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall_fine = time.perf_counter() - t0
+    launches_fine, plain_fine = read_counts(tk, tkd)
+    if (not all(v > 0 for v in launches_fine.values())
+            or any(v != 0 for v in plain_fine.values())
+            or [r["mode"] for r in rescues] != ["dd"]):
+        raise AssertionError(f"n=201 did not run the kernels only: "
+                             f"{launches_fine} {plain_fine} {rescues}")
+    valid_fine = int(fine.valid.sum())
+    check_supports(torch, fine, fine.valid)
+    log(f"  float32 pass rejected {rescues[0]['rejected']}/{FINE_BATCH}; "
+        f"valid {valid_fine}/{FINE_BATCH} ({valid_fine / FINE_BATCH:.4f}) | "
+        f"wall {wall_fine:.2f} s, rescue {rescues[0]['seconds']:.2f} s | "
+        f"mean epochs {fine.result.n_epochs.double().mean().item():.2f} | "
+        f"launches {launches_fine}")
+    if valid_fine == 0:
+        raise AssertionError("n=201 kept no lane")
+
     # ---- phase 5: the whole optimizer, kernels vs plain -------------------
     log(f"phase 5: optimize_beam_batched on {CHECK_BATCH} lanes: "
         "kernels, plain f32, plain f64")
@@ -432,6 +709,40 @@ def main(argv=None) -> int:
     if not abs(ep["kernel"] - ep["plain32"]) <= 0.05 * ep["plain32"]:
         raise AssertionError(f"mean epochs differ: {ep}")
 
+    # ---- phase 5b: the rescue in float64 kernels vs float64 on the host --
+    opt100 = dataclasses.replace(DATAGEN_OPT, max_epochs=100)
+    bad = torch.nonzero(~firsts[0].valid).flatten()[:RESCUE_CHECK]
+    first = run_batch(firsts[0].scenario.map(lambda x: x[bad]), beam, opt100,
+                      refine)
+    log(f"phase 5b: rescue 'dd' vs 'f64' on {bad.numel()} rejected "
+        f"random-bridge lanes ({int((~first.valid).sum())} rejected at "
+        "max_epochs 100)")
+    out, secs = {}, {}
+    for mode in ("dd", "f64"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[mode] = gen_mod._rescue_local(first, beam, opt100, mode)
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+    bd, bf = out["dd"], out["f64"]
+    if not torch.equal(bd.valid, bf.valid):
+        raise AssertionError("dd and f64 rescues keep different lanes")
+    resc = bd.valid & ~first.valid
+    if not torch.equal(bd.result.n_epochs[resc], bf.result.n_epochs[resc]):
+        raise AssertionError("dd and f64 rescues stop at different epochs")
+    I_d, I_f = bd.result.I[resc].double(), bf.result.I[resc].double()
+    if not ((I_d - I_f).abs() <= 1e-7 + 1e-3 * I_f.abs()).all():
+        raise AssertionError("dd and f64 rescues reach different I")
+    d_gap = lane_errors(torch, bd.result.solution.deflections[resc],
+                        bf.result.solution.deflections[resc].double())
+    if not (d_gap < 1e-3).all():
+        raise AssertionError("dd and f64 rescues reach other deflections")
+    log(f"  valid masks equal ({int(bd.valid.sum())}/{bd.valid.numel()}); "
+        f"{int(resc.sum())} rescued lanes, epochs equal | max I gap "
+        f"{((I_d - I_f).abs() / I_f.abs()).max().item():.3e} rel | max "
+        f"deflection gap {d_gap.max().item():.3e} of lane scale | dd "
+        f"{secs['dd']:.2f} s, f64 {secs['f64']:.2f} s")
+
     # ---- phase 6: times -----------------------------------------------------
     log(f"phase 6: times at B={B}, n={n} (CUDA events, median)")
     lanes_last, lanes_first = tk._lanes_last, tk._lanes_first
@@ -440,7 +751,12 @@ def main(argv=None) -> int:
     ana_t = [lanes_last(x) for x in ana[:-1]] + [ana[-1]]
     opt_t = [lanes_last(x) for x in opt[:-1]] + [opt[-1]]
     opt_kw = dict(grad_semi=True, refine=refine)
-    counts_before = dict(tk.LAUNCHES)
+    rb_ana = [rb_inputs[k] for k in ("I", "Le", "free", "loads", "udl")]
+    rb_opt = [rb_inputs[k]
+              for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
+    rb_ana_t = [lanes_last(x) for x in rb_ana[:-1]] + [rb_ana[-1]]
+    rb_opt_t = [lanes_last(x) for x in rb_opt[:-1]] + [rb_opt[-1]]
+    counts_before = read_counts(tk, tkd)[0]
     cases = {
         "beam_analysis": dict(
             wrapper=lambda: tk.beam_analysis(*ana, E, A, refine),
@@ -460,7 +776,29 @@ def main(argv=None) -> int:
             plain=lambda: tk.beam_opt_step_reference(*opt, *scalars, E, A,
                                                      G, **opt_kw),
             kind="semi"),
+        # the rescue's kernels on random-bridge lanes (phase 3b's inputs)
+        "beam_analysis_dd": dict(
+            wrapper=lambda: tkd.beam_analysis_dd(*rb_ana, E, A),
+            kernel=lambda: tkd.launch_beam_analysis_dd(*rb_ana_t, E, A),
+            layout=lambda: ([lanes_last(x) for x in rb_ana[:-1]],
+                            [lanes_first(x) for x in (
+                                rb_ana_t[2], rb_ana_t[0], rb_ana_t[0])]),
+            plain=lambda: tkd.beam_analysis_dd_reference(*rb_ana, E, A),
+            kind="analysis_dd"),
+        "beam_opt_step_dd": dict(
+            wrapper=lambda: tkd.beam_opt_step_dd(*rb_opt, *scalars, E, A, G),
+            kernel=lambda: tkd.launch_beam_opt_step_dd(*rb_opt_t, *scalars,
+                                                       E, A, G),
+            layout=lambda: ([lanes_last(x) for x in rb_opt[:-1]],
+                            [lanes_first(x) for x in rb_opt_t[:3]]),
+            plain=lambda: tkd.beam_opt_step_dd_reference(*rb_opt, *scalars,
+                                                         E, A, G),
+            kind="opt_dd"),
     }
+    # launches on each kernel's main path: the fixed bridge (phase 4) for
+    # the float32 kernels, the random bridge (phase 4b) for the float64 ones
+    path_launches = dict(launches, beam_analysis_dd=launches_rb[
+        "beam_analysis_dd"], beam_opt_step_dd=launches_rb["beam_opt_step_dd"])
     adjoint_ms = time_ms(torch, lambda: tk.launch_beam_opt_step(
         *opt_t, *scalars, E, G, grad_semi=False, refine=refine), 20)
     kernels = []
@@ -470,13 +808,13 @@ def main(argv=None) -> int:
         t_layout = time_ms(torch, c["layout"], 20)
         t_plain = time_ms(torch, c["plain"], 5, warmup=1)
         b_ms, b_by = bound_ms(B, n, refine, c["kind"])
-        per_batch = launches[name] / n_batches
+        per_batch = path_launches[name] / n_batches
         log(f"  {name}: wrapper {t_wrap:.3f} ms = kernel {t_kern:.3f} ms + "
             f"layout ~{t_layout:.3f} ms | plain {t_plain:.3f} ms | bound "
             f"{1e3 * b_ms:.1f} us ({b_by}) | {per_batch:.1f} launches/batch")
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=errs[name], ms=t_wrap,
+            launches=path_launches[name], max_abs_err=errs[name], ms=t_wrap,
             plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
             kernel_only_ms=t_kern, layout_ms=t_layout,
             launches_per_batch=per_batch,
@@ -485,8 +823,9 @@ def main(argv=None) -> int:
     kernels[1]["adjoint_bound_ms"] = bound_ms(B, n, refine, "adjoint")[0]
     log(f"  beam_opt_step adjoint: kernel {adjoint_ms:.3f} ms | bound "
         f"{1e3 * kernels[1]['adjoint_bound_ms']:.1f} us")
-    log("  library_ms: no single PyTorch call computes either function")
-    if dict(tk.LAUNCHES) == counts_before:
+    log("  library_ms: no single PyTorch call computes any of the four "
+        "functions")
+    if read_counts(tk, tkd)[0] == counts_before:
         raise AssertionError("timing loop launched nothing")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 

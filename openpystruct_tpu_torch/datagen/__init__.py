@@ -1,4 +1,5 @@
-"""Random-scenario training-data generation (fixed-bridge path)."""
+"""Random-scenario training-data generation: fixed and random bridges, any
+mesh size, with the float64 rescue of the lanes the float32 gate rejects."""
 
 from openpystruct_tpu_torch.datagen.generate import (  # noqa: F401
     DatagenBatch,

@@ -1,5 +1,4 @@
-"""Batched training-data generation (port of ``datagen/generate.py``,
-fixed-bridge path).
+"""Batched training-data generation (port of ``datagen/generate.py``).
 
 One batch: draw scenarios, optimize every lane's I field (one fused kernel
 launch per epoch, with lane compaction for large batches), and keep the
@@ -7,14 +6,30 @@ lanes that pass the validity gate: finite values and a min Schur pivot
 above ``pivot_tol``, the on-device analog of the reference dropping a sample
 when ``ops.analyze`` fails (MultiCore.py:184-186).
 
-Not ported yet: the random-bridge and n > 101 rescue, which re-optimizes
-pivot-rejected lanes in double-double (JAX) arithmetic, and the native JSON
-writer; asking for them raises ``NotImplementedError``.
+Random-bridge scenarios (one roller near the pin plus the 1e-8 I clamp) and
+fixed-span meshes finer than 101 nodes (cond ~ n^4) are valid but
+ill-conditioned: the float32 gate rejects about a third of a random-bridge
+batch and every lane at n = 201, where float64 OpenSees keeps them.  The
+**rescue**, on by default in those two regimes, re-optimizes the rejected
+lanes from I0 with the full epoch budget in float64-grade arithmetic and
+merges them back:
+
+- ``rescue="dd"`` (the default on the card): the float64 fused kernels
+  (``ops/beam_kernel_dd.py``), on the device, with lane compaction;
+- ``rescue="f64"`` (the default for CPU batches, and for adjoint mode, which
+  the float64 kernels do not implement): the plain split path on the CPU in
+  float64, the arithmetic the reference runs for every sample.
+
+Rescued lanes are valid when finite with a pivot above ``RESCUE_PIVOT_TOL``.
+The JAX package's multi-host rescue (each process rescuing its own shard)
+waits for the port's distribution slice; the native JSON writer is not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Optional
 
 import torch
@@ -27,12 +42,15 @@ from openpystruct_tpu_torch.config import (
 )
 from openpystruct_tpu_torch.datagen.io import batch_to_columnar, merge_columnar
 from openpystruct_tpu_torch.datagen.sampler import sample_scenarios
+from openpystruct_tpu_torch.device import resolve_device
 from openpystruct_tpu_torch.fem.beam import BeamScenario, beam_min_pivot
+from openpystruct_tpu_torch.ops.beam_kernel_dd import fits_dd
 from openpystruct_tpu_torch.opt.beam_opt import (
     BeamOptResult,
     optimize_beam_batched,
     optimize_beam_compact,
 )
+from openpystruct_tpu_torch.opt.loss import LossComponents
 
 
 @dataclasses.dataclass
@@ -61,19 +79,140 @@ def run_batch(scenario: BeamScenario, beam_cfg: BeamConfig,
         pivot = res.pivot   # the fused analysis measured it
     else:
         pivot = beam_min_pivot(res.I_solved, scenario, beam_cfg.E, beam_cfg.A)
-    finite = (torch.isfinite(res.I).all(-1)
-              & torch.isfinite(res.solution.displacements).all(-1).all(-1))
     return DatagenBatch(scenario=scenario, result=res,
-                        valid=finite & (pivot > pivot_tol), residual=pivot)
+                        valid=_finite(res) & (pivot > pivot_tol),
+                        residual=pivot)
 
 
-def _check_supported(scen_cfg: ScenarioConfig, rescue) -> None:
-    if scen_cfg.random_bridge or scen_cfg.num_nodes > 101 or rescue:
-        raise NotImplementedError(
-            "random-bridge, num_nodes > 101 and rescue datagen need the "
-            "double-double rescue kernels (openpystruct_tpu "
-            "ops/beam_kernel_dd.py), which are not ported yet"
-        )
+def _finite(res: BeamOptResult):
+    """(B,) True where I and the displacements are finite."""
+    return (torch.isfinite(res.I).all(-1)
+            & torch.isfinite(res.solution.displacements).all(-1).all(-1))
+
+
+# Validity floor for rescued lanes (the JAX package's value and reasoning):
+# rescued random-bridge lanes' float64 pivots sit in [7.5e-10, 1.3e-5], pure
+# conditioning spread, while a singular system collapses to the round-off
+# floor (~1e-16-scale in float64); 1e-12 splits the two with a decade of
+# margin on each side.
+RESCUE_PIVOT_TOL = 1e-12
+
+
+def _gather_scenario(scenario: BeamScenario, gidx) -> BeamScenario:
+    return scenario.map(lambda x: x[gidx])
+
+
+def _rescued(res: BeamOptResult, pivot) -> dict:
+    """The fields the merge writes back, with the rescue's validity."""
+    sol = res.solution
+    return dict(
+        I=res.I, I_solved=res.I_solved, displacements=sol.displacements,
+        deflections=sol.deflections, rotations=sol.rotations,
+        shear=sol.shear_forces, moment=sol.bending_moments,
+        loss=torch.stack([res.loss.total, res.loss.primary,
+                          res.loss.bending_energy, res.loss.shear_energy]),
+        n_epochs=res.n_epochs, converged=res.converged, pivot=pivot,
+        valid=_finite(res) & (pivot > RESCUE_PIVOT_TOL),
+    )
+
+
+def _dd_rescue(scenario: BeamScenario, beam_cfg: BeamConfig,
+               opt_cfg: OptimizerConfig) -> dict:
+    """Float64 re-optimization of rejected lanes with the fused float64
+    kernels, on the scenarios' device: a cold start from I0 in float32 with
+    the full epoch budget, the trajectory the host float64 rescue computes."""
+    B, nelem = scenario.node_x.shape[0], scenario.num_nodes - 1
+    I0 = torch.full((B, nelem), beam_cfg.I0, dtype=torch.float32,
+                    device=scenario.node_x.device)
+    res = optimize_beam_compact(scenario, beam_cfg, opt_cfg, I0=I0, dd=True,
+                                min_bucket=256)
+    return _rescued(res, res.pivot)   # the float64 pivot of the final solve
+
+
+def _f64_rescue(scenario: BeamScenario, beam_cfg: BeamConfig,
+                opt_cfg: OptimizerConfig) -> dict:
+    """Float64 re-optimization of rejected lanes on the host CPU with the
+    plain split path (any grad_mode), cast to float32 and put back on the
+    scenarios' device.  For these lanes this is the reference's own
+    computation: its torch/OpenSees loop is float64 throughout."""
+    device = scenario.node_x.device
+    scen64 = scenario.map(lambda x: (x.to(torch.float64)
+                                     if x.is_floating_point() else x).cpu())
+    B, nelem = scen64.node_x.shape[0], scen64.num_nodes - 1
+    I0 = torch.full((B, nelem), beam_cfg.I0, dtype=torch.float64)
+    res = optimize_beam_compact(scen64, beam_cfg, opt_cfg, I0=I0, fused=False,
+                                min_bucket=32)
+    pivot = beam_min_pivot(res.I_solved, scen64, beam_cfg.E, beam_cfg.A)
+    return {k: (v.to(torch.float32) if v.is_floating_point() else v)
+            .to(device) for k, v in _rescued(res, pivot).items()}
+
+
+def _merge_rescued(batch: DatagenBatch, sub: dict, put) -> DatagenBatch:
+    """A copy of ``batch`` with the rescued lanes scattered back.  ``put``
+    holds the batch size on padding positions, whose rows are dropped."""
+    keep = put < batch.valid.shape[0]
+    idx = put[keep]
+
+    def sc(dst, src):
+        if dst is None:
+            return None
+        out = dst.clone()
+        out[idx] = src[keep].to(dst.dtype)
+        return out
+
+    res, sol = batch.result, batch.result.solution
+    sol = dataclasses.replace(
+        sol,
+        displacements=sc(sol.displacements, sub["displacements"]),
+        deflections=sc(sol.deflections, sub["deflections"]),
+        rotations=sc(sol.rotations, sub["rotations"]),
+        shear_forces=sc(sol.shear_forces, sub["shear"]),
+        bending_moments=sc(sol.bending_moments, sub["moment"]),
+    )
+    names = ("total", "primary", "bending_energy", "shear_energy")
+    loss = LossComponents(**{f: sc(getattr(res.loss, f), sub["loss"][i])
+                             for i, f in enumerate(names)})
+    res = dataclasses.replace(
+        res, I=sc(res.I, sub["I"]), I_solved=sc(res.I_solved, sub["I_solved"]),
+        solution=sol, loss=loss, n_epochs=sc(res.n_epochs, sub["n_epochs"]),
+        converged=sc(res.converged, sub["converged"]),
+        pivot=sc(res.pivot, sub["pivot"]),
+    )
+    return dataclasses.replace(batch, result=res,
+                               valid=sc(batch.valid, sub["valid"]),
+                               residual=sc(batch.residual, sub["pivot"]))
+
+
+def _rescue_local(batch: DatagenBatch, beam_cfg: BeamConfig,
+                  opt_cfg: OptimizerConfig, mode: str) -> DatagenBatch:
+    """Gather the batch's rejected lanes, re-optimize them in float64
+    arithmetic (``mode`` "dd" or "f64", module docstring), and scatter
+    them back.  The rejected lanes fill a power-of-two bucket of at least
+    32, padded with lane 0, as in the JAX package."""
+    if mode not in ("dd", "f64"):
+        raise ValueError(f"unknown rescue mode: {mode!r}")
+    bad = torch.nonzero(~batch.valid).flatten()
+    n_bad = bad.numel()
+    if n_bad == 0:
+        return batch
+    B = batch.valid.shape[0]
+    bucket = min(B, 1 << max(n_bad - 1, 31).bit_length())
+    gidx = torch.cat([bad, bad.new_zeros(bucket - n_bad)])
+    sub_scen = _gather_scenario(batch.scenario, gidx)
+    rescue = _dd_rescue if mode == "dd" else _f64_rescue
+    out = rescue(sub_scen, beam_cfg, opt_cfg)
+    pos = torch.arange(bucket, device=gidx.device)
+    put = torch.where(pos < n_bad, gidx, torch.full_like(gidx, B))
+    return _merge_rescued(batch, out, put)
+
+
+def _auto_rescue_mode(num_nodes: int, device: torch.device) -> str:
+    """The rescue arithmetic for ``rescue=True``: the float64 kernels where
+    they run natively (a CUDA batch) and take the mesh (``fits_dd``), the
+    host float64 path elsewhere."""
+    if device.type == "cuda" and fits_dd(num_nodes):
+        return "dd"
+    return "f64"
 
 
 def generate_batch(generator: torch.Generator, batch_size: int,
@@ -83,14 +222,39 @@ def generate_batch(generator: torch.Generator, batch_size: int,
                    pivot_tol: float = 1e-9, compact: Optional[bool] = None,
                    rescue=None, device="cuda",
                    dtype=torch.float32) -> DatagenBatch:
-    """Draw ``batch_size`` scenarios from ``generator`` and run the batch
-    program on them (float32 on the card, as the JAX package runs it)."""
-    _check_supported(scen_cfg, rescue)
+    """Draw ``batch_size`` scenarios from ``generator``, run the batch
+    program on them (float32 on the card, as the JAX package runs it), and
+    rescue the rejected lanes.
+
+    ``rescue``: None (default) rescues random-bridge batches and meshes
+    finer than 101 nodes, the regimes whose valid lanes the float32 gate
+    rejects, and skips the host sync elsewhere; True picks the arithmetic
+    (``"dd"`` on the card, ``"f64"`` on the CPU); ``"dd"`` or ``"f64"``
+    asks for one; False keeps only the float32 pass.  Adjoint mode always
+    rescues with ``"f64"``: the float64 kernels are semi-gradient only.
+    """
     if beam_cfg is None:
         beam_cfg = BeamConfig(udl=scen_cfg.udl)
+    device = resolve_device(device)
+    explicit_dd = rescue == "dd"
+    if rescue is None:
+        rescue = scen_cfg.random_bridge or scen_cfg.num_nodes > 101
+    if rescue is True:
+        rescue = _auto_rescue_mode(scen_cfg.num_nodes, device)
+    if rescue == "dd" and opt_cfg.grad_mode != "semi":
+        if explicit_dd:
+            logging.getLogger(__name__).warning(
+                "rescue='dd' requested but grad_mode=%r: the float64 kernels "
+                "are semi-gradient only; falling back to the exact-adjoint "
+                "host-f64 rescue", opt_cfg.grad_mode,
+            )
+        rescue = "f64"
     scenario = sample_scenarios(generator, batch_size, scen_cfg,
                                 device=device, dtype=dtype)
-    return run_batch(scenario, beam_cfg, opt_cfg, refine, pivot_tol, compact)
+    batch = run_batch(scenario, beam_cfg, opt_cfg, refine, pivot_tol, compact)
+    if rescue:
+        batch = _rescue_local(batch, beam_cfg, opt_cfg, rescue)
+    return batch
 
 
 def generate_dataset(seed: int, num_samples: int, batch_size: int = 1024,

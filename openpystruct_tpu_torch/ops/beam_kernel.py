@@ -343,16 +343,25 @@ def beam_opt_step_reference(I, mu, nu, Le, free_mask, point_loads, udl,
         g = g - ((ly[:, :-1] - ly[:, 1:]) * r_uyi + lt[:, :-1] * r_thi
                  + lt[:, 1:] * r_thj)
 
-    stats = torch.stack([I.sum(1) + alpha_m * be.sum(1) + alpha_s * se.sum(1),
-                         I.sum(1), alpha_m * be.sum(1), alpha_s * se.sum(1)],
-                        dim=1)
-    # Adam, torch-identical: bias-corrected moments, post-step clamp on I
+    return (*_adam_step(I, mu, nu, g, lr_t, bc1, bc2, clamp_min),
+            _loss_stats(I, be, se, alpha_m, alpha_s))
+
+
+def _loss_stats(I, be, se, alpha_m, alpha_s):
+    """(B, 4): total, primary, alpha_m * bending, alpha_s * shear."""
+    return torch.stack([I.sum(1) + alpha_m * be.sum(1) + alpha_s * se.sum(1),
+                        I.sum(1), alpha_m * be.sum(1), alpha_s * se.sum(1)],
+                       dim=1)
+
+
+def _adam_step(I, mu, nu, g, lr_t, bc1, bc2, clamp_min):
+    """Adam, torch-identical: bias-corrected moments, post-step clamp on I
+    (not on the moments).  Returns I_new, mu_new, nu_new."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     mu_new = b1 * mu + (1.0 - b1) * g
     nu_new = b2 * nu + (1.0 - b2) * g * g
     step = lr_t * (mu_new * bc1) / (torch.sqrt(nu_new * bc2) + eps)
-    I_new = torch.clamp_min(I - step, clamp_min)
-    return I_new, mu_new, nu_new, stats
+    return torch.clamp_min(I - step, clamp_min), mu_new, nu_new
 
 
 # ---------------------------------------------------------------------------
@@ -362,16 +371,24 @@ def beam_opt_step_reference(I, mu, nu, Le, free_mask, point_loads, udl,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
+    """The library of all four kernels (``csrc/beam_kernel.cu``), with the
+    argument types of its C entry points."""
     lib = _build.load("beam_kernel")
     lib.beam_analysis_f32.argtypes = [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P]
     lib.beam_opt_step_f32.argtypes = ([_P] * 12 + [_I] * 4 + [_F] * 8
                                       + [_P])
+    lib.beam_analysis_dd_f32io.argtypes = ([_P] * 10 + [_I] * 2 + [_D] * 2
+                                           + [_P])
+    lib.beam_opt_step_dd_f32io.argtypes = ([_P] * 13 + [_I] * 2 + [_D] * 5
+                                           + [_F] * 4 + [_P])
     lib.beam_ws_floats_per_node.argtypes = [_I]
     for fn in (lib.beam_analysis_f32, lib.beam_opt_step_f32,
+               lib.beam_analysis_dd_f32io, lib.beam_opt_step_dd_f32io,
                lib.beam_ws_floats_per_node):
         fn.restype = _I
     return lib
@@ -390,6 +407,19 @@ def _check(device, **tensors):
                              f"expected {tuple(shape)}")
 
 
+def _check_launch(dev, nelem, B, **tensors):
+    """Raise unless every lane-innermost launch input (named as in the
+    launchers) is contiguous float32 on ``dev`` with its shape."""
+    n = nelem + 1
+    shapes = dict(I_t=(nelem, B), mu_t=(nelem, B), nu_t=(nelem, B),
+                  Le_t=(nelem, B), free_t=(n, 3, B), loads_t=(n, B),
+                  udl=(B,))
+    for t in tensors.values():
+        if not t.is_contiguous():
+            raise ValueError("launch inputs must be contiguous")
+    _check(dev, **{k: (t, shapes[k]) for k, t in tensors.items()})
+
+
 def _lanes_last(t):
     """(B, ...) -> contiguous (..., B): neighbouring threads (lanes) read
     neighbouring addresses."""
@@ -400,10 +430,10 @@ def _lanes_first(t):
     return t.movedim(-1, 0).contiguous()
 
 
-def _run(rc, name):
+def _run(rc, name, launches=LAUNCHES):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    launches[name] += 1
 
 
 def launch_beam_analysis(I_t, Le_t, free_t, loads_t, udl, E, A, refine=1):
@@ -414,12 +444,8 @@ def launch_beam_analysis(I_t, Le_t, free_t, loads_t, udl, E, A, refine=1):
     nelem, B = I_t.shape
     n = nelem + 1
     dev = I_t.device
-    for t in (I_t, Le_t, free_t, loads_t, udl):
-        if not t.is_contiguous():
-            raise ValueError("launch inputs must be contiguous")
-    _check(dev, I_t=(I_t, (nelem, B)), Le_t=(Le_t, (nelem, B)),
-           free_t=(free_t, (n, 3, B)), loads_t=(loads_t, (n, B)),
-           udl=(udl, (B,)))
+    _check_launch(dev, nelem, B, I_t=I_t, Le_t=Le_t, free_t=free_t,
+                  loads_t=loads_t, udl=udl)
     lib = _lib()
     u = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
     V = torch.empty((nelem, B), dtype=torch.float32, device=dev)
@@ -447,13 +473,8 @@ def launch_beam_opt_step(I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl,
     nelem, B = I_t.shape
     n = nelem + 1
     dev = I_t.device
-    for t in (I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl):
-        if not t.is_contiguous():
-            raise ValueError("launch inputs must be contiguous")
-    _check(dev, I_t=(I_t, (nelem, B)), mu_t=(mu_t, (nelem, B)),
-           nu_t=(nu_t, (nelem, B)), Le_t=(Le_t, (nelem, B)),
-           free_t=(free_t, (n, 3, B)), loads_t=(loads_t, (n, B)),
-           udl=(udl, (B,)))
+    _check_launch(dev, nelem, B, I_t=I_t, mu_t=mu_t, nu_t=nu_t, Le_t=Le_t,
+                  free_t=free_t, loads_t=loads_t, udl=udl)
     lib = _lib()
     I_o, mu_o, nu_o = (torch.empty_like(I_t) for _ in range(3))
     stats = torch.empty((4, B), dtype=torch.float32, device=dev)

@@ -14,8 +14,18 @@
 // gradient (semi, or the exact adjoint: one more substitution pair and
 // `refine` sweeps on the saved factors), and Adam with clamp.
 //
+// beam_analysis_dd_kernel and beam_opt_step_dd_kernel replace
+// openpystruct_tpu/ops/beam_kernel_dd.py _beam_dd_kernel and
+// _beam_dd_opt_kernel, the rescue's double-double kernels.  The H100 has
+// native FP64, so "dd" here means float64: the same stage functions,
+// instantiated for double (as the JAX dd module hands its float32 stages
+// hi/lo pairs), with float32 inputs and outputs.  No refinement stage and
+// no saved C, as in the dd kernels; the pivot's axial chain runs in float64
+// too.  The opt step is semi-gradient only, and its Adam update runs in
+// float32 on the gradient cast to float32, as _beam_dd_opt_kernel's does.
+//
 // Design.  Each thread walks its lane's 101-node recurrence serially, as
-// one TPU vector lane did.  The per-lane scratch (~27 floats per node) does
+// one TPU vector lane did.  The per-lane scratch (~27 values per node) does
 // not fit in registers, so it lives in a global workspace the wrapper
 // allocates, laid out [node][component][lane]: neighbouring threads touch
 // neighbouring addresses, as do the lane-innermost inputs and outputs the
@@ -26,13 +36,15 @@
 // Bound on an H100 SXM: each call must read its inputs once and write its
 // outputs once, about 1,109 floats (4.4 KB) per lane at n = 101, which at
 // B = 16384 is ~22 us at 3.35 TB/s; the arithmetic (a few hundred flops per
-// node) is below that at 67 TFLOP/s float32, so both kernels are bound by
-// bytes.  What this simple design leaves on the table:
+// node) is below that at 67 TFLOP/s float32 and at 34 TFLOP/s float64, so
+// all four kernels are bound by bytes.  What this simple design leaves on
+// the table:
 //  - occupancy: B = 16384 lanes is ~124 threads per SM, and the compaction
-//    stages go down to 512 lanes; each thread's chain of dependent loads
-//    runs at memory latency, not bandwidth;
-//  - scratch traffic: the workspace (~190 MB at B = 16384) streams through
-//    L2 and HBM several times per call instead of staying on chip.
+//    stages go down to 256-512 lanes; each thread's chain of dependent
+//    loads runs at memory latency, not bandwidth;
+//  - scratch traffic: the workspace (~190 MB at B = 16384, twice that in
+//    float64) streams through L2 and HBM several times per call instead of
+//    staying on chip.
 // Fixing these (lanes per warp sharing a recurrence, scratch in shared
 // memory or registers for shorter chains) is later work.
 //
@@ -59,20 +71,25 @@ enum : int {
   R0, R1,                       // refinement work / adjoint solution
   NC_COMMON
 };
-enum : int { C00 = NC_COMMON, C01, C10, C11, AX0, AX1, NC_ANALYSIS };
+// The axial chain's d00/u00 for the pivot; the float64 kernels stop there,
+// the float32 analysis also saves C.
+enum : int { AX0 = NC_COMMON, AX1, NC_DD };
+enum : int { C00 = NC_DD, C01, C10, C11, NC_ANALYSIS };
 enum : int { GRAD = NC_COMMON, GV, GM, RTHJ, NC_OPT_ADJOINT };
 constexpr int NC_OPT_SEMI = GRAD + 1;
 
+template <typename T>
 struct Lane {
-  float* ws;
+  T* ws;
   size_t B;
   int nc;
   int b;
-  __device__ __forceinline__ float& operator()(int i, int c) const {
+  __device__ __forceinline__ T& operator()(int i, int c) const {
     return ws[((size_t)i * nc + c) * B + b];
   }
 };
 
+// Inputs are float32 in every kernel; the float64 stages widen on read.
 struct In {
   const float* p;
   size_t B;
@@ -99,52 +116,58 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s,
   e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
 }
 
-// lax.rsqrt: 1/sqrt with IEEE sqrt and division, not the approximate rsqrtf.
+// lax.rsqrt: 1/sqrt with IEEE sqrt and division, not the approximate rsqrt.
 __device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
+__device__ __forceinline__ double rsq(double x) { return 1.0 / sqrt(x); }
+__device__ __forceinline__ float absval(float x) { return fabsf(x); }
+__device__ __forceinline__ double absval(double x) { return fabs(x); }
 
 // jnp.minimum / jnp.maximum propagate NaN; fminf / fmaxf do not.  A lane
 // that went NaN must stay NaN so the validity gate drops it.
-__device__ __forceinline__ float nan_min(float a, float b) {
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
   return (a != a) ? a : ((b != b || b < a) ? b : a);
 }
-__device__ __forceinline__ float nan_max(float a, float b) {
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
   return (a != a) ? a : ((b != b || b > a) ? b : a);
 }
 
-__device__ void stiffness(const Lane& W, const In& I, const In& Le, int nelem,
-                          float E, float EA) {
+template <typename T>
+__device__ void stiffness(const Lane<T>& W, const In& I, const In& Le,
+                          int nelem, T E, T EA) {
   for (int j = 0; j < nelem; ++j) {
-    const float inv_le = 1.0f / Le(j);
-    const float eil = E * I(j) * inv_le;
-    const float eil2 = eil * inv_le;
-    const float eil3 = eil2 * inv_le;
+    const T inv_le = T(1) / T(Le(j));
+    const T eil = E * T(I(j)) * inv_le;
+    const T eil2 = eil * inv_le;
+    const T eil3 = eil2 * inv_le;
     W(j, KS0) = EA * inv_le;
-    W(j, KS1) = 12.0f * eil3;
-    W(j, KS2) = 6.0f * eil2;
-    W(j, KS3) = 4.0f * eil;
-    W(j, KS4) = 2.0f * eil;
+    W(j, KS1) = T(12) * eil3;
+    W(j, KS2) = T(6) * eil2;
+    W(j, KS3) = T(4) * eil;
+    W(j, KS4) = T(2) * eil;
   }
 }
 
 // Masked bending-only assembly + RHS; with AX also the axial chain's d00
 // and u00 for the pivot.  Free masks are (n, 3, B) floats.
-template <bool AX>
-__device__ void assemble_b2(const Lane& W, const In& Le, const float* fr,
-                            const In& loads, float w, int n) {
+template <typename T, bool AX>
+__device__ void assemble_b2(const Lane<T>& W, const In& Le, const float* fr,
+                            const In& loads, T w, int n) {
   const int nelem = n - 1;
   const size_t B = W.B;
   const int b = W.b;
-  auto freev = [&](int i, int a) { return fr[((size_t)i * 3 + a) * B + b]; };
+  auto freev = [&](int i, int a) { return T(fr[((size_t)i * 3 + a) * B + b]); };
   for (int i = 0; i < n; ++i) {
-    float ea_p = 0.f, k11_p = 0.f, k12_p = 0.f, k13_p = 0.f, le_p = 0.f;
-    float ea_n = 0.f, k11_n = 0.f, k12_n = 0.f, k13_n = 0.f, k2_n = 0.f,
-          le_n = 0.f;
+    T ea_p = T(0), k11_p = T(0), k12_p = T(0), k13_p = T(0), le_p = T(0);
+    T ea_n = T(0), k11_n = T(0), k12_n = T(0), k13_n = T(0), k2_n = T(0),
+      le_n = T(0);
     if (i > 0) {
       ea_p = W(i - 1, KS0);
       k11_p = W(i - 1, KS1);
       k12_p = W(i - 1, KS2);
       k13_p = W(i - 1, KS3);
-      le_p = Le(i - 1);
+      le_p = T(Le(i - 1));
     }
     if (i < nelem) {
       ea_n = W(i, KS0);
@@ -152,36 +175,37 @@ __device__ void assemble_b2(const Lane& W, const In& Le, const float* fr,
       k12_n = W(i, KS2);
       k13_n = W(i, KS3);
       k2_n = W(i, KS4);
-      le_n = Le(i);
+      le_n = T(Le(i));
     }
-    const float d11 = k11_p + k11_n;
-    const float d12 = -k12_p + k12_n;
-    const float d22 = k13_p + k13_n;
-    const float f0 = freev(i, 0), f1 = freev(i, 1), f2 = freev(i, 2);
-    W(i, D0) = d11 * (f1 * f1 + (1.0f - f1));
+    const T d11 = k11_p + k11_n;
+    const T d12 = -k12_p + k12_n;
+    const T d22 = k13_p + k13_n;
+    const T f0 = freev(i, 0), f1 = freev(i, 1), f2 = freev(i, 2);
+    W(i, D0) = d11 * (f1 * f1 + (T(1) - f1));
     W(i, D1) = d12 * (f1 * f2);
-    W(i, D2) = d22 * (f2 * f2 + (1.0f - f2));
+    W(i, D2) = d22 * (f2 * f2 + (T(1) - f2));
     const int inx = i + 1 < n ? i + 1 : n - 1;
-    const float fn0 = freev(inx, 0), fn1 = freev(inx, 1), fn2 = freev(inx, 2);
+    const T fn0 = freev(inx, 0), fn1 = freev(inx, 1), fn2 = freev(inx, 2);
     W(i, U00) = -(k11_n * (f1 * fn1));
     W(i, U01) = k12_n * (f1 * fn2);
     W(i, U10) = -(k12_n * (f2 * fn1));
     W(i, U11) = k2_n * (f2 * fn2);
     // consistent UDL loads + nodal point loads (no axial load exists)
-    const float fy = (le_p + le_n) * w * 0.5f + loads(i);
-    const float fm = (le_n * le_n - le_p * le_p) * w / 12.0f;
+    const T fy = (le_p + le_n) * w * T(0.5) + T(loads(i));
+    const T fm = (le_n * le_n - le_p * le_p) * w / T(12);
     W(i, F0) = fy * f1;
     W(i, F1) = fm * f2;
     if (AX) {
-      W(i, AX0) = (ea_p + ea_n) * (f0 * f0 + (1.0f - f0));
+      W(i, AX0) = (ea_p + ea_n) * (f0 * f0 + (T(1) - f0));
       W(i, AX1) = -ea_n * (f0 * fn0);
     }
   }
 }
 
-__device__ void scale_b2(const Lane& W, int n) {
+template <typename T>
+__device__ void scale_b2(const Lane<T>& W, int n) {
   for (int i = 0; i < n; ++i) {
-    const float s1 = rsq(W(i, D0)), s2 = rsq(W(i, D2));
+    const T s1 = rsq(W(i, D0)), s2 = rsq(W(i, D2));
     W(i, S0) = s1;
     W(i, S1) = s2;
     W(i, D0) = W(i, D0) * s1 * s1;
@@ -191,8 +215,8 @@ __device__ void scale_b2(const Lane& W, int n) {
     W(i, F1) = W(i, F1) * s2;
   }
   for (int i = 0; i < n - 1; ++i) {
-    const float si0 = W(i, S0), si1 = W(i, S1);
-    const float sn0 = W(i + 1, S0), sn1 = W(i + 1, S1);
+    const T si0 = W(i, S0), si1 = W(i, S1);
+    const T sn0 = W(i + 1, S0), sn1 = W(i + 1, S1);
     W(i, U00) = W(i, U00) * si0 * sn0;
     W(i, U01) = W(i, U01) * si0 * sn1;
     W(i, U10) = W(i, U10) * si1 * sn0;
@@ -203,21 +227,21 @@ __device__ void scale_b2(const Lane& W, int n) {
 // Block-Thomas factorization of the bending chain fused with the forward
 // sweep (y into Y0/Y1, F kept for the residuals).  WITH_C saves C_i; AX
 // tracks the axial chain and returns min_i a_i |det2(S_i)|, the 3-DOF
-// pivot, with the axial chain in float32: the semantics the datagen
-// validity gate pivot_tol = 1e-9 is calibrated on.
-template <bool WITH_C, bool AX>
-__device__ float factor_b2(const Lane& W, int n) {
-  float m0 = W(0, D0), m1 = W(0, D1), m2 = W(0, D2);
-  float det = m0 * m2 - m1 * m1;
-  float inv = 1.0f / det;
-  float s00 = m2 * inv, s01 = -(m1 * inv), s11 = m0 * inv;
+// pivot, with the axial chain in T: the semantics the datagen validity
+// gates (pivot_tol = 1e-9, the rescue's 1e-12) are calibrated on.
+template <typename T, bool WITH_C, bool AX>
+__device__ T factor_b2(const Lane<T>& W, int n) {
+  T m0 = W(0, D0), m1 = W(0, D1), m2 = W(0, D2);
+  T det = m0 * m2 - m1 * m1;
+  T inv = T(1) / det;
+  T s00 = m2 * inv, s01 = -(m1 * inv), s11 = m0 * inv;
   W(0, SI0) = s00;
   W(0, SI1) = s01;
   W(0, SI2) = s11;
-  float c00 = 0.f, c01 = 0.f, c10 = 0.f, c11 = 0.f;
+  T c00 = T(0), c01 = T(0), c10 = T(0), c11 = T(0);
   if (WITH_C) {
-    const float u00 = W(0, U00), u01 = W(0, U01), u10 = W(0, U10),
-                u11 = W(0, U11);
+    const T u00 = W(0, U00), u01 = W(0, U01), u10 = W(0, U10),
+            u11 = W(0, U11);
     c00 = s00 * u00 + s01 * u10;
     c01 = s00 * u01 + s01 * u11;
     c10 = s01 * u00 + s11 * u10;
@@ -227,23 +251,23 @@ __device__ float factor_b2(const Lane& W, int n) {
     W(0, C10) = c10;
     W(0, C11) = c11;
   }
-  const float r0 = W(0, F0), r1 = W(0, F1);
-  float y0 = s00 * r0 + s01 * r1, y1 = s01 * r0 + s11 * r1;
+  const T r0 = W(0, F0), r1 = W(0, F1);
+  T y0 = s00 * r0 + s01 * r1, y1 = s01 * r0 + s11 * r1;
   W(0, Y0) = y0;
   W(0, Y1) = y1;
 
-  det = fabsf(det);
-  float min_piv = det, a_prev = 0.f;
+  det = absval(det);
+  T min_piv = det, a_prev = T(0);
   if (AX) {
-    const float a = W(0, AX0);
-    const float r = rsq(a);
+    const T a = W(0, AX0);
+    const T r = rsq(a);
     a_prev = a * (r * r);
     min_piv = a_prev * det;
   }
   for (int i = 1; i < n; ++i) {
-    const float u00 = W(i - 1, U00), u01 = W(i - 1, U01),
-                u10 = W(i - 1, U10), u11 = W(i - 1, U11);
-    float w00, w01, w10, w11;
+    const T u00 = W(i - 1, U00), u01 = W(i - 1, U01), u10 = W(i - 1, U10),
+            u11 = W(i - 1, U11);
+    T w00, w01, w10, w11;
     if (WITH_C) {
       w00 = c00;
       w01 = c01;
@@ -260,7 +284,7 @@ __device__ float factor_b2(const Lane& W, int n) {
     m1 = W(i, D1) - (u00 * w01 + u10 * w11);
     m2 = W(i, D2) - (u01 * w01 + u11 * w11);
     det = m0 * m2 - m1 * m1;
-    inv = 1.0f / det;
+    inv = T(1) / det;
     s00 = m2 * inv;
     s01 = -(m1 * inv);
     s11 = m0 * inv;
@@ -268,8 +292,8 @@ __device__ float factor_b2(const Lane& W, int n) {
     W(i, SI1) = s01;
     W(i, SI2) = s11;
     if (WITH_C) {
-      const float v00 = W(i, U00), v01 = W(i, U01), v10 = W(i, U10),
-                  v11 = W(i, U11);
+      const T v00 = W(i, U00), v01 = W(i, U01), v10 = W(i, U10),
+              v11 = W(i, U11);
       c00 = s00 * v00 + s01 * v10;
       c01 = s00 * v01 + s01 * v11;
       c10 = s01 * v00 + s11 * v10;
@@ -280,19 +304,19 @@ __device__ float factor_b2(const Lane& W, int n) {
       W(i, C11) = c11;
     }
     // fused forward substitution y_i = Sinv_i (f_i - U^T y_{i-1})
-    const float q0 = W(i, F0) - (u00 * y0 + u10 * y1);
-    const float q1 = W(i, F1) - (u01 * y0 + u11 * y1);
+    const T q0 = W(i, F0) - (u00 * y0 + u10 * y1);
+    const T q1 = W(i, F1) - (u01 * y0 + u11 * y1);
     y0 = s00 * q0 + s01 * q1;
     y1 = s01 * q0 + s11 * q1;
     W(i, Y0) = y0;
     W(i, Y1) = y1;
-    det = fabsf(det);
+    det = absval(det);
     if (AX) {
       // axial Schur chain a_i = d00s_i - u00s_{i-1}^2 / a_{i-1}
-      const float d_prev = W(i - 1, AX0), d_cur = W(i, AX0);
-      const float r_prev = rsq(d_prev), r_cur = rsq(d_cur);
-      const float u00s = W(i - 1, AX1) * r_prev * r_cur;
-      const float d00s = d_cur * r_cur * r_cur;
+      const T d_prev = W(i - 1, AX0), d_cur = W(i, AX0);
+      const T r_prev = rsq(d_prev), r_cur = rsq(d_cur);
+      const T u00s = W(i - 1, AX1) * r_prev * r_cur;
+      const T d00s = d_cur * r_cur * r_cur;
       a_prev = d00s - u00s * u00s / a_prev;
       min_piv = nan_min(min_piv, a_prev * det);
     }
@@ -302,18 +326,18 @@ __device__ float factor_b2(const Lane& W, int n) {
 
 // x_i = y_i - C_i x_{i+1} in place on components (X0c, X1c); C from the
 // workspace when saved, else Sinv_i (U_i x_{i+1}).
-template <bool WITH_C>
-__device__ void bsub_b2(const Lane& W, int n, int X0c, int X1c) {
-  float x0 = W(n - 1, X0c), x1 = W(n - 1, X1c);
+template <typename T, bool WITH_C>
+__device__ void bsub_b2(const Lane<T>& W, int n, int X0c, int X1c) {
+  T x0 = W(n - 1, X0c), x1 = W(n - 1, X1c);
   for (int i = n - 2; i >= 0; --i) {
-    float v0, v1;
+    T v0, v1;
     if (WITH_C) {
       v0 = W(i, C00) * x0 + W(i, C01) * x1;
       v1 = W(i, C10) * x0 + W(i, C11) * x1;
     } else {
-      const float t0 = W(i, U00) * x0 + W(i, U01) * x1;
-      const float t1 = W(i, U10) * x0 + W(i, U11) * x1;
-      const float s00 = W(i, SI0), s01 = W(i, SI1), s11 = W(i, SI2);
+      const T t0 = W(i, U00) * x0 + W(i, U01) * x1;
+      const T t1 = W(i, U10) * x0 + W(i, U11) * x1;
+      const T s00 = W(i, SI0), s01 = W(i, SI1), s11 = W(i, SI2);
       v0 = s00 * t0 + s01 * t1;
       v1 = s01 * t0 + s11 * t1;
     }
@@ -326,7 +350,7 @@ __device__ void bsub_b2(const Lane& W, int n, int X0c, int X1c) {
 
 // Solve K_s x = rhs in place (components hold rhs on entry, x on exit).
 template <bool WITH_C>
-__device__ void subst_b2(const Lane& W, int n, int X0c, int X1c) {
+__device__ void subst_b2(const Lane<float>& W, int n, int X0c, int X1c) {
   float r0 = W(0, X0c), r1 = W(0, X1c);
   float x0 = W(0, SI0) * r0 + W(0, SI1) * r1;
   float x1 = W(0, SI1) * r0 + W(0, SI2) * r1;
@@ -343,14 +367,14 @@ __device__ void subst_b2(const Lane& W, int n, int X0c, int X1c) {
     W(i, X0c) = x0;
     W(i, X1c) = x1;
   }
-  bsub_b2<WITH_C>(W, n, X0c, X1c);
+  bsub_b2<float, WITH_C>(W, n, X0c, X1c);
 }
 
 // `refine` sweeps: error-free residual rhs - K_s x into the work
 // components, one substitution with the saved factors, x += correction.
 template <bool WITH_C>
-__device__ void refine_b2(const Lane& W, int n, int refine, int H0c, int H1c,
-                          int X0c, int X1c, int K0c, int K1c) {
+__device__ void refine_b2(const Lane<float>& W, int n, int refine, int H0c,
+                          int H1c, int X0c, int X1c, int K0c, int K1c) {
   for (int it = 0; it < refine; ++it) {
     for (int i = 0; i < n; ++i) {
       const int ip = i > 0 ? i - 1 : 0;
@@ -396,6 +420,56 @@ __device__ void refine_b2(const Lane& W, int n, int refine, int H0c, int H1c,
   }
 }
 
+// Unscaled displacements (u_x == 0 exactly, NaN if the solve went NaN)
+// and the element end forces, local p = k_e [u_i; u_j] - f_eq with V =
+// p[1], M = p[2], from the scaled solution in Y0/Y1.
+template <typename T>
+__device__ void write_solution(const Lane<T>& W, const In& Le, T w, int n,
+                               float* __restrict__ u_t,
+                               float* __restrict__ V_t,
+                               float* __restrict__ M_t) {
+  const size_t Bs = W.B;
+  const int b = W.b;
+  const float zero = float(W(0, Y0) * T(0));
+  for (int i = 0; i < n; ++i) {
+    u_t[((size_t)i * 3 + 0) * Bs + b] = zero;
+    u_t[((size_t)i * 3 + 1) * Bs + b] = float(W(i, Y0) * W(i, S0));
+    u_t[((size_t)i * 3 + 2) * Bs + b] = float(W(i, Y1) * W(i, S1));
+  }
+  T uy_i = W(0, Y0) * W(0, S0), th_i = W(0, Y1) * W(0, S1);
+  for (int j = 0; j < n - 1; ++j) {
+    const T uy_j = W(j + 1, Y0) * W(j + 1, S0);
+    const T th_j = W(j + 1, Y1) * W(j + 1, S1);
+    const T k11 = W(j, KS1), k12 = W(j, KS2), k13 = W(j, KS3),
+            k2 = W(j, KS4), le = T(Le(j));
+    V_t[(size_t)j * Bs + b] = float(k11 * uy_i + k12 * th_i - k11 * uy_j +
+                                    k12 * th_j - w * le * T(0.5));
+    M_t[(size_t)j * Bs + b] = float(k12 * uy_i + k13 * th_i - k12 * uy_j +
+                                    k2 * th_j - w * le * le / T(12));
+    uy_i = uy_j;
+    th_i = th_j;
+  }
+}
+
+// Adam with torch's math in float32 (bias-corrected moments; lr_t, bc1, bc2
+// arrive computed in float32 from the epoch counter); the clamp applies to
+// I only, not to the moments.
+__device__ __forceinline__ void adam_f32(const In& I, const In& mu,
+                                         const In& nu, int j, float g,
+                                         float lr_t, float bc1, float bc2,
+                                         float clamp_min, float* I_out,
+                                         float* mu_out, float* nu_out) {
+  const float b1 = 0.9f, b2 = 0.999f, eps = 1e-8f;
+  const float omb1 = (float)(1.0 - 0.9), omb2 = (float)(1.0 - 0.999);
+  const size_t o = (size_t)j * I.B + I.b;
+  const float m = b1 * mu(j) + omb1 * g;
+  const float v = b2 * nu(j) + omb2 * g * g;
+  mu_out[o] = m;
+  nu_out[o] = v;
+  const float step = lr_t * (m * bc1) / (sqrtf(v * bc2) + eps);
+  I_out[o] = nan_max(I(j) - step, clamp_min);
+}
+
 __global__ void __launch_bounds__(kBlock)
 beam_analysis_kernel(const float* __restrict__ I_t,
                      const float* __restrict__ Le_t,
@@ -408,38 +482,18 @@ beam_analysis_kernel(const float* __restrict__ I_t,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t Bs = (size_t)B;
-  const Lane W{ws, Bs, NC_ANALYSIS, b};
+  const Lane<float> W{ws, Bs, NC_ANALYSIS, b};
   const In I{I_t, Bs, b}, Le{Le_t, Bs, b}, loads{loads_t, Bs, b};
   const int nelem = n - 1;
   const float w = udl[b];
 
   stiffness(W, I, Le, nelem, E, EA);
-  assemble_b2<true>(W, Le, free_t, loads, w, n);
+  assemble_b2<float, true>(W, Le, free_t, loads, w, n);
   scale_b2(W, n);
-  piv[b] = factor_b2<true, true>(W, n);
-  bsub_b2<true>(W, n, Y0, Y1);
+  piv[b] = factor_b2<float, true, true>(W, n);
+  bsub_b2<float, true>(W, n, Y0, Y1);
   refine_b2<true>(W, n, refine, F0, F1, Y0, Y1, R0, R1);
-
-  const float zero = W(0, Y0) * 0.0f;  // u_x == 0 exactly
-  for (int i = 0; i < n; ++i) {
-    u_t[((size_t)i * 3 + 0) * Bs + b] = zero;
-    u_t[((size_t)i * 3 + 1) * Bs + b] = W(i, Y0) * W(i, S0);
-    u_t[((size_t)i * 3 + 2) * Bs + b] = W(i, Y1) * W(i, S1);
-  }
-  // element end forces: local p = k_e [u_i; u_j] - f_eq; V = p[1], M = p[2]
-  float uy_i = W(0, Y0) * W(0, S0), th_i = W(0, Y1) * W(0, S1);
-  for (int j = 0; j < nelem; ++j) {
-    const float uy_j = W(j + 1, Y0) * W(j + 1, S0);
-    const float th_j = W(j + 1, Y1) * W(j + 1, S1);
-    const float k11 = W(j, KS1), k12 = W(j, KS2), k13 = W(j, KS3),
-                k2 = W(j, KS4), le = Le(j);
-    V_t[(size_t)j * Bs + b] =
-        k11 * uy_i + k12 * th_i - k11 * uy_j + k12 * th_j - w * le * 0.5f;
-    M_t[(size_t)j * Bs + b] = k12 * uy_i + k13 * th_i - k12 * uy_j +
-                              k2 * th_j - w * le * le / 12.0f;
-    uy_i = uy_j;
-    th_i = th_j;
-  }
+  write_solution(W, Le, w, n, u_t, V_t, M_t);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -458,17 +512,17 @@ beam_opt_step_kernel(const float* __restrict__ I_t,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t Bs = (size_t)B;
-  const Lane W{ws, Bs, grad_semi ? NC_OPT_SEMI : NC_OPT_ADJOINT, b};
+  const Lane<float> W{ws, Bs, grad_semi ? NC_OPT_SEMI : NC_OPT_ADJOINT, b};
   const In I{I_t, Bs, b}, Le{Le_t, Bs, b}, loads{loads_t, Bs, b};
   const int nelem = n - 1;
   const float w = udl[b];
 
   // ---- solve at the current I (no C, no pivot: nothing reads them) ----
   stiffness(W, I, Le, nelem, E, 0.0f);
-  assemble_b2<false>(W, Le, free_t, loads, w, n);
+  assemble_b2<float, false>(W, Le, free_t, loads, w, n);
   scale_b2(W, n);
-  factor_b2<false, false>(W, n);
-  bsub_b2<false>(W, n, Y0, Y1);
+  factor_b2<float, false, false>(W, n);
+  bsub_b2<float, false>(W, n, Y0, Y1);
   refine_b2<false>(W, n, refine, F0, F1, Y0, Y1, R0, R1);
 
   // ---- forces, loss, explicit dL/dI per element ----
@@ -565,30 +619,115 @@ beam_opt_step_kernel(const float* __restrict__ I_t,
     }
   }
 
-  // ---- Adam: lr_t, bc1, bc2 arrive computed in float32 from the epoch
-  // counter; the clamp applies to I only, not to the moments ----
-  const float b1 = 0.9f, b2 = 0.999f, eps = 1e-8f;
-  const float omb1 = (float)(1.0 - 0.9), omb2 = (float)(1.0 - 0.999);
-  In mu{mu_t, Bs, b}, nu{nu_t, Bs, b};
-  for (int j = 0; j < nelem; ++j) {
-    const float g = W(j, GRAD);
-    const float m = b1 * mu(j) + omb1 * g;
-    const float v = b2 * nu(j) + omb2 * g * g;
-    mu_out[(size_t)j * Bs + b] = m;
-    nu_out[(size_t)j * Bs + b] = v;
-    const float step = lr_t * (m * bc1) / (sqrtf(v * bc2) + eps);
-    I_out[(size_t)j * Bs + b] = nan_max(I(j) - step, clamp_min);
+  const In mu{mu_t, Bs, b}, nu{nu_t, Bs, b};
+  for (int j = 0; j < nelem; ++j)
+    adam_f32(I, mu, nu, j, W(j, GRAD), lr_t, bc1, bc2, clamp_min, I_out,
+             mu_out, nu_out);
+}
+
+// The float64 solve both rescue kernels share: stiffness -> assembly with
+// the axial chain -> scaling -> factor with the fused forward sweep (no C)
+// -> back sweep.  Returns the 3-DOF min pivot.
+__device__ double solve_dd(const Lane<double>& W, const In& I, const In& Le,
+                           const float* free_t, const In& loads, double w,
+                           int n, double E, double EA) {
+  stiffness(W, I, Le, n - 1, E, EA);
+  assemble_b2<double, true>(W, Le, free_t, loads, w, n);
+  scale_b2(W, n);
+  const double piv = factor_b2<double, false, true>(W, n);
+  bsub_b2<double, false>(W, n, Y0, Y1);
+  return piv;
+}
+
+__global__ void __launch_bounds__(kBlock)
+beam_analysis_dd_kernel(const float* __restrict__ I_t,
+                        const float* __restrict__ Le_t,
+                        const float* __restrict__ free_t,
+                        const float* __restrict__ loads_t,
+                        const float* __restrict__ udl,
+                        float* __restrict__ u_t, float* __restrict__ V_t,
+                        float* __restrict__ M_t, float* __restrict__ piv,
+                        double* __restrict__ ws, int B, int n, double E,
+                        double EA) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t Bs = (size_t)B;
+  const Lane<double> W{ws, Bs, NC_DD, b};
+  const In I{I_t, Bs, b}, Le{Le_t, Bs, b}, loads{loads_t, Bs, b};
+  const double w = udl[b];
+  piv[b] = float(solve_dd(W, I, Le, free_t, loads, w, n, E, EA));
+  write_solution(W, Le, w, n, u_t, V_t, M_t);
+}
+
+__global__ void __launch_bounds__(kBlock)
+beam_opt_step_dd_kernel(const float* __restrict__ I_t,
+                        const float* __restrict__ mu_t,
+                        const float* __restrict__ nu_t,
+                        const float* __restrict__ Le_t,
+                        const float* __restrict__ free_t,
+                        const float* __restrict__ loads_t,
+                        const float* __restrict__ udl,
+                        float* __restrict__ I_out, float* __restrict__ mu_out,
+                        float* __restrict__ nu_out,
+                        float* __restrict__ stats, float* __restrict__ piv,
+                        double* __restrict__ ws, int B, int n, double E,
+                        double EA, double Gs, double alpha_m, double alpha_s,
+                        float clamp_min, float lr_t, float bc1, float bc2) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t Bs = (size_t)B;
+  const Lane<double> W{ws, Bs, NC_DD, b};
+  const In I{I_t, Bs, b}, Le{Le_t, Bs, b}, loads{loads_t, Bs, b};
+  const In mu{mu_t, Bs, b}, nu{nu_t, Bs, b};
+  const double w = udl[b];
+  piv[b] = float(solve_dd(W, I, Le, free_t, loads, w, n, E, EA));
+
+  // forces, loss and the semi-gradient in float64; each element's Adam
+  // step needs only its own gradient, so it runs in the same pass
+  double tb = 0.0, ts = 0.0, ti = 0.0;
+  double uy_i = W(0, Y0) * W(0, S0), th_i = W(0, Y1) * W(0, S1);
+  for (int j = 0; j < n - 1; ++j) {
+    const double uy_j = W(j + 1, Y0) * W(j + 1, S0);
+    const double th_j = W(j + 1, Y1) * W(j + 1, S1);
+    const double k11 = W(j, KS1), k12 = W(j, KS2), k13 = W(j, KS3),
+                 k2 = W(j, KS4), le = Le(j), Ij = I(j);
+    const double V =
+        k11 * uy_i + k12 * th_i - k11 * uy_j + k12 * th_j - w * le * 0.5;
+    const double M = k12 * uy_i + k13 * th_i - k12 * uy_j + k2 * th_j -
+                     w * le * le / 12.0;
+    const double den_b = 2.0 * E * Ij + 1e-6;
+    const double den_s = Gs * (0.03 * sqrt(Ij));
+    const double be = M * M / den_b;
+    const double se = V * V / den_s;
+    const double g =
+        1.0 - alpha_m * be * 2.0 * E / den_b - alpha_s * 0.5 * se / Ij;
+    adam_f32(I, mu, nu, j, float(g), lr_t, bc1, bc2, clamp_min, I_out,
+             mu_out, nu_out);
+    tb = tb + be;
+    ts = ts + se;
+    ti = ti + Ij;
+    uy_i = uy_j;
+    th_i = th_j;
   }
+  stats[0 * Bs + b] = float(ti + alpha_m * tb + alpha_s * ts);
+  stats[1 * Bs + b] = float(ti);
+  stats[2 * Bs + b] = float(alpha_m * tb);
+  stats[3 * Bs + b] = float(alpha_s * ts);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace floats per node per lane: kind 0 analysis, 1 opt step (semi),
-// 2 opt step (adjoint).
+// Workspace values per node per lane: kind 0 analysis, 1 opt step (semi),
+// 2 opt step (adjoint), all float32; kind 3 either float64 kernel, float64.
 int beam_ws_floats_per_node(int kind) {
-  return kind == 0 ? NC_ANALYSIS : (kind == 1 ? NC_OPT_SEMI : NC_OPT_ADJOINT);
+  switch (kind) {
+    case 0: return NC_ANALYSIS;
+    case 1: return NC_OPT_SEMI;
+    case 2: return NC_OPT_ADJOINT;
+    default: return NC_DD;
+  }
 }
 
 int beam_analysis_f32(const float* I_t, const float* Le_t, const float* free_t,
@@ -616,6 +755,36 @@ int beam_opt_step_f32(const float* I_t, const float* mu_t, const float* nu_t,
       I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl, I_out, mu_out, nu_out,
       stats, ws, B, n, refine, grad_semi, E, G, alpha_m, alpha_s, clamp_min,
       lr_t, bc1, bc2);
+  return (int)cudaGetLastError();
+}
+
+int beam_analysis_dd_f32io(const float* I_t, const float* Le_t,
+                           const float* free_t, const float* loads_t,
+                           const float* udl, float* u_t, float* V_t,
+                           float* M_t, float* piv, double* ws, int B, int n,
+                           double E, double EA, void* stream) {
+  if (B <= 0) return 0;
+  const int blocks = (B + kBlock - 1) / kBlock;
+  beam_analysis_dd_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      I_t, Le_t, free_t, loads_t, udl, u_t, V_t, M_t, piv, ws, B, n, E, EA);
+  return (int)cudaGetLastError();
+}
+
+int beam_opt_step_dd_f32io(const float* I_t, const float* mu_t,
+                           const float* nu_t, const float* Le_t,
+                           const float* free_t, const float* loads_t,
+                           const float* udl, float* I_out, float* mu_out,
+                           float* nu_out, float* stats, float* piv,
+                           double* ws, int B, int n, double E, double EA,
+                           double G, double alpha_m, double alpha_s,
+                           float clamp_min, float lr_t, float bc1, float bc2,
+                           void* stream) {
+  if (B <= 0) return 0;
+  const int blocks = (B + kBlock - 1) / kBlock;
+  beam_opt_step_dd_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl, I_out, mu_out, nu_out,
+      stats, piv, ws, B, n, E, EA, G, alpha_m, alpha_s, clamp_min, lr_t, bc1,
+      bc2);
   return (int)cudaGetLastError();
 }
 

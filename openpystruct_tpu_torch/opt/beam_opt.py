@@ -34,6 +34,10 @@ from openpystruct_tpu_torch.fem.beam import (
 )
 from openpystruct_tpu_torch.opt.loss import LossComponents, structural_loss
 from openpystruct_tpu_torch.ops.beam_kernel import beam_analysis, beam_opt_step
+from openpystruct_tpu_torch.ops.beam_kernel_dd import (
+    beam_analysis_dd,
+    beam_opt_step_dd,
+)
 
 # Epochs between host reads of the done flags.  An epoch at B = 16384 is a
 # launch of a few milliseconds, so a sync every epoch would idle the card
@@ -158,12 +162,8 @@ def optimize_beam(scenario: BeamScenario, beam: BeamConfig = BeamConfig(),
 
 
 def _check_path(I, fused, dd):
-    if dd:
-        raise NotImplementedError(
-            "the double-double rescue kernels (openpystruct_tpu "
-            "ops/beam_kernel_dd.py) are not ported yet"
-        )
-    if not fused and I.is_cuda:
+    # dd runs its own kernels whatever ``fused`` says, as in the JAX package
+    if not (dd or fused) and I.is_cuda:
         raise NotImplementedError(
             "fused=False runs the split path, whose block-Thomas kernel "
             "(openpystruct_tpu ops/block_tridiag.py _thomas_kernel) is not "
@@ -171,12 +171,17 @@ def _check_path(I, fused, dd):
         )
 
 
-def _make_kernel_step(scenario, beam, opt, refine, fused, dtype):
+def _make_kernel_step(scenario, beam, opt, refine, fused, dtype, dd=False):
     """One optimizer iteration for the whole batch:
     ``step(I, mu, nu, epoch) -> (I_new, mu, nu, stats (B, 4))``."""
     E, G, A = beam.E, beam.G, beam.A
 
-    if fused:
+    if dd and opt.grad_mode != "semi":
+        raise NotImplementedError(
+            "the float64 rescue kernels implement the reference's "
+            "semi-gradient mode only (OpenPyStruct_BeamOpt.py:150-151)"
+        )
+    if dd or fused:
         Le = torch.diff(scenario.node_x, dim=-1).to(dtype)
         free = (~constraint_mask(scenario)).to(dtype)
         loads = scenario.point_loads.to(dtype)
@@ -184,12 +189,13 @@ def _make_kernel_step(scenario, beam, opt, refine, fused, dtype):
 
         def kernel_step(I, mu, nu, epoch):
             lr_t, bc1, bc2 = _adam_scalars(opt, epoch, dtype)
-            return beam_opt_step(
-                I, mu, nu, Le, free, loads, udl, lr_t, bc1, bc2, E, A, G,
-                alpha_m=opt.alpha_moment, alpha_s=opt.alpha_shear,
-                clamp_min=opt.clamp_min, grad_semi=(opt.grad_mode == "semi"),
-                refine=refine,
-            )
+            args = (I, mu, nu, Le, free, loads, udl, lr_t, bc1, bc2, E, A, G)
+            kw = dict(alpha_m=opt.alpha_moment, alpha_s=opt.alpha_shear,
+                      clamp_min=opt.clamp_min)
+            if dd:
+                return beam_opt_step_dd(*args, **kw)[:4]   # drop the pivot
+            return beam_opt_step(*args, grad_semi=(opt.grad_mode == "semi"),
+                                 refine=refine, **kw)
 
         return kernel_step
 
@@ -274,18 +280,20 @@ def _run_epochs(body, state, epoch, max_epochs, keep_going):
     return state, epoch
 
 
-def _final_solution(scenario, I_solved, beam, refine, fused):
+def _final_solution(scenario, I_solved, beam, refine, fused, dd=False):
     """One analysis at the last-solved I, the solve the loop's last
     evaluation saw.  Returns ``(BeamSolution, pivot or None)``."""
     I_solved = I_solved.detach()
-    if fused:
+    if dd or fused:
         dtype = I_solved.dtype
-        u, V, M, piv = beam_analysis(
-            I_solved, torch.diff(scenario.node_x, dim=-1).to(dtype),
-            (~constraint_mask(scenario)).to(dtype),
-            scenario.point_loads.to(dtype), scenario.udl.to(dtype),
-            beam.E, beam.A, refine=refine,
-        )
+        args = (I_solved, torch.diff(scenario.node_x, dim=-1).to(dtype),
+                (~constraint_mask(scenario)).to(dtype),
+                scenario.point_loads.to(dtype), scenario.udl.to(dtype),
+                beam.E, beam.A)
+        if dd:
+            u, V, M, piv = beam_analysis_dd(*args)
+        else:
+            u, V, M, piv = beam_analysis(*args, refine=refine)
         sol = BeamSolution(displacements=u, deflections=u[..., 1],
                            rotations=u[..., 2], shear_forces=V,
                            bending_moments=M)
@@ -294,9 +302,9 @@ def _final_solution(scenario, I_solved, beam, refine, fused):
                               refine=refine), None
 
 
-def _result(scenario, state, beam, refine, fused):
+def _result(scenario, state, beam, refine, fused, dd):
     sol, piv = _final_solution(scenario, state["I_solved"], beam, refine,
-                               fused)
+                               fused, dd)
     st = state["stats"]
     return BeamOptResult(
         I=state["I"], I_solved=state["I_solved"], solution=sol,
@@ -321,7 +329,11 @@ def optimize_beam_batched(scenario: BeamScenario,
     loss, gradient (semi or adjoint) and Adam in one kernel launch on the
     card, or its plain version for CPU tensors.  ``fused=False`` is the
     split path (plain solve + autograd), CPU only until the block-Thomas
-    kernel is ported.  ``dd`` (the double-double rescue) is not ported.
+    kernel is ported.  ``dd=True`` (the rescue's arithmetic) runs
+    ``beam_opt_step_dd`` and a final ``beam_analysis_dd`` instead, whatever
+    ``fused`` says: solve, loss and semi-gradient in float64, Adam in I0's
+    dtype, the pivot in ``result.pivot``; ``refine`` is not used and
+    adjoint mode raises.
     """
     B, nelem = scenario.node_x.shape[0], scenario.node_x.shape[-1] - 1
     if I0 is None:
@@ -329,10 +341,11 @@ def optimize_beam_batched(scenario: BeamScenario,
     fused = True if fused is None else fused
     _check_path(I0, fused, dd)
     body = _make_freeze_body(
-        _make_kernel_step(scenario, beam, opt, refine, fused, I0.dtype), opt)
+        _make_kernel_step(scenario, beam, opt, refine, fused, I0.dtype, dd),
+        opt)
     state, _ = _run_epochs(body, _lane_state_init(I0), 0, opt.max_epochs,
                            lambda st: bool((~st["done"]).any()))
-    return _result(scenario, state, beam, refine, fused)
+    return _result(scenario, state, beam, refine, fused, dd)
 
 
 def _bucket_size(n_active: int, min_bucket: int, cap: int) -> int:
@@ -379,7 +392,8 @@ def optimize_beam_compact(scenario: BeamScenario,
 
     def run_stage(scen, st, epoch, next_size):
         body = _make_freeze_body(
-            _make_kernel_step(scen, beam, opt, refine, fused, I0.dtype), opt)
+            _make_kernel_step(scen, beam, opt, refine, fused, I0.dtype, dd),
+            opt)
         return _run_epochs(body, st, epoch, opt.max_epochs,
                            lambda s: int((~s["done"]).sum()) > next_size)
 
@@ -396,4 +410,4 @@ def optimize_beam_compact(scenario: BeamScenario,
         # gidx is part of a permutation: a conflict-free scatter
         for k, v in ws.items():
             state[k][gidx] = v
-    return _result(scenario, state, beam, refine, fused)
+    return _result(scenario, state, beam, refine, fused, dd)

@@ -23,6 +23,7 @@ from openpystruct_tpu.opt.beam_opt import (
 from openpystruct_tpu_torch.config import BeamConfig, OptimizerConfig
 from openpystruct_tpu_torch.datagen.sampler import sample_scenarios
 from openpystruct_tpu_torch.interop import scenario_from_numpy
+from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
 from openpystruct_tpu_torch.opt import beam_opt as tbo
 
 
@@ -121,8 +122,22 @@ def test_sync_interval_does_not_change_results(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """dd=True runs the float64 rescue path (semi-gradient only, as in the
+    JAX package); with grad_mode="adjoint" it still raises."""
     sc = _small_batch(B=2)
+    adjoint = OptimizerConfig(max_epochs=5, grad_mode="adjoint")
     with pytest.raises(NotImplementedError):
-        tbo.optimize_beam_batched(sc, dd=True)
+        tbo.optimize_beam_batched(sc, opt=adjoint, dd=True)
     with pytest.raises(NotImplementedError):
-        tbo.optimize_beam_compact(sc, dd=True)
+        tbo.optimize_beam_compact(sc, opt=adjoint, dd=True)
+    semi = OptimizerConfig(max_epochs=5)
+    tkd.reset_counts()
+    batched = tbo.optimize_beam_batched(sc, opt=semi, dd=True)
+    compact = tbo.optimize_beam_compact(sc, opt=semi, dd=True, min_bucket=1)
+    assert tkd.PLAIN_CALLS == {"beam_analysis_dd": 2, "beam_opt_step_dd": 10}
+    tkd.reset_counts()
+    _assert_same(compact, batched)
+    assert batched.pivot.dtype == torch.float64 and (batched.pivot > 0).all()
+    # fused=False does not turn dd off, as in the JAX package
+    split = tbo.optimize_beam_batched(sc, opt=semi, dd=True, fused=False)
+    _assert_same(split, batched)

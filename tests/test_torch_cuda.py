@@ -1,4 +1,5 @@
-"""Port, on the card only: each CUDA kernel against its plain version.
+"""Port, on the card only: each CUDA kernel against its plain version, and
+the datagen paths launching kernels only.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed:
@@ -12,10 +13,15 @@ checks at full width (B = 16384).
 import pytest
 import torch
 
-from openpystruct_tpu_torch.config import DATAGEN_OPT, BeamConfig
-from openpystruct_tpu_torch.datagen import run_batch, sample_scenarios
+from openpystruct_tpu_torch.config import DATAGEN_OPT, BeamConfig, ScenarioConfig
+from openpystruct_tpu_torch.datagen import (
+    generate_batch,
+    run_batch,
+    sample_scenarios,
+)
 from openpystruct_tpu_torch.fem.beam import constraint_mask
 from openpystruct_tpu_torch.ops import beam_kernel as tk
+from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
 from openpystruct_tpu_torch.opt import beam_opt
 
 BEAM = BeamConfig(udl=-1000.0)
@@ -29,9 +35,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(B, seed, device, dtype):
+def _inputs(B, seed, device, dtype, cfg=ScenarioConfig()):
     gen = torch.Generator().manual_seed(seed)
-    sc = sample_scenarios(gen, B, device="cpu", dtype=torch.float64)
+    sc = sample_scenarios(gen, B, cfg, device="cpu", dtype=torch.float64)
     nelem = sc.num_nodes - 1
     x = dict(
         I=torch.exp(torch.randn((B, nelem), generator=gen) * 0.3) * 0.5,
@@ -117,3 +123,57 @@ def test_batch_program_launches_kernels_only(cuda):
     assert 0 <= extra < beam_opt._SYNC_EVERY
     assert batch.valid.all()
     tk.reset_counts()
+
+
+def _lane_err(got, want):
+    got, want = got.double().reshape(len(got), -1), want.double().reshape(
+        len(want), -1)
+    return ((got - want).abs().amax(1) / want.abs().amax(1)).max().item()
+
+
+@pytest.mark.cuda
+def test_beam_analysis_dd_kernel(cuda):
+    """The float64 analysis kernel against its plain version on the same
+    float32 random-bridge inputs: both compute in float64, so they agree
+    to float32 rounding (bar: 1e-5 of the lane's scale)."""
+    x = _inputs(300, 5, cuda, torch.float32, ScenarioConfig(random_bridge=True))
+    args = [x[k] for k in ("I", "Le", "free", "loads", "udl")]
+    before = tkd.LAUNCHES["beam_analysis_dd"]
+    kern = tkd.beam_analysis_dd(*args, E, A)
+    assert tkd.LAUNCHES["beam_analysis_dd"] == before + 1
+    plain = tkd.beam_analysis_dd_reference(*args, E, A)
+    torch.cuda.synchronize()
+    for k, p in zip(kern[:3], plain[:3]):
+        assert _lane_err(k, p) <= 1e-5
+    assert ((kern[3].double() / plain[3].double() - 1).abs() <= 1e-3).all()
+    assert (kern[0][..., 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_beam_opt_step_dd_kernel(cuda):
+    x = _inputs(300, 6, cuda, torch.float32, ScenarioConfig(random_bridge=True))
+    args = [x[k] for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
+    tail = (0.009, 1.5, 400.0, E, A, G)
+    kern = tkd.beam_opt_step_dd(*args, *tail)
+    plain = tkd.beam_opt_step_dd_reference(*args, *tail)
+    torch.cuda.synchronize()
+    for k, p in zip(kern[:4], plain[:4]):
+        assert _lane_err(k, p) <= 1e-5
+    assert ((kern[4].double() / plain[4].double() - 1).abs() <= 1e-3).all()
+
+
+@pytest.mark.cuda
+def test_random_bridge_batch_launches_kernels_only(cuda):
+    """The default rescue of a random-bridge batch on the card runs the
+    float64 kernels: no plain version, and every lane kept."""
+    for m in (tk, tkd):
+        m.reset_counts()
+    batch = generate_batch(torch.Generator().manual_seed(7), 512,
+                           ScenarioConfig(random_bridge=True), device=cuda)
+    assert tk.PLAIN_CALLS == {"beam_analysis": 0, "beam_opt_step": 0}
+    assert tkd.PLAIN_CALLS == {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
+    assert tkd.LAUNCHES["beam_analysis_dd"] == 1
+    assert tkd.LAUNCHES["beam_opt_step_dd"] > 0
+    assert batch.valid.float().mean().item() >= 0.99
+    for m in (tk, tkd):
+        m.reset_counts()

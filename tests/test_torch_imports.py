@@ -51,6 +51,24 @@ def test_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_import_builds_no_kernel():
+    """Importing every module, the float64 rescue kernels' included, runs
+    no nvcc and loads no library: kernels build at their first launch."""
+    modules = sorted(p for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    assert PORT / "ops" / "beam_kernel_dd.py" in modules
+    code = (
+        "".join("import openpystruct_tpu_torch." + ".".join(
+            p.relative_to(PORT).with_suffix("").parts) + "\n"
+            for p in modules)
+        + "from openpystruct_tpu_torch.ops import _build\n"
+        + "assert _build._loaded == {} and _build.BUILD_INFO == {}\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     import torch
 

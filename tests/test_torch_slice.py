@@ -1,6 +1,6 @@
-"""Port: the fixed-bridge datagen slice end to end on the CPU in float64 —
-two tiny batches, generate -> 13-key JSON -> read back — and the entry
-points' refusals."""
+"""Port: the datagen slices end to end on the CPU — fixed-bridge batches in
+float64, generate -> 13-key JSON -> read back; random-bridge and 201-node
+batches with the rescue — and the default device."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,9 @@ from openpystruct_tpu_torch.datagen import (
     read_json_dataset,
     write_json_dataset,
 )
+from openpystruct_tpu_torch.datagen.generate import RESCUE_PIVOT_TOL
 from openpystruct_tpu_torch.ops import beam_kernel as tk
+from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
 
 FAST = OptimizerConfig(max_epochs=20, tolerance=5e-3, patience=5)
 
@@ -55,14 +57,57 @@ def test_slice_end_to_end_cpu_f64(tmp_path):
 
 
 def test_entry_points_refuse_what_is_not_ported():
-    gen = torch.Generator().manual_seed(0)
-    for kw in (dict(scen_cfg=ScenarioConfig(random_bridge=True)),
-               dict(scen_cfg=ScenarioConfig(num_nodes=201)),
-               dict(rescue="dd")):
-        with pytest.raises(NotImplementedError):
-            generate_batch(gen, 4, device="cpu", **kw)
-        with pytest.raises(NotImplementedError):
-            generate_dataset(0, 4, device="cpu", **kw)
+    """Random-bridge, 201-node and rescue="dd" datagen, which this slice's
+    entry points once refused, now run the rescue on the CPU (float32, as
+    the card runs it): every lane kept, the float32-kept lanes untouched,
+    rescued lanes pinned at their supports; "dd" runs the float64 kernels'
+    plain versions, the CPU default "f64" the host split path."""
+    cases = ((dict(scen_cfg=ScenarioConfig(random_bridge=True)), "f64"),
+             (dict(scen_cfg=ScenarioConfig(num_nodes=201)), "f64"),
+             (dict(scen_cfg=ScenarioConfig(random_bridge=True), rescue="dd"),
+              "dd"))
+    for kw, mode in cases:
+        first = generate_batch(torch.Generator().manual_seed(1), 6,
+                               opt_cfg=FAST, device="cpu",
+                               **dict(kw, rescue=False))
+        assert not first.valid.all(), "seed produced no float32 drops"
+        tkd.reset_counts()
+        b = generate_batch(torch.Generator().manual_seed(1), 6, opt_cfg=FAST,
+                           device="cpu", **kw)
+        assert (tkd.PLAIN_CALLS["beam_opt_step_dd"] > 0) == (mode == "dd")
+        assert b.valid.all()
+        kept = first.valid
+        assert torch.equal(b.result.I[kept], first.result.I[kept])
+        resc = b.valid & ~kept
+        defl = b.result.solution.deflections[resc]
+        assert (defl[:, 0] == 0).all()
+        assert (defl[b.scenario.roller_mask[resc]] == 0).all()
+        assert (b.residual[resc] > RESCUE_PIVOT_TOL).all()
+        cols = generate_dataset(1, 6, batch_size=3, opt_cfg=FAST,
+                                device="cpu", **kw)
+        assert len(cols["I_values"]) == 6
+    tkd.reset_counts()
+    with pytest.raises(ValueError):
+        generate_batch(torch.Generator().manual_seed(1), 4, opt_cfg=FAST,
+                       device="cpu", rescue="f128")
+
+
+def test_random_bridge_json_round_trip(tmp_path):
+    """Random-bridge samples through the 13-key JSON: L and the node
+    positions per lane, rescued lanes included."""
+    cols = generate_dataset(3, 8, batch_size=4, opt_cfg=FAST, device="cpu",
+                            scen_cfg=ScenarioConfig(random_bridge=True))
+    path = str(tmp_path / "rb.json")
+    write_json_dataset(cols, path)
+    back = read_json_dataset(path)
+    assert back == cols and len(back["L"]) == 8
+    assert len(set(back["L"])) == 8
+    for L, x, rollers, nodes in zip(back["L"], back["node_positions"],
+                                    back["roller_x_locations"],
+                                    back["roller_nodes"]):
+        assert L == x[-1] and 15.0 <= L <= 215.0 and len(x) == 101
+        assert 1 <= len(nodes) <= 4
+        assert rollers == [x[t - 1] for t in nodes]
 
 
 def test_default_device_is_cuda():
