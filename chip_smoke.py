@@ -28,8 +28,11 @@ Phases, each of which raises on failure (exit code not 0):
    default rescue: at least 99% valid, the lanes the float32 pass kept
    bitwise equal to a run without rescue, rescued lanes pinned at their
    supports, every kernel launched, no plain version and no host rescue;
-4c. one 4096-lane fixed-bridge batch at n = 201, where the float32 gate
-   rejects the lanes and the rescue keeps them;
+4c. one 16384-lane fixed-bridge batch at n = 201, where the float32 gate
+   rejects the lanes and the rescue keeps at least 99% of them; before it,
+   all four kernels against their plain versions at n = 201 by the rules of
+   phases 3 and 3b, except that the float32 kernels' validity mask may be
+   off float64's on up to twice as many lanes as plain float32's;
 5. the whole optimizer on 512 lanes with the kernels, with the plain
    float32 path and with the plain float64 path: the kernel path's median
    per-lane loss gap to float64 no more than twice the plain float32
@@ -76,7 +79,6 @@ PIVOT_TOL = 1e-9
 BATCH = 16384          # lanes per batch: the JAX package's datagen batch
 SAMPLES = 2 * BATCH    # two batches on the main path
 CHECK_BATCH = 512      # lanes of the whole-optimizer check (phase 5)
-FINE_BATCH = 4096      # lanes of the 201-node batch (phase 4c)
 RESCUE_CHECK = 256     # rejected lanes of the dd vs f64 check (phase 5b)
 DD_TOL = 1e-5          # float64 kernel vs plain, of the lane's scale
 
@@ -191,9 +193,16 @@ def hold(torch, name, kern, plain32, truth, floor=1e-5):
     return (kern.double() - truth).abs().max().item()
 
 
-def check_kernels(torch, tk, inputs, scalars, E, A, G, refine):
+def check_kernels(torch, tk, inputs, scalars, E, A, G, refine,
+                  phase="phase 3", same_masks=True):
     """Run each kernel (wrapper) and its plain version in float32 and
-    float64 on the same inputs; returns max abs errors per kernel."""
+    float64 on the same inputs; returns max abs errors per kernel.
+
+    ``same_masks``: the validity masks of all three must be identical.
+    Where float32 cannot decide validity (n = 201, whose lanes only the
+    float64 rescue keeps), pass False: the kernel's mask may then disagree
+    with float64 on no more lanes than twice the plain float32 version's,
+    the rule the errors are held to."""
     def cast(dtype, keys):
         return [inputs[k].to(dtype) for k in keys]
 
@@ -201,7 +210,8 @@ def check_kernels(torch, tk, inputs, scalars, E, A, G, refine):
     opt_keys = ("I", "mu", "nu", "Le", "free", "loads", "udl")
     errs = {}
 
-    log("phase 3: beam_analysis vs plain (refine=%d)" % refine)
+    n = inputs["I"].shape[1] + 1
+    log(f"{phase}: beam_analysis vs plain (refine={refine}, n={n})")
     kern = tk.beam_analysis(*cast(torch.float32, ana_keys), E, A, refine)
     p32 = tk.beam_analysis_reference(*cast(torch.float32, ana_keys), E, A,
                                      refine)
@@ -215,16 +225,27 @@ def check_kernels(torch, tk, inputs, scalars, E, A, G, refine):
             errs["beam_analysis"] = e
     hold(torch, "pivot", kern[3][:, None], p32[3][:, None], p64[3][:, None])
     masks = [(x[3] > PIVOT_TOL) for x in (kern, p32, p64)]
-    if not (torch.equal(masks[0], masks[2]) and torch.equal(masks[1],
-                                                            masks[2])):
-        raise AssertionError("valid masks (pivot > 1e-9) differ")
-    log(f"  valid lanes {int(masks[0].sum())}/{masks[0].numel()} "
-        "(identical in kernel, plain f32, plain f64)")
+    if same_masks:
+        if not (torch.equal(masks[0], masks[2])
+                and torch.equal(masks[1], masks[2])):
+            raise AssertionError("valid masks (pivot > 1e-9) differ")
+        log(f"  valid lanes {int(masks[0].sum())}/{masks[0].numel()} "
+            "(identical in kernel, plain f32, plain f64)")
+    else:
+        off_k, off_p = (int((m != masks[2]).sum()) for m in masks[:2])
+        log("  valid lanes (pivot > 1e-9) kernel / plain f32 / plain f64: "
+            + " / ".join(str(int(m.sum())) for m in masks)
+            + f" of {masks[0].numel()} | lanes off float64's mask: kernel "
+            f"{off_k}, plain f32 {off_p}")
+        if not off_k <= 2 * off_p:
+            raise AssertionError(f"kernel's mask off float64's on {off_k} "
+                                 f"lanes, plain float32's on {off_p}")
 
     errs["beam_opt_step"] = 0.0
     for semi in (True, False):
         mode = "semi" if semi else "adjoint"
-        log(f"phase 3: beam_opt_step ({mode}, refine={refine}) vs plain")
+        log(f"{phase}: beam_opt_step ({mode}, refine={refine}, n={n}) vs "
+            "plain")
         tail = (*scalars, E, A, G)
         kw = dict(grad_semi=semi, refine=refine)
         kern = tk.beam_opt_step(*cast(torch.float32, opt_keys), *tail, **kw)
@@ -271,10 +292,11 @@ def quasi_cantilever(torch, BeamScenario, constraint_mask, gen, device):
     return {k: v.to(device=device, dtype=torch.float32) for k, v in x.items()}
 
 
-def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G):
+def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G,
+                     phase="phase 3b"):
     """Both float64 kernels (wrappers) against their plain versions on the
-    same float32 inputs; the last ``n_qc`` lanes are the quasi-cantilever
-    ones.  Returns max abs errors per kernel."""
+    same float32 inputs; the last ``n_qc`` lanes (none if 0) are the
+    quasi-cantilever ones.  Returns max abs errors per kernel."""
     ana = [inputs[k] for k in ("I", "Le", "free", "loads", "udl")]
     opt = [inputs[k] for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
     kern = tkd.beam_analysis_dd(*ana, E, A)
@@ -282,9 +304,10 @@ def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G):
     kern_o = tkd.beam_opt_step_dd(*opt, *scalars, E, A, G)
     plain_o = tkd.beam_opt_step_dd_reference(*opt, *scalars, E, A, G)
     torch.cuda.synchronize()
-    B = ana[0].shape[0]
-    log(f"phase 3b: float64 kernels vs plain float64 versions, {B} lanes "
-        f"({B - n_qc} random-bridge + {n_qc} quasi-cantilever)")
+    B, n = ana[0].shape[0], ana[0].shape[1] + 1
+    log(f"{phase}: float64 kernels vs plain float64 versions, {B} lanes, "
+        f"n={n}" + (f" ({B - n_qc} random-bridge + {n_qc} quasi-cantilever)"
+                    if n_qc else ""))
     for name, k, p in (("u", kern[0], plain[0]), ("V", kern[1], plain[1]),
                        ("M", kern[2], plain[2]), ("I_new", kern_o[0],
                                                   plain_o[0]),
@@ -305,6 +328,12 @@ def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G):
             f"{ratio.min().item():.9f} max {ratio.max().item():.9f}")
         if not ((ratio - 1.0).abs() <= 1e-3).all():
             raise AssertionError(f"{name} pivot off by more than 1e-3")
+    errs = {"beam_analysis_dd": (kern[0].double() - plain[0].double())
+            .abs().max().item(),
+            "beam_opt_step_dd": (kern_o[0].double() - plain_o[0].double())
+            .abs().max().item()}
+    if not n_qc:
+        return errs
     # the lanes the rescue exists for: the float32 kernel fails on them
     qc = [t[-n_qc:] for t in ana]
     u32 = tk.beam_analysis(*qc, E, A, 1)[0]
@@ -316,10 +345,7 @@ def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G):
         + ", ".join(f"{e:.3e}" for e in e32) + " | float64 kernel "
         + ", ".join(f"{e:.3e}" for e in e64) + " | float64 pivots "
         + ", ".join(f"{p:.3e}" for p in plain[3][-n_qc:].tolist()))
-    return {"beam_analysis_dd": (kern[0].double() - plain[0].double())
-            .abs().max().item(),
-            "beam_opt_step_dd": (kern_o[0].double() - plain_o[0].double())
-            .abs().max().item()}
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -653,15 +679,21 @@ def main(argv=None) -> int:
 
     # ---- phase 4c: a mesh finer than 101 nodes ---------------------------
     fine_cfg = ScenarioConfig(num_nodes=201)
-    log(f"phase 4c: generate_batch({FINE_BATCH}, num_nodes=201), default "
-        "rescue")
+    fine_inputs = make_inputs(torch, sample_scenarios, constraint_mask,
+                              args.seed + 5, BATCH, dev, cfg=fine_cfg)
+    errs_fine = check_kernels(torch, tk, fine_inputs, scalars, E, A, G,
+                              refine, phase="phase 4c", same_masks=False)
+    errs_fine.update(check_dd_kernels(torch, tk, tkd, fine_inputs, 0, scalars,
+                                      E, A, G, phase="phase 4c"))
+    del fine_inputs
+    log(f"phase 4c: generate_batch({BATCH}, num_nodes=201), default rescue")
     rescues = []
     reset_counts(tk, tkd)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with timed_rescues(torch, gen_mod, rescues):
         fine = generate_batch(torch.Generator().manual_seed(args.seed),
-                              FINE_BATCH, fine_cfg, device="cuda")
+                              BATCH, fine_cfg, device="cuda")
     torch.cuda.synchronize()
     wall_fine = time.perf_counter() - t0
     launches_fine, plain_fine = read_counts(tk, tkd)
@@ -672,13 +704,14 @@ def main(argv=None) -> int:
                              f"{launches_fine} {plain_fine} {rescues}")
     valid_fine = int(fine.valid.sum())
     check_supports(torch, fine, fine.valid)
-    log(f"  float32 pass rejected {rescues[0]['rejected']}/{FINE_BATCH}; "
-        f"valid {valid_fine}/{FINE_BATCH} ({valid_fine / FINE_BATCH:.4f}) | "
+    log(f"  float32 pass rejected {rescues[0]['rejected']}/{BATCH}; "
+        f"valid {valid_fine}/{BATCH} ({valid_fine / BATCH:.4f}) | "
         f"wall {wall_fine:.2f} s, rescue {rescues[0]['seconds']:.2f} s | "
         f"mean epochs {fine.result.n_epochs.double().mean().item():.2f} | "
         f"launches {launches_fine}")
-    if valid_fine == 0:
-        raise AssertionError("n=201 kept no lane")
+    if valid_fine < 0.99 * BATCH:
+        raise AssertionError(f"n=201 valid share {valid_fine / BATCH:.4f} "
+                             "< 0.99")
 
     # ---- phase 5: the whole optimizer, kernels vs plain -------------------
     log(f"phase 5: optimize_beam_batched on {CHECK_BATCH} lanes: "
@@ -817,7 +850,7 @@ def main(argv=None) -> int:
             launches=path_launches[name], max_abs_err=errs[name], ms=t_wrap,
             plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
             kernel_only_ms=t_kern, layout_ms=t_layout,
-            launches_per_batch=per_batch,
+            launches_per_batch=per_batch, max_abs_err_n201=errs_fine[name],
         ))
     kernels[1]["adjoint_kernel_only_ms"] = adjoint_ms
     kernels[1]["adjoint_bound_ms"] = bound_ms(B, n, refine, "adjoint")[0]

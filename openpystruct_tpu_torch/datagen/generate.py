@@ -16,9 +16,14 @@ merges them back:
 
 - ``rescue="dd"`` (the default on the card): the float64 fused kernels
   (``ops/beam_kernel_dd.py``), on the device, with lane compaction;
-- ``rescue="f64"`` (the default for CPU batches, and for adjoint mode, which
-  the float64 kernels do not implement): the plain split path on the CPU in
-  float64, the arithmetic the reference runs for every sample.
+- ``rescue="f64"`` (the default for CPU batches): the plain split path on
+  the CPU in float64, the arithmetic the reference runs for every sample.
+  A CUDA batch rescues on the host only when the caller asks for it.
+
+The float64 kernels are semi-gradient only.  In adjoint mode a CPU batch
+rescues with ``"f64"``, as the JAX package routes it; a CUDA batch raises
+``NotImplementedError`` unless ``rescue="f64"`` (or False) is passed, since
+there is no float64 adjoint kernel to keep the rescue on the card.
 
 Rescued lanes are valid when finite with a pivot above ``RESCUE_PIVOT_TOL``.
 The JAX package's multi-host rescue (each process rescuing its own shard)
@@ -44,7 +49,6 @@ from openpystruct_tpu_torch.datagen.io import batch_to_columnar, merge_columnar
 from openpystruct_tpu_torch.datagen.sampler import sample_scenarios
 from openpystruct_tpu_torch.device import resolve_device
 from openpystruct_tpu_torch.fem.beam import BeamScenario, beam_min_pivot
-from openpystruct_tpu_torch.ops.beam_kernel_dd import fits_dd
 from openpystruct_tpu_torch.opt.beam_opt import (
     BeamOptResult,
     optimize_beam_batched,
@@ -206,13 +210,37 @@ def _rescue_local(batch: DatagenBatch, beam_cfg: BeamConfig,
     return _merge_rescued(batch, out, put)
 
 
-def _auto_rescue_mode(num_nodes: int, device: torch.device) -> str:
-    """The rescue arithmetic for ``rescue=True``: the float64 kernels where
-    they run natively (a CUDA batch) and take the mesh (``fits_dd``), the
-    host float64 path elsewhere."""
-    if device.type == "cuda" and fits_dd(num_nodes):
-        return "dd"
-    return "f64"
+def _auto_rescue_mode(device: torch.device) -> str:
+    """The rescue arithmetic for ``rescue=True``: the float64 kernels on a
+    CUDA batch, the host float64 path elsewhere."""
+    return "dd" if device.type == "cuda" else "f64"
+
+
+def _resolve_rescue(rescue, scen_cfg: ScenarioConfig, grad_mode: str,
+                    device: torch.device):
+    """``generate_batch``'s ``rescue`` argument as a mode ("dd", "f64") or
+    False (docstring there)."""
+    explicit_dd = rescue == "dd"
+    if rescue is None:
+        rescue = scen_cfg.random_bridge or scen_cfg.num_nodes > 101
+    if rescue is True:
+        rescue = _auto_rescue_mode(device)
+    if rescue == "dd" and grad_mode != "semi":
+        if device.type == "cuda":
+            raise NotImplementedError(
+                f"grad_mode={grad_mode!r} on a CUDA batch: the rescue's "
+                "float64 opt-step kernel (beam_opt_step_dd) is semi-gradient "
+                "only and there is no float64 adjoint kernel; pass "
+                "rescue='f64' to rescue on the host CPU in float64, or "
+                "rescue=False")
+        if explicit_dd:
+            logging.getLogger(__name__).warning(
+                "rescue='dd' requested but grad_mode=%r: the float64 kernels "
+                "are semi-gradient only; falling back to the exact-adjoint "
+                "host-f64 rescue", grad_mode,
+            )
+        rescue = "f64"
+    return rescue
 
 
 def generate_batch(generator: torch.Generator, batch_size: int,
@@ -230,25 +258,15 @@ def generate_batch(generator: torch.Generator, batch_size: int,
     finer than 101 nodes, the regimes whose valid lanes the float32 gate
     rejects, and skips the host sync elsewhere; True picks the arithmetic
     (``"dd"`` on the card, ``"f64"`` on the CPU); ``"dd"`` or ``"f64"``
-    asks for one; False keeps only the float32 pass.  Adjoint mode always
-    rescues with ``"f64"``: the float64 kernels are semi-gradient only.
+    asks for one; False keeps only the float32 pass.  The float64 kernels
+    are semi-gradient only: in adjoint mode a CPU batch rescues with
+    ``"f64"`` (warning if ``"dd"`` was asked for), and a CUDA batch raises
+    ``NotImplementedError`` unless ``rescue`` is ``"f64"`` or False.
     """
     if beam_cfg is None:
         beam_cfg = BeamConfig(udl=scen_cfg.udl)
     device = resolve_device(device)
-    explicit_dd = rescue == "dd"
-    if rescue is None:
-        rescue = scen_cfg.random_bridge or scen_cfg.num_nodes > 101
-    if rescue is True:
-        rescue = _auto_rescue_mode(scen_cfg.num_nodes, device)
-    if rescue == "dd" and opt_cfg.grad_mode != "semi":
-        if explicit_dd:
-            logging.getLogger(__name__).warning(
-                "rescue='dd' requested but grad_mode=%r: the float64 kernels "
-                "are semi-gradient only; falling back to the exact-adjoint "
-                "host-f64 rescue", opt_cfg.grad_mode,
-            )
-        rescue = "f64"
+    rescue = _resolve_rescue(rescue, scen_cfg, opt_cfg.grad_mode, device)
     scenario = sample_scenarios(generator, batch_size, scen_cfg,
                                 device=device, dtype=dtype)
     batch = run_batch(scenario, beam_cfg, opt_cfg, refine, pivot_tol, compact)

@@ -7,7 +7,10 @@ arithmetic, float32 hi/lo pairs emulating a ~48-bit mantissa on the TPU.
 The H100 has native FP64, so "dd" here means float64: the kernels of
 ``csrc/beam_kernel.cu`` instantiate the float32 kernels' stage functions
 for ``double``, as the JAX dd module hands its float32 stages hi/lo pairs.
-Inputs and outputs stay float32.
+Inputs and outputs stay float32.  The kernels take any mesh: one thread
+walks a lane's nodes with its scratch in a device-memory workspace the
+wrapper sizes to the batch, so the TPU kernel's VMEM ceiling (the JAX
+module's ``fits_dd``) does not carry over and has no counterpart here.
 
 - ``beam_analysis_dd`` (``pallas_beam_analysis_dd``, kernel
   ``_beam_dd_kernel``): ``beam_analysis``'s contract without the refinement
@@ -63,16 +66,6 @@ def reset_counts() -> None:
     for counts in (LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
-
-
-def fits_dd(n_nodes: int) -> bool:
-    """Whether the float64 kernels take a mesh of ``n_nodes`` nodes.
-
-    They have no mesh-size limit: one thread walks a lane's nodes with its
-    scratch in a device-memory workspace the wrapper sizes to the batch, so
-    the TPU kernel's VMEM ceiling does not carry over.  Every mesh with an
-    element fits."""
-    return n_nodes >= 2
 
 
 # ---------------------------------------------------------------------------

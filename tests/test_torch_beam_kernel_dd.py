@@ -227,7 +227,6 @@ def test_wrappers_route_cpu_tensors_to_plain_versions(batch):
     assert tkd.LAUNCHES == {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
     assert tkd.PLAIN_CALLS == {"beam_analysis_dd": 1, "beam_opt_step_dd": 1}
     tkd.reset_counts()
-    assert tkd.fits_dd(1001) and not tkd.fits_dd(1)
 
 
 def test_optimizer_dd_matches_jax():
@@ -356,9 +355,10 @@ def test_rescue_adjoint_f64_matches_jax_rescue():
 
 
 def test_adjoint_routes_the_rescue_to_f64(caplog):
-    """generate_batch(rescue="dd") in adjoint mode warns and rescues on the
-    host in float64 (the float64 kernels are semi-gradient only), keeping
-    ~100% of the lanes, as the JAX package does."""
+    """On a CPU batch, generate_batch(rescue="dd") in adjoint mode warns and
+    rescues on the host in float64 (the float64 kernels are semi-gradient
+    only), keeping ~100% of the lanes, as the JAX package does.  A CUDA
+    batch raises instead (tests/test_torch_slice.py)."""
     opt = OptimizerConfig(**FAST, grad_mode="adjoint")
     kw = dict(scen_cfg=ScenarioConfig(random_bridge=True), opt_cfg=opt,
               refine=0, device="cpu")

@@ -10,6 +10,8 @@ Without a CUDA device every test skips.  ``chip_smoke.py`` runs the same
 checks at full width (B = 16384).
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -177,3 +179,20 @@ def test_random_bridge_batch_launches_kernels_only(cuda):
     assert batch.valid.float().mean().item() >= 0.99
     for m in (tk, tkd):
         m.reset_counts()
+
+
+@pytest.mark.cuda
+def test_adjoint_rescue_stays_off_the_host_unless_asked(cuda):
+    """In adjoint mode a random-bridge CUDA batch has no float64 kernel to
+    rescue with: the default raises, and rescue="f64" rescues on the host
+    in float64 as asked."""
+    opt = dataclasses.replace(DATAGEN_OPT, grad_mode="adjoint", max_epochs=60)
+    rb = ScenarioConfig(random_bridge=True)
+    with pytest.raises(NotImplementedError, match="beam_opt_step_dd"):
+        generate_batch(torch.Generator().manual_seed(8), 64, rb, opt_cfg=opt,
+                       device=cuda)
+    tkd.reset_counts()
+    batch = generate_batch(torch.Generator().manual_seed(8), 64, rb,
+                           opt_cfg=opt, device=cuda, rescue="f64")
+    assert tkd.LAUNCHES == {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
+    assert batch.valid.is_cuda and batch.valid.float().mean().item() >= 0.99

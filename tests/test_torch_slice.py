@@ -14,7 +14,10 @@ from openpystruct_tpu_torch.datagen import (
     read_json_dataset,
     write_json_dataset,
 )
-from openpystruct_tpu_torch.datagen.generate import RESCUE_PIVOT_TOL
+from openpystruct_tpu_torch.datagen.generate import (
+    RESCUE_PIVOT_TOL,
+    _resolve_rescue,
+)
 from openpystruct_tpu_torch.ops import beam_kernel as tk
 from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
 
@@ -90,6 +93,35 @@ def test_entry_points_refuse_what_is_not_ported():
     with pytest.raises(ValueError):
         generate_batch(torch.Generator().manual_seed(1), 4, opt_cfg=FAST,
                        device="cpu", rescue="f128")
+
+
+RB, FINE = ScenarioConfig(random_bridge=True), ScenarioConfig(num_nodes=201)
+
+
+@pytest.mark.parametrize("rescue, scen, grad_mode, device, want", [
+    (None, ScenarioConfig(), "semi", "cuda", False),
+    (None, RB, "semi", "cpu", "f64"),
+    (None, RB, "semi", "cuda", "dd"),
+    (None, FINE, "semi", "cuda", "dd"),
+    (True, ScenarioConfig(), "semi", "cpu", "f64"),
+    ("f64", RB, "semi", "cuda", "f64"),
+    (None, RB, "adjoint", "cpu", "f64"),
+    ("f64", RB, "adjoint", "cuda", "f64"),
+    (False, RB, "adjoint", "cuda", False),
+    (None, RB, "adjoint", "cuda", NotImplementedError),
+    ("dd", FINE, "adjoint", "cuda", NotImplementedError),
+    (True, ScenarioConfig(), "adjoint", "cuda", NotImplementedError),
+])
+def test_rescue_resolution(rescue, scen, grad_mode, device, want):
+    """generate_batch's rescue argument: the float64 kernels by default on
+    a CUDA batch, the host float64 path by default on the CPU, and no
+    silent move of a CUDA batch's adjoint rescue to the host."""
+    dev = torch.device(device)
+    if want is NotImplementedError:
+        with pytest.raises(NotImplementedError, match="beam_opt_step_dd"):
+            _resolve_rescue(rescue, scen, grad_mode, dev)
+    else:
+        assert _resolve_rescue(rescue, scen, grad_mode, dev) == want
 
 
 def test_random_bridge_json_round_trip(tmp_path):
