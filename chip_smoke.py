@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's datagen paths once on one CUDA card: the
+"""Drive the PyTorch port's paths once on one CUDA card: datagen (the
 fixed bridge, the random bridge and the 201-node mesh with their float64
-rescue.
+rescue), the split solve path, the differentiable fused analysis and the
+accuracy autopilot.
 
     python3 chip_smoke.py [--seed 0] [--quick]
 
@@ -20,6 +21,16 @@ Phases, each of which raises on failure (exit code not 0):
    quasi-cantilever lanes float32 cannot solve: per-lane error no more than
    1e-5 of the lane's scale, pivots within a relative 1e-3; the float32
    kernel's error on the quasi-cantilever lanes is printed beside them;
+3c. the split-path kernels against their plain versions at B = 16384, n =
+   101 and 201, on fixed-bridge and random-bridge systems: the explicit-RHS
+   beam solve (#3, x and pivot), the block-Thomas solve (#4) and the
+   streamed one (#6).  On the fixed bridge at n = 101 by phase 3's rule.
+   Elsewhere float32 keeps about no digits (plain float32's own error is
+   ~1 of the lane's scale), so the forward errors are printed, not held;
+   on all four cases each kernel's backward error (the residual of the
+   system in float64, relative to |K| |x| + |b| per lane) must be no more
+   than twice the plain float32 version's, or 1e-6, at the median, the
+   99th percentile and the worst lane, with no more non-finite lanes;
 4. the main path: ``generate_dataset`` (DATAGEN_OPT, refine 1, lane
    compaction) over two 16384-lane fixed-bridge batches, the 13-key JSON
    written and read back, both kernels launched and no plain version
@@ -33,6 +44,21 @@ Phases, each of which raises on failure (exit code not 0):
    all four kernels against their plain versions at n = 201 by the rules of
    phases 3 and 3b, except that the float32 kernels' validity mask may be
    off float64's on up to twice as many lanes as plain float32's;
+4d. the split path: ``optimize_beam_compact(fused=False)`` on 16384
+   fixed-bridge lanes in semi and in adjoint mode (n = 101: the streamed
+   kernel #6) and on 16384 random-bridge lanes at n = 51 in semi mode
+   (below the dispatch threshold: kernel #4), the solve launched forward
+   (and backward in adjoint mode) and no plain version;
+   then phase 5's rule on 512 lanes against the plain float32 and float64
+   split paths (epochs cut to SPLIT_CHECK_EPOCHS for all three, to keep the
+   host's plain runs short); then the gradient of ``beam_analysis`` (kernel
+   #1 forward, #3 backward) on 16384 lanes against the plain float32 and
+   float64 routes by phase 3's rule;
+4e. ``solve_beam_checked(tol=1e-4)`` on 16384 random-bridge lanes at n =
+   101 and on 16384 fixed-span lanes at n = 201 and 501
+   (tests/test_accuracy.py's family): every lane it certifies within 1e-4
+   of the lane's scale of the plain float64 solve, the escalation through
+   the float64 analysis kernel, no plain version and nothing on the host;
 5. the whole optimizer on 512 lanes with the kernels, with the plain
    float32 path and with the plain float64 path: the kernel path's median
    per-lane loss gap to float64 no more than twice the plain float32
@@ -44,9 +70,12 @@ Phases, each of which raises on failure (exit code not 0):
 6. times: CUDA events, median of 20 launches per kernel, beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
-   float64, H100 SXM).
+   float64, H100 SXM); for #4 and #6 also the dense ``torch.linalg.solve``
+   of the same systems (the library yardstick), and the two kernels in
+   turns at n = 51, 101, 301 and 1001, with the dispatch threshold that
+   n = 101, 301 and 1001 imply.
 
-``--quick`` stops after phase 3b.  Prints the card line, a JSON line of
+``--quick`` stops after phase 3c.  Prints the card line, a JSON line of
 kernel results, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or away from the repository, it fails before printing any result.
 """
@@ -62,15 +91,29 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SOURCE = "openpystruct_tpu_torch/ops/csrc/beam_kernel.cu"
+CSRC = "openpystruct_tpu_torch/ops/csrc/"
+SOURCE = {
+    "beam_analysis": CSRC + "beam_kernel.cu",
+    "beam_opt_step": CSRC + "beam_kernel.cu",
+    "beam_analysis_dd": CSRC + "beam_kernel.cu",
+    "beam_opt_step_dd": CSRC + "beam_kernel.cu",
+    "beam_solve": CSRC + "beam_kernel.cu",
+    "block_tridiag_solve": CSRC + "block_tridiag.cu",
+    "block_tridiag_solve_streamed": CSRC + "block_tridiag.cu",
+}
 REPLACES = {
     "beam_analysis": "openpystruct_tpu/ops/beam_kernel.py:751",
     "beam_opt_step": "openpystruct_tpu/ops/beam_kernel.py:819",
     "beam_analysis_dd": "openpystruct_tpu/ops/beam_kernel_dd.py:337",
     "beam_opt_step_dd": "openpystruct_tpu/ops/beam_kernel_dd.py:376",
+    "beam_solve": "openpystruct_tpu/ops/beam_kernel.py:682",
+    "block_tridiag_solve": "openpystruct_tpu/ops/block_tridiag.py:143",
+    # _fwd_kernel; its _bwd_kernel is block_stream.py:111
+    "block_tridiag_solve_streamed": "openpystruct_tpu/ops/block_stream.py:68",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
@@ -81,6 +124,15 @@ SAMPLES = 2 * BATCH    # two batches on the main path
 CHECK_BATCH = 512      # lanes of the whole-optimizer check (phase 5)
 RESCUE_CHECK = 256     # rejected lanes of the dd vs f64 check (phase 5b)
 DD_TOL = 1e-5          # float64 kernel vs plain, of the lane's scale
+SPLIT_CHECK_EPOCHS = 30  # epoch cut of phase 4d's 512-lane check
+CHECKED_TOL = 1e-4     # solve_beam_checked's tolerance in phase 4e
+STREAM_NS = (101, 301, 1001)   # meshes that set the #4 vs #6 threshold
+BELOW_NS = (51,)               # and a mesh below it, timed beside them
+BACKWARD_FLOOR = 1e-6  # floor of phase 3c's backward-error rule
+SPLIT_KERNELS = ("beam_solve", "block_tridiag_solve",
+                 "block_tridiag_solve_streamed")
+DATAGEN_KERNELS = ("beam_analysis", "beam_opt_step", "beam_analysis_dd",
+                   "beam_opt_step_dd")
 
 
 def log(*a):
@@ -105,6 +157,15 @@ def log(*a):
 
 
 def flops_per_lane(n, refine, kind):
+    # block-Thomas (#4, #6), per row: S = D - U^T C 54, cofactor inverse
+    # 42, C = Sinv U 45, y 33, back sweep 18
+    if kind == "thomas":
+        return 192 * n
+    # explicit-RHS 3-DOF solve (#3), per node: stiffness 10, assembly 47,
+    # scaling 45, factor with C and det3 190, back sweep 18, unscaling 3;
+    # a refinement sweep: residual 300, substitution 51, update 3
+    if kind == "solve3":
+        return (313 + 354 * refine) * n
     if kind in ("analysis_dd", "opt_dd"):
         per_node = 10 + 32 + 7 + 20 + 45 + 13 + 14 + 23
         return (per_node + (23 + 15 if kind == "opt_dd" else 0)) * n
@@ -124,6 +185,12 @@ def flops_per_lane(n, refine, kind):
 
 def bytes_per_lane(n, kind):
     nelem = n - 1
+    if kind == "thomas":
+        # diag (n, 3, 3), upper (n-1, 3, 3), b (n, 3) in; x (n, 3) out
+        return 4 * (9 * n + 9 * nelem + 3 * n + 3 * n)
+    if kind == "solve3":
+        # I, Le, free (n, 3), rhs (n, 3) in; x (n, 3), pivot out
+        return 4 * (2 * nelem + 3 * n + 3 * n + 3 * n + 1)
     # I, Le, free (n, 3), loads (n), udl: float32 in every kernel
     inputs = 2 * nelem + 3 * n + n + 1
     if kind.startswith("analysis"):
@@ -171,10 +238,20 @@ def lane_errors(torch, x, truth):
     x = x.double().reshape(x.shape[0], -1)
     truth = truth.reshape(truth.shape[0], -1)
     scale = truth.abs().amax(1).clamp_min(1e-300)
-    return (x - truth).abs().amax(1) / scale
+    err = (x - truth).abs().amax(1) / scale
+    # a lane that went non-finite is infinitely wrong, not unordered
+    return torch.where(torch.isnan(err), torch.inf, err)
 
 
-def hold(torch, name, kern, plain32, truth, floor=1e-5):
+def finite_or_none(x):
+    return x if x is not None and x < float("inf") else None
+
+
+def hold(torch, name, kern, plain32, truth, floor=1e-5, gate=True):
+    """Phase 3's rule: the kernel's per-lane error against ``truth`` no
+    more than twice the plain float32 version's, or ``floor``, at the median
+    and the 99th percentile.  With ``gate`` False the errors are printed and
+    not held.  Returns the max abs error and the two 99th percentiles."""
     ek = lane_errors(torch, kern, truth)
     ep = lane_errors(torch, plain32, truth)
     row = {}
@@ -182,15 +259,55 @@ def hold(torch, name, kern, plain32, truth, floor=1e-5):
         k, p = ek.quantile(q).item(), ep.quantile(q).item()
         limit = max(2.0 * p, floor)
         row[q] = (k, p, limit)
-        if not k <= limit:
+        if gate and not k <= limit:
             raise AssertionError(
                 f"{name}: kernel error {k:.3e} at q={q} exceeds "
                 f"{limit:.3e} (plain float32 {p:.3e})")
+    max_abs = (kern.double() - truth).abs().max().item()
     log(f"  {name:>14}: kernel err p50 {row[0.5][0]:.3e} p99 "
         f"{row[0.99][0]:.3e} | plain f32 p50 {row[0.5][1]:.3e} p99 "
-        f"{row[0.99][1]:.3e} | max |kernel - f64| "
-        f"{(kern.double() - truth).abs().max().item():.3e}")
-    return (kern.double() - truth).abs().max().item()
+        f"{row[0.99][1]:.3e} | max |kernel - f64| {max_abs:.3e}"
+        + ("" if gate else " (printed, not held)"))
+    return dict(abs=max_abs, rel_p99=row[0.99][0],
+                plain32_rel_p99=row[0.99][1])
+
+
+def backward_errors(torch, matvec, diag, upper, b, x):
+    """Per-lane backward error of ``x`` for the symmetric block-tridiagonal
+    system K x = b, in float64: max_i |b - K x|_i over max_i (|K| |x| +
+    |b|)_i, both in Jacobi-scaled rows; a non-finite lane is inf.  A stable
+    solve keeps it near float32's rounding (~1e-7) however ill-conditioned
+    K is, so it tells a wrong kernel from float32's own forward error."""
+    d, u, b, x = (t.double() for t in (diag, upper, b, x))
+    s = torch.rsqrt(torch.diagonal(d, dim1=-2, dim2=-1))
+    r = (b - matvec(d, u, x)) * s
+    den = (matvec(d.abs(), u.abs(), x.abs()) + b.abs()) * s
+    err = r.abs().amax((1, 2)) / den.amax((1, 2)).clamp_min(1e-300)
+    return torch.where(torch.isfinite(err), err, torch.inf)
+
+
+def hold_backward(torch, name, ek, ep):
+    """Phase 3c's rule on backward errors: the kernel's no more than twice
+    the plain float32 version's, or BACKWARD_FLOOR, at the median, the 99th
+    percentile and the worst lane, and no more non-finite lanes.  Returns
+    the kernel's 99th percentile."""
+    ks, ps = ek.sort().values, ep.sort().values
+    row = []
+    for q in (0.5, 0.99, 1.0):
+        i = round(q * (len(ks) - 1))
+        k, p = ks[i].item(), ps[i].item()
+        row.append((k, p))
+        if not k <= max(2.0 * p, BACKWARD_FLOOR):
+            raise AssertionError(f"{name}: backward error {k:.3e} at q={q} "
+                                 f"exceeds twice plain float32's {p:.3e}")
+    bad_k, bad_p = (int((~torch.isfinite(e)).sum()) for e in (ek, ep))
+    if bad_k > bad_p:
+        raise AssertionError(f"{name}: {bad_k} non-finite lanes, plain "
+                             f"float32 {bad_p}")
+    log(f"  {name:>14}: backward err p50 / p99 / max: kernel "
+        + " / ".join(f"{k:.2e}" for k, _ in row) + " | plain f32 "
+        + " / ".join(f"{p:.2e}" for _, p in row))
+    return row[1][0]
 
 
 def check_kernels(torch, tk, inputs, scalars, E, A, G, refine,
@@ -241,7 +358,6 @@ def check_kernels(torch, tk, inputs, scalars, E, A, G, refine,
             raise AssertionError(f"kernel's mask off float64's on {off_k} "
                                  f"lanes, plain float32's on {off_p}")
 
-    errs["beam_opt_step"] = 0.0
     for semi in (True, False):
         mode = "semi" if semi else "adjoint"
         log(f"{phase}: beam_opt_step ({mode}, refine={refine}, n={n}) vs "
@@ -256,8 +372,9 @@ def check_kernels(torch, tk, inputs, scalars, E, A, G, refine,
         torch.cuda.synchronize()
         for nm, k, p, t in zip(("I", "mu", "nu"), kern, p32, p64):
             e = hold(torch, nm, k, p, t)
-            if nm == "I":
-                errs["beam_opt_step"] = max(errs["beam_opt_step"], e)
+            if nm == "I" and e["abs"] >= errs.get("beam_opt_step",
+                                                  {"abs": -1.0})["abs"]:
+                errs["beam_opt_step"] = e
         for c, nm in enumerate(("total", "primary", "bending", "shear")):
             hold(torch, nm, kern[3][:, c:c + 1], p32[3][:, c:c + 1],
                  p64[3][:, c:c + 1])
@@ -308,6 +425,7 @@ def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G,
     log(f"{phase}: float64 kernels vs plain float64 versions, {B} lanes, "
         f"n={n}" + (f" ({B - n_qc} random-bridge + {n_qc} quasi-cantilever)"
                     if n_qc else ""))
+    rel = {}
     for name, k, p in (("u", kern[0], plain[0]), ("V", kern[1], plain[1]),
                        ("M", kern[2], plain[2]), ("I_new", kern_o[0],
                                                   plain_o[0]),
@@ -316,6 +434,7 @@ def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G,
                        ("stats", kern_o[3], plain_o[3])):
         e = lane_errors(torch, k, p.double())
         worst = e.max().item()
+        rel[name] = e.quantile(0.99).item()
         log(f"  {name:>6}: per-lane err p50 {e.quantile(0.5).item():.3e} p99 "
             f"{e.quantile(0.99).item():.3e} max {worst:.3e}")
         if not worst <= DD_TOL:
@@ -328,10 +447,13 @@ def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G,
             f"{ratio.min().item():.9f} max {ratio.max().item():.9f}")
         if not ((ratio - 1.0).abs() <= 1e-3).all():
             raise AssertionError(f"{name} pivot off by more than 1e-3")
-    errs = {"beam_analysis_dd": (kern[0].double() - plain[0].double())
-            .abs().max().item(),
-            "beam_opt_step_dd": (kern_o[0].double() - plain_o[0].double())
-            .abs().max().item()}
+    # against the plain float64 version: there is no plain float32 one
+    errs = {"beam_analysis_dd": dict(
+                abs=(kern[0].double() - plain[0].double()).abs().max().item(),
+                rel_p99=rel["u"], plain32_rel_p99=None),
+            "beam_opt_step_dd": dict(
+                abs=(kern_o[0].double() - plain_o[0].double()).abs().max()
+                .item(), rel_p99=rel["I_new"], plain32_rel_p99=None)}
     if not n_qc:
         return errs
     # the lanes the rescue exists for: the float32 kernel fails on them
@@ -346,6 +468,115 @@ def check_dd_kernels(torch, tk, tkd, inputs, n_qc, scalars, E, A, G,
         + ", ".join(f"{e:.3e}" for e in e64) + " | float64 pivots "
         + ", ".join(f"{p:.3e}" for p in plain[3][-n_qc:].tolist()))
     return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the split-path kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def scaled_system(torch, assemble_beam_system, I, sc, E, A):
+    """The Jacobi-scaled (diag, upper, f) solve_beam_batched hands the
+    solve, in the inputs' dtype."""
+    d, u, f = assemble_beam_system(I, sc, E, A)
+    s = torch.rsqrt(torch.diagonal(d, dim1=-2, dim2=-1))
+    return (d * s[..., :, None] * s[..., None, :],
+            u * s[..., :-1, :, None] * s[..., 1:, None, :], f * s)
+
+
+def split_inputs(torch, sample_scenarios, constraint_mask,
+                 assemble_beam_system, seed, B, n, cfg, E, A, dev):
+    """Float32 inputs of the three split-path kernels on the card: the
+    scaled beam system (d, u, f) of lognormal-I scenarios, and for the
+    explicit-RHS solve I, Le, the free mask and a right-hand side, the
+    scenario's load vector with a random axial component of its scale."""
+    gen = torch.Generator().manual_seed(seed)
+    sc = sample_scenarios(gen, B, dataclasses.replace(cfg, num_nodes=n),
+                          device=dev, dtype=torch.float32)
+    I = (torch.exp(torch.randn((B, n - 1), generator=gen) * 0.3)
+         * 0.5).to(dev)
+    d, u, f = scaled_system(torch, assemble_beam_system, I, sc, E, A)
+    rhs = assemble_beam_system(I, sc, E, A)[2]
+    axial = torch.randn((B, n), generator=gen).to(dev)
+    rhs[..., 0] = axial * rhs.abs().amax((1, 2))[:, None]
+    return dict(sys=(d, u, f), I=I, Le=torch.diff(sc.node_x, dim=-1),
+                free=(~constraint_mask(sc)).to(torch.float32), rhs=rhs,
+                scenario=sc)
+
+
+def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
+                        x, E, A, refine, label, gate):
+    """#3, #4 and #6 against their plain versions in float32 and float64
+    on the same float32 inputs: forward errors by phase 3's rule (held if
+    ``gate``, else printed), backward errors always held.  Returns per
+    kernel the forward errors against float64 (``hold``) and the backward
+    error's 99th percentile."""
+    errs = {}
+    sys32 = x["sys"]
+    sys64 = [t.double() for t in sys32]
+    kern4 = tbt.lanes_first(tbt.launch_thomas(*(tbt.lanes_last(t)
+                                                for t in sys32)))
+    kern6 = tbs.block_tridiag_solve_streamed(*sys32)
+    p32 = tbt.thomas_reference(*sys32)
+    p64 = tbt.thomas_reference(*sys64)
+    torch.cuda.synchronize()
+    log(f"phase 3c: {label}: block-Thomas kernels vs plain")
+    bw_p32 = backward_errors(torch, matvec, *sys32, p32)
+    for name, tag, kern in (("block_tridiag_solve", "#4", kern4),
+                            ("block_tridiag_solve_streamed", "#6", kern6)):
+        errs[name] = hold(torch, f"{tag} x", kern, p32, p64, gate=gate)
+        errs[name]["backward_p99"] = hold_backward(
+            torch, f"{tag} x", backward_errors(torch, matvec, *sys32, kern),
+            bw_p32)
+    del p32, p64, sys64, kern4, kern6
+    args32 = [x[k] for k in ("I", "Le", "free", "rhs")]
+    args64 = [t.double() for t in args32]
+    kern = tk.beam_solve(*args32, E, A, refine)
+    p32 = tk.beam_solve_reference(*args32, E, A, refine)
+    p64 = tk.beam_solve_reference(*args64, E, A, refine)
+    torch.cuda.synchronize()
+    log(f"phase 3c: {label}: beam_solve (refine={refine}) vs plain")
+    errs["beam_solve"] = hold(torch, "#3 x", kern[0], p32[0], p64[0],
+                              gate=gate)
+    hold(torch, "#3 pivot", kern[1][:, None], p32[1][:, None],
+         p64[1][:, None], gate=gate)
+    # #3 solves the scenario's K, masked, with the explicit RHS
+    sc64 = x["scenario"].map(lambda t: t.double() if t.is_floating_point()
+                             else t)
+    d64, u64, _ = assemble_beam_system(args64[0], sc64, E, A)
+    b64 = args64[3] * args64[2]
+    errs["beam_solve"]["backward_p99"] = hold_backward(
+        torch, "#3 x", backward_errors(torch, matvec, d64, u64, b64, kern[0]),
+        backward_errors(torch, matvec, d64, u64, b64, p32[0]))
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phases 4d, 4e: the split path and the accuracy autopilot
+# ---------------------------------------------------------------------------
+
+
+def analysis_loss(u, V, M):
+    """A loss on every differentiable output head of the analysis (the
+    JAX package's tests/test_fused_vjp.py loss)."""
+    return ((M**2).sum() * 1e-9 + (V**2).sum() * 1e-7
+            + (u[..., 1]**2).sum() * 1e3)
+
+
+def fixed_span(torch, BeamScenario, n, B, seed, dev):
+    """tests/test_accuracy.py's family: a fixed 200 m span at n nodes
+    (cond ~ n^4), rollers at tags 10/30/70/85/100 of the 101-node mesh
+    scaled to n, one point load at mid-span, I = 0.05 U(0.2, 2)."""
+    gen = torch.Generator().manual_seed(seed)
+    node_x = torch.linspace(0.0, 200.0, n).repeat(B, 1)
+    roller = torch.zeros((B, n), dtype=torch.bool)
+    roller[:, [t * (n - 1) // 100 for t in (9, 29, 69, 84, 99)]] = True
+    loads = torch.zeros((B, n))
+    loads[:, n // 2] = -3.5e5 * (0.5 + torch.rand(B, generator=gen))
+    I = 0.05 * (0.2 + 1.8 * torch.rand((B, n - 1), generator=gen))
+    sc = BeamScenario(node_x=node_x, roller_mask=roller, point_loads=loads,
+                      udl=torch.full((B,), -1000.0))
+    return I.to(dev), sc.map(lambda t: t.to(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -504,14 +735,24 @@ def main(argv=None) -> int:
         write_json_dataset,
     )
     from openpystruct_tpu_torch.datagen import generate as gen_mod
-    from openpystruct_tpu_torch.fem.beam import BeamScenario, constraint_mask
+    from openpystruct_tpu_torch.fem import solve_beam_checked
+    from openpystruct_tpu_torch.fem.beam import (
+        BeamScenario,
+        assemble_beam_system,
+        constraint_mask,
+    )
+    from openpystruct_tpu_torch.fem.solve import block_tridiag_matvec
     from openpystruct_tpu_torch.ops import _build
     from openpystruct_tpu_torch.ops import beam_kernel as tk
     from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
+    from openpystruct_tpu_torch.ops import block_stream as tbs
+    from openpystruct_tpu_torch.ops import block_tridiag as tbt
     from openpystruct_tpu_torch.opt.beam_opt import (
         _adam_scalars,
         optimize_beam_batched,
+        optimize_beam_compact,
     )
+    mods = (tk, tkd, tbt, tbs)
 
     # FEM math never runs in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -533,12 +774,15 @@ def main(argv=None) -> int:
         f"{torch.version.cuda} | device count {torch.cuda.device_count()}")
 
     # ---- phase 2: build ---------------------------------------------------
-    info = _build.build(["beam_kernel"])["beam_kernel"]
-    log(f"phase 2: built {Path(info['path']).name} in "
-        f"{info['seconds']:.1f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  ptxas: " + line.strip())
+    t0 = time.perf_counter()
+    built = _build.build(["beam_kernel", "block_tridiag"])
+    log(f"phase 2: built {len(built)} libraries in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for info in built.values():
+        log(f"  {Path(info['path']).name}: {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log("  ptxas: " + line.strip())
 
     beam = BeamConfig(udl=-1000.0)
     E, A, G = beam.E, beam.A, beam.G
@@ -561,6 +805,24 @@ def main(argv=None) -> int:
     errs.update(check_dd_kernels(
         torch, tk, tkd, {k: torch.cat([rb_inputs[k], qc[k]]) for k in qc},
         4, scalars, E, A, G))
+
+    # ---- phase 3c: the split-path kernels against their plain versions ----
+    errs_split = {}
+    for n_s in (101, 201):
+        for label, cfg_s in (("fixed bridge", ScenarioConfig()),
+                             ("random bridge", rb_cfg)):
+            x = split_inputs(torch, sample_scenarios, constraint_mask,
+                             assemble_beam_system, args.seed + 10 + n_s, B,
+                             n_s, cfg_s, E, A, dev)
+            gate = n_s == 101 and label == "fixed bridge"
+            e = check_split_kernels(torch, tk, tbt, tbs, block_tridiag_matvec,
+                                    assemble_beam_system, x, E, A, refine,
+                                    f"{label}, B={B}, n={n_s}", gate)
+            errs_split[(n_s, label)] = e
+            if gate:
+                split101 = x
+            del x
+    errs.update(errs_split[(101, "fixed bridge")])
     if args.quick:
         log(f"quick check passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -594,6 +856,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = read_counts(tk, tkd)
+    path_fb = dict(launches)
     log(f"  launches {launches} plain calls {plain}")
     # the default rescue is off for the fixed bridge at n = 101
     if not (launches["beam_analysis"] > 0 and launches["beam_opt_step"] > 0):
@@ -650,7 +913,7 @@ def main(argv=None) -> int:
     wall_rb = time.perf_counter() - t0
     launches_rb, plain_rb = read_counts(tk, tkd)
     log(f"  launches {launches_rb} plain calls {plain_rb}")
-    if not all(v > 0 for v in launches_rb.values()):
+    if not all(launches_rb[k] > 0 for k in DATAGEN_KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches_rb}")
     if any(v != 0 for v in plain_rb.values()):
         raise AssertionError(f"a plain version ran: {plain_rb}")
@@ -697,7 +960,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall_fine = time.perf_counter() - t0
     launches_fine, plain_fine = read_counts(tk, tkd)
-    if (not all(v > 0 for v in launches_fine.values())
+    if (not all(launches_fine[k] > 0 for k in DATAGEN_KERNELS)
             or any(v != 0 for v in plain_fine.values())
             or [r["mode"] for r in rescues] != ["dd"]):
         raise AssertionError(f"n=201 did not run the kernels only: "
@@ -712,6 +975,177 @@ def main(argv=None) -> int:
     if valid_fine < 0.99 * BATCH:
         raise AssertionError(f"n=201 valid share {valid_fine / BATCH:.4f} "
                              "< 0.99")
+
+    # ---- phase 4d: the split path on the card ----------------------------
+    # fixed bridge at n = 101 in both modes (the dispatcher sends it to the
+    # streamed kernel #6), then a 51-node random-bridge mesh, below
+    # block_tridiag.STREAM_FROM_N, where the one-launch kernel #4 runs
+    path_split = {}
+    for mode, cfg_d in (("semi", ScenarioConfig()),
+                        ("adjoint", ScenarioConfig()),
+                        ("semi", dataclasses.replace(rb_cfg, num_nodes=51))):
+        split_sc = sample_scenarios(
+            torch.Generator().manual_seed(args.seed + 6), BATCH, cfg_d,
+            device="cuda", dtype=torch.float32)
+        opt_m = dataclasses.replace(DATAGEN_OPT, grad_mode=mode)
+        log(f"phase 4d: optimize_beam_compact({BATCH} "
+            f"{'random-bridge' if cfg_d.random_bridge else 'fixed-bridge'} "
+            f"lanes, n={cfg_d.num_nodes}, fused=False, grad_mode={mode!r}, "
+            f"refine={refine})")
+        reset_counts(*mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = optimize_beam_compact(split_sc, beam, opt_m, refine=refine,
+                                    fused=False)
+        torch.cuda.synchronize()
+        wall_split = time.perf_counter() - t0
+        launches, plain = read_counts(*mods)
+        solves = (launches["block_tridiag_solve"]
+                  + launches["block_tridiag_solve_streamed"])
+        log(f"  launches {launches} plain calls {plain}")
+        if solves == 0 or any(v != 0 for v in plain.values()):
+            raise AssertionError(f"the split path did not run the kernels "
+                                 f"only: {launches} {plain}")
+        finite = torch.isfinite(res.I)
+        if not (res.I[finite] >= DATAGEN_OPT.clamp_min).all():
+            raise AssertionError("unclamped I on the split path")
+        if not cfg_d.random_bridge and not finite.all():
+            raise AssertionError("non-finite I on the fixed bridge")
+        epochs_split = res.n_epochs.double()
+        log(f"  {BATCH / wall_split:.1f} lanes/s, wall {wall_split:.2f} s | "
+            f"mean epochs {epochs_split.mean().item():.2f}, max "
+            f"{int(epochs_split.max())} | {solves} solves | finite I on "
+            f"{int(finite.all(-1).sum())}/{BATCH} lanes")
+        for k, v in launches.items():
+            path_split[k] = path_split.get(k, 0) + v
+
+    cut = dataclasses.replace(DATAGEN_OPT, max_epochs=SPLIT_CHECK_EPOCHS)
+    gen = torch.Generator().manual_seed(args.seed + 8)
+    sc = sample_scenarios(gen, CHECK_BATCH, device="cpu", dtype=torch.float64)
+    for mode in ("semi", "adjoint"):
+        log(f"phase 4d: split path on {CHECK_BATCH} lanes, {mode}: kernels, "
+            f"plain f32, plain f64 (max_epochs cut from "
+            f"{DATAGEN_OPT.max_epochs} to {SPLIT_CHECK_EPOCHS} for all three)")
+        runs = {}
+        for name, device, dtype in (("kernel", "cuda", torch.float32),
+                                    ("plain32", "cpu", torch.float32),
+                                    ("plain64", "cpu", torch.float64)):
+            scen = sc.map(lambda x: (x.to(dtype) if x.is_floating_point()
+                                     else x).to(device))
+            t0 = time.perf_counter()
+            res = optimize_beam_batched(
+                scen, beam, dataclasses.replace(cut, grad_mode=mode),
+                refine=refine, fused=False)
+            runs[name] = (res.loss.total.double().cpu(),
+                          res.n_epochs.double().cpu(),
+                          time.perf_counter() - t0)
+        truth = runs["plain64"][0]
+        gaps = {k: ((runs[k][0] - truth).abs() / truth.abs()).median().item()
+                for k in ("kernel", "plain32")}
+        ep = {k: runs[k][1].mean().item() for k in runs}
+        log(f"  median loss gap to f64: kernel {gaps['kernel']:.3e}, plain "
+            f"f32 {gaps['plain32']:.3e} | mean epochs kernel "
+            f"{ep['kernel']:.2f} plain32 {ep['plain32']:.2f} plain64 "
+            f"{ep['plain64']:.2f} | "
+            + ", ".join(f"{k} {runs[k][2]:.1f} s" for k in runs))
+        if not gaps["kernel"] <= max(2.0 * gaps["plain32"], 1e-4):
+            raise AssertionError(f"split-path loss gap ({mode}): {gaps}")
+        if not abs(ep["kernel"] - ep["plain32"]) <= 0.05 * ep["plain32"]:
+            raise AssertionError(f"split-path mean epochs differ: {ep}")
+
+    log(f"phase 4d: gradient of beam_analysis on {BATCH} lanes (kernel #1 "
+        "forward, #3 backward) vs the plain float32 and float64 routes")
+    xg = make_inputs(torch, sample_scenarios, constraint_mask, args.seed + 9,
+                     BATCH, dev)
+    grads = {}
+    for name, device, dtype in (("kernel", "cuda", torch.float32),
+                                ("plain32", "cpu", torch.float32),
+                                ("plain64", "cpu", torch.float64)):
+        x = {k: v.to(device=device, dtype=dtype, copy=True)
+             for k, v in xg.items()}
+        I, loads, udl = (x[k].requires_grad_(True)
+                         for k in ("I", "loads", "udl"))
+        if name == "kernel":
+            reset_counts(*mods)
+        out = tk.beam_analysis(I, x["Le"], x["free"], loads, udl, E, A,
+                               refine)
+        grads[name] = torch.autograd.grad(analysis_loss(*out[:3]),
+                                          (I, loads, udl))
+        if name == "kernel":
+            torch.cuda.synchronize()
+            path_grad, plain = read_counts(*mods)
+            if (path_grad["beam_analysis"] != 1 or path_grad["beam_solve"] != 1
+                    or any(v != 0 for v in plain.values())):
+                raise AssertionError(f"the gradient did not run kernels #1 "
+                                     f"and #3 only: {path_grad} {plain}")
+    truth = [g.to(dev) for g in grads["plain64"]]
+    for nm, k, p, t in zip(("gI", "gloads", "gudl"), grads["kernel"],
+                           grads["plain32"], truth):
+        if nm == "gudl":
+            k, p, t = k[:, None], p[:, None], t[:, None]
+        hold(torch, nm, k, p.to(dev), t)
+    del xg, grads, truth
+
+    # ---- phase 4e: the accuracy autopilot ---------------------------------
+    path_checked = {}
+    for label, n_c in (("random bridge", 101), ("fixed span", 201),
+                       ("fixed span", 501)):
+        if label == "random bridge":
+            gen = torch.Generator().manual_seed(args.seed + 11)
+            sc_c = sample_scenarios(gen, BATCH, rb_cfg, device=dev,
+                                    dtype=torch.float32)
+            I_c = (torch.exp(torch.randn((BATCH, n_c - 1), generator=gen)
+                             * 0.3) * 0.5).to(dev)
+        else:
+            I_c, sc_c = fixed_span(torch, BeamScenario, n_c, BATCH,
+                                   args.seed + n_c, dev)
+        log(f"phase 4e: solve_beam_checked(tol={CHECKED_TOL:g}) on {BATCH} "
+            f"{label} lanes, n={n_c}")
+        reset_counts(*mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sol, info = solve_beam_checked(I_c, sc_c, E, A, tol=CHECKED_TOL)
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+        launches, plain = read_counts(*mods)
+        used = info["used_dd"]
+        if any(v != 0 for v in plain.values()):
+            raise AssertionError(f"a plain version ran: {plain}")
+        if not sol.deflections.is_cuda or not used.is_cuda:
+            raise AssertionError("solve_beam_checked left the card")
+        if used.any() and launches["beam_analysis_dd"] == 0:
+            raise AssertionError("lanes escalated without the float64 kernel")
+        for k, v in launches.items():
+            path_checked[k] = path_checked.get(k, 0) + v
+        # the plain float64 solve of the same inputs, on the card
+        sc64 = sc_c.map(lambda t: t.double() if t.is_floating_point() else t)
+        d64, u64, f64 = assemble_beam_system(I_c.double(), sc64, E, A)
+        s64 = torch.rsqrt(torch.diagonal(d64, dim1=-2, dim2=-1))
+        sys64 = (d64 * s64[..., :, None] * s64[..., None, :],
+                 u64 * s64[..., :-1, :, None] * s64[..., 1:, None, :],
+                 f64 * s64)
+        del d64, u64
+        truth = (tbt.thomas_reference(*sys64) * s64)[..., 1]
+        err = lane_errors(torch, sol.deflections, truth)
+        certified = (info["est"] <= CHECKED_TOL) & (
+            ~used | (info["pivot"] > 1e-12))
+        worst = err[certified].max().item() if certified.any() else 0.0
+        log(f"  escalated {int(used.sum())}/{BATCH} | certified "
+            f"{int(certified.sum())}/{BATCH}, worst certified deflection "
+            f"error {worst:.3e} of the lane's scale (all lanes: p50 "
+            f"{err.quantile(0.5).item():.3e}, max {err.max().item():.3e}) | "
+            f"warnings {len(caught)} | wall {wall_c:.2f} s | launches "
+            f"{launches}")
+        for w in caught:
+            log(f"  warning: {w.message}")
+        if not worst <= CHECKED_TOL:
+            raise AssertionError(f"a certified lane is {worst:.3e} off "
+                                 "float64")
+    if path_checked["beam_analysis_dd"] == 0:
+        raise AssertionError("phase 4e escalated no lane")
+    del sys64, truth, sol
 
     # ---- phase 5: the whole optimizer, kernels vs plain -------------------
     log(f"phase 5: optimize_beam_batched on {CHECK_BATCH} lanes: "
@@ -778,7 +1212,7 @@ def main(argv=None) -> int:
 
     # ---- phase 6: times -----------------------------------------------------
     log(f"phase 6: times at B={B}, n={n} (CUDA events, median)")
-    lanes_last, lanes_first = tk._lanes_last, tk._lanes_first
+    lanes_last, lanes_first = tbt.lanes_last, tbt.lanes_first
     ana = [inputs[k] for k in ("I", "Le", "free", "loads", "udl")]
     opt = [inputs[k] for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
     ana_t = [lanes_last(x) for x in ana[:-1]] + [ana[-1]]
@@ -789,7 +1223,7 @@ def main(argv=None) -> int:
               for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
     rb_ana_t = [lanes_last(x) for x in rb_ana[:-1]] + [rb_ana[-1]]
     rb_opt_t = [lanes_last(x) for x in rb_opt[:-1]] + [rb_opt[-1]]
-    counts_before = read_counts(tk, tkd)[0]
+    counts_before = read_counts(*mods)[0]
     cases = {
         "beam_analysis": dict(
             wrapper=lambda: tk.beam_analysis(*ana, E, A, refine),
@@ -828,12 +1262,75 @@ def main(argv=None) -> int:
                                                          E, A, G),
             kind="opt_dd"),
     }
+    # the split-path kernels on phase 3c's fixed-bridge n = 101 inputs
+    sys32 = split101["sys"]
+    sys_t = [lanes_last(x) for x in sys32]
+    sv = [split101[k] for k in ("I", "Le", "free", "rhs")]
+    sv_t = [lanes_last(x) for x in sv]
+    cases.update({
+        "beam_solve": dict(
+            wrapper=lambda: tk.beam_solve(*sv, E, A, refine),
+            kernel=lambda: tk.launch_beam_solve(*sv_t, E, A, refine),
+            layout=lambda: ([lanes_last(x) for x in sv],
+                            [lanes_first(sv_t[3])]),
+            plain=lambda: tk.beam_solve_reference(*sv, E, A, refine),
+            kind="solve3"),
+        "block_tridiag_solve": dict(
+            wrapper=lambda: lanes_first(tbt.launch_thomas(
+                *(lanes_last(x) for x in sys32))),
+            kernel=lambda: tbt.launch_thomas(*sys_t),
+            layout=lambda: ([lanes_last(x) for x in sys32],
+                            [lanes_first(sys_t[2])]),
+            plain=lambda: tbt.thomas_reference(*sys32), kind="thomas"),
+        "block_tridiag_solve_streamed": dict(
+            wrapper=lambda: tbs.block_tridiag_solve_streamed(*sys32),
+            kernel=lambda: tbs.launch_thomas_streamed(*sys_t),
+            layout=lambda: ([lanes_last(x) for x in sys32],
+                            [lanes_first(sys_t[2])]),
+            plain=lambda: tbt.thomas_backward_reference(
+                *tbt.thomas_forward_reference(*sys32)),
+            kind="thomas"),
+    })
     # launches on each kernel's main path: the fixed bridge (phase 4) for
-    # the float32 kernels, the random bridge (phase 4b) for the float64 ones
-    path_launches = dict(launches, beam_analysis_dd=launches_rb[
-        "beam_analysis_dd"], beam_opt_step_dd=launches_rb["beam_opt_step_dd"])
+    # #1-#2, the random bridge (phase 4b) for #7-#8, the gradient of the
+    # analysis (4d) for #3, the split path (4d) and the autopilot (4e) for
+    # #4 and #6
+    path_launches = dict(
+        path_fb, beam_analysis_dd=launches_rb["beam_analysis_dd"],
+        beam_opt_step_dd=launches_rb["beam_opt_step_dd"],
+        beam_solve=path_grad["beam_solve"],
+        block_tridiag_solve=(path_split["block_tridiag_solve"]
+                             + path_checked["block_tridiag_solve"]),
+        block_tridiag_solve_streamed=(
+            path_split["block_tridiag_solve_streamed"]
+            + path_checked["block_tridiag_solve_streamed"]))
+    for k in ("block_tridiag_solve", "block_tridiag_solve_streamed"):
+        if path_launches[k] == 0:
+            raise AssertionError(f"{k} was not launched on its path")
+    errs_fine.update(errs_split[(201, "fixed bridge")])
     adjoint_ms = time_ms(torch, lambda: tk.launch_beam_opt_step(
         *opt_t, *scalars, E, G, grad_semi=False, refine=refine), 20)
+
+    # the library yardstick of #4 and #6: one dense LU solve of the same
+    # systems, float32 (no TF32 in an LU)
+    Bd, nd = sys32[0].shape[:2]
+    K = torch.zeros((Bd, nd, 3, nd, 3), device=dev)
+    idx = torch.arange(nd, device=dev)
+    K[:, idx, :, idx, :] = sys32[0].transpose(0, 1)
+    K[:, idx[:-1], :, idx[1:], :] = sys32[1].transpose(0, 1)
+    K[:, idx[1:], :, idx[:-1], :] = sys32[1].transpose(0, 1).transpose(-1, -2)
+    K = K.reshape(Bd, 3 * nd, 3 * nd)
+    rhs_d = sys32[2].reshape(Bd, 3 * nd, 1)
+    x_dense = torch.linalg.solve(K, rhs_d).reshape(Bd, nd, 3)
+    dense_gap = lane_errors(torch, tbt.thomas_reference(*sys32),
+                            x_dense.double()).median().item()
+    library_ms = time_ms(torch, lambda: torch.linalg.solve(K, rhs_d), 3,
+                         warmup=1)
+    log(f"  library: torch.linalg.solve on the dense ({Bd}, {3 * nd}, "
+        f"{3 * nd}) float32 systems {library_ms:.3f} ms (p50 per-lane gap "
+        f"to the plain block-Thomas {dense_gap:.2e})")
+    del K, x_dense
+
     kernels = []
     for name, c in cases.items():
         t_wrap = time_ms(torch, c["wrapper"], 20)
@@ -841,24 +1338,69 @@ def main(argv=None) -> int:
         t_layout = time_ms(torch, c["layout"], 20)
         t_plain = time_ms(torch, c["plain"], 5, warmup=1)
         b_ms, b_by = bound_ms(B, n, refine, c["kind"])
-        per_batch = path_launches[name] / n_batches
+        lib_ms = library_ms if c["kind"] == "thomas" else None
         log(f"  {name}: wrapper {t_wrap:.3f} ms = kernel {t_kern:.3f} ms + "
             f"layout ~{t_layout:.3f} ms | plain {t_plain:.3f} ms | bound "
-            f"{1e3 * b_ms:.1f} us ({b_by}) | {per_batch:.1f} launches/batch")
+            f"{1e3 * b_ms:.1f} us ({b_by}) | library "
+            + (f"{lib_ms:.3f} ms" if lib_ms is not None else "none")
+            + f" | {path_launches[name]} launches on its path")
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=path_launches[name], max_abs_err=errs[name], ms=t_wrap,
-            plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            name=name, route="cuda", source=SOURCE[name],
+            replaces=REPLACES[name], launches=path_launches[name],
+            max_abs_err=errs[name]["abs"], ms=t_wrap, plain_ms=t_plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             kernel_only_ms=t_kern, layout_ms=t_layout,
-            launches_per_batch=per_batch, max_abs_err_n201=errs_fine[name],
+            # per-lane errors against float64, of the lane's scale, p99
+            rel_err_p99=errs[name]["rel_p99"],
+            plain32_rel_err_p99=errs[name]["plain32_rel_p99"],
+            rel_err_p99_n201=finite_or_none(errs_fine[name]["rel_p99"]),
+            plain32_rel_err_p99_n201=finite_or_none(
+                errs_fine[name]["plain32_rel_p99"]),
         ))
+        if name in SPLIT_KERNELS:
+            kernels[-1]["backward_err_p99"] = {
+                f"{lb}, n={n_s}": e[name]["backward_p99"]
+                for (n_s, lb), e in errs_split.items()}
     kernels[1]["adjoint_kernel_only_ms"] = adjoint_ms
     kernels[1]["adjoint_bound_ms"] = bound_ms(B, n, refine, "adjoint")[0]
     log(f"  beam_opt_step adjoint: kernel {adjoint_ms:.3f} ms | bound "
         f"{1e3 * kernels[1]['adjoint_bound_ms']:.1f} us")
-    log("  library_ms: no single PyTorch call computes any of the four "
-        "functions")
-    if read_counts(tk, tkd)[0] == counts_before:
+    log("  library_ms: no single PyTorch call computes #1-#3 or #7-#8")
+
+    # #4 against #6, kernels alone, in turns #4, #6, #6, #4
+    log(f"phase 6: block-Thomas #4 vs streamed #6 at B={B}, n in "
+        f"{BELOW_NS + STREAM_NS} (kernel ms, mean of two medians of 20)")
+    by_n = {}
+    for n_t in BELOW_NS + STREAM_NS:
+        # the fixed bridge's roller tags need n >= 100: the 51-node mesh
+        # is phase 4d's random bridge (the kernels' work is data-blind)
+        xs = split_inputs(torch, sample_scenarios, constraint_mask,
+                          assemble_beam_system, args.seed + 20 + n_t, B, n_t,
+                          ScenarioConfig() if n_t >= 100 else rb_cfg, E, A,
+                          dev)
+        st = [lanes_last(x) for x in xs["sys"]]
+        del xs
+        turns = [time_ms(torch, f, 20) for f in (
+            lambda: tbt.launch_thomas(*st),
+            lambda: tbs.launch_thomas_streamed(*st),
+            lambda: tbs.launch_thomas_streamed(*st),
+            lambda: tbt.launch_thomas(*st))]
+        by_n[n_t] = ((turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
+        log(f"  n={n_t}: #4 {by_n[n_t][0]:.3f} ms ({turns[0]:.3f}, "
+            f"{turns[3]:.3f}) | #6 {by_n[n_t][1]:.3f} ms ({turns[1]:.3f}, "
+            f"{turns[2]:.3f}) | bound "
+            f"{1e3 * bound_ms(B, n_t, 0, 'thomas')[0]:.1f} us")
+        del st
+    implied = min((k for k in STREAM_NS if by_n[k][1] <= by_n[k][0]),
+                  default=None)
+    log(f"  dispatch threshold this run implies: {implied}; "
+        f"block_tridiag.STREAM_FROM_N = {tbt.STREAM_FROM_N}")
+    for k in kernels:
+        if k["name"] in ("block_tridiag_solve",
+                         "block_tridiag_solve_streamed"):
+            j = 0 if k["name"] == "block_tridiag_solve" else 1
+            k["kernel_ms_by_n"] = {str(n_t): v[j] for n_t, v in by_n.items()}
+    if read_counts(*mods)[0] == counts_before:
         raise AssertionError("timing loop launched nothing")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 

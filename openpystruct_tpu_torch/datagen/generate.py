@@ -48,9 +48,14 @@ from openpystruct_tpu_torch.config import (
 from openpystruct_tpu_torch.datagen.io import batch_to_columnar, merge_columnar
 from openpystruct_tpu_torch.datagen.sampler import sample_scenarios
 from openpystruct_tpu_torch.device import resolve_device
-from openpystruct_tpu_torch.fem.beam import BeamScenario, beam_min_pivot
+from openpystruct_tpu_torch.fem.beam import (
+    BeamScenario,
+    beam_min_pivot,
+    solve_beam,
+)
 from openpystruct_tpu_torch.opt.beam_opt import (
     BeamOptResult,
+    _optimize_compact,
     optimize_beam_batched,
     optimize_beam_compact,
 )
@@ -136,7 +141,8 @@ def _dd_rescue(scenario: BeamScenario, beam_cfg: BeamConfig,
 def _f64_rescue(scenario: BeamScenario, beam_cfg: BeamConfig,
                 opt_cfg: OptimizerConfig) -> dict:
     """Float64 re-optimization of rejected lanes on the host CPU with the
-    plain split path (any grad_mode), cast to float32 and put back on the
+    plain split path (any grad_mode) on the plain ``fem.solve`` solver, as
+    the JAX package's rescue runs it, cast to float32 and put back on the
     scenarios' device.  For these lanes this is the reference's own
     computation: its torch/OpenSees loop is float64 throughout."""
     device = scenario.node_x.device
@@ -144,8 +150,9 @@ def _f64_rescue(scenario: BeamScenario, beam_cfg: BeamConfig,
                                      if x.is_floating_point() else x).cpu())
     B, nelem = scen64.node_x.shape[0], scen64.num_nodes - 1
     I0 = torch.full((B, nelem), beam_cfg.I0, dtype=torch.float64)
-    res = optimize_beam_compact(scen64, beam_cfg, opt_cfg, I0=I0, fused=False,
-                                min_bucket=32)
+    res = _optimize_compact(scen64, beam_cfg, opt_cfg, I0, refine=0,
+                            fused=False, min_bucket=32, dd=False,
+                            solve=solve_beam)
     pivot = beam_min_pivot(res.I_solved, scen64, beam_cfg.E, beam_cfg.A)
     return {k: (v.to(torch.float32) if v.is_floating_point() else v)
             .to(device) for k, v in _rescued(res, pivot).items()}

@@ -1,5 +1,9 @@
-"""Batched beam FE model and block-tridiagonal solver."""
+"""Batched beam FE model, block-tridiagonal solver and accuracy autopilot."""
 
+from openpystruct_tpu_torch.fem.accuracy import (  # noqa: F401
+    auto_refine,
+    solve_beam_checked,
+)
 from openpystruct_tpu_torch.fem.beam import (  # noqa: F401
     BeamScenario,
     BeamSolution,

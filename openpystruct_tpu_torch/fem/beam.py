@@ -140,7 +140,12 @@ def solve_beam(I, scenario: BeamScenario, E, A, refine: int = 0,
         u = block_tridiag_solve(diag_s, upper_s, f * s, refine=refine) * s
     else:
         u = block_tridiag_solve(diag, upper, f, refine=refine)
+    return _solution(u, I, scenario, E, A)
 
+
+def _solution(u, I, scenario: BeamScenario, E, A) -> BeamSolution:
+    """The solution fields of displacements u (..., n, 3), with the element
+    end forces recovered from them."""
     u_e = torch.cat([u[..., :-1, :], u[..., 1:, :]], dim=-1)  # (..., nelem, 6)
     Le = torch.diff(scenario.node_x, dim=-1)
     end_forces = element_end_forces(u_e, E, A, I, Le,
@@ -158,17 +163,16 @@ def solve_beam(I, scenario: BeamScenario, E, A, refine: int = 0,
 def solve_beam_batched(I, scenario: BeamScenario, E, A,
                        refine: int = 0) -> BeamSolution:
     """Batched solve on the split path: ``I`` is (B, nelem), every scenario
-    field has a leading batch dim.
+    field has a leading batch dim.  Assembly, Jacobi scaling and force
+    recovery are plain tensor code; the solve is ``ops.block_tridiag.
+    solve_sym`` with ``refine`` refinement sweeps, which launches the
+    block-Thomas kernel on a CUDA float32 batch (or raises) and runs its
+    plain version on a CPU one.  Differentiable in ``I``."""
+    from openpystruct_tpu_torch.ops.block_tridiag import solve_sym
 
-    The JAX package runs this solve through its block-Thomas Pallas kernel
-    (``ops/block_tridiag.py`` ``_thomas_kernel``).  That kernel is not
-    ported yet, and its plain version must not stand in for it on the card,
-    so a CUDA tensor raises; a CPU tensor runs the plain solve.
-    """
-    if I.is_cuda:
-        raise NotImplementedError(
-            "the split path's block-Thomas kernel (openpystruct_tpu "
-            "ops/block_tridiag.py _thomas_kernel) is not ported to CUDA yet; "
-            "use the fused path (optimize_beam_batched(fused=True))"
-        )
-    return solve_beam(I, scenario, E, A, refine=refine)
+    diag, upper, f = assemble_beam_system(I, scenario, E, A)
+    s = torch.rsqrt(torch.diagonal(diag, dim1=-2, dim2=-1))   # (B, n, 3)
+    diag_s = diag * s[..., :, None] * s[..., None, :]
+    upper_s = upper * s[..., :-1, :, None] * s[..., 1:, None, :]
+    return _solution(solve_sym(diag_s, upper_s, f * s, refine) * s, I,
+                     scenario, E, A)

@@ -210,6 +210,17 @@ def two_prod(a, b):
     return p, e
 
 
+def block_tridiag_matvec(diag, upper, b, lower=None):
+    """K @ b for a block-tridiagonal K (symmetric if ``lower`` is None)."""
+    if lower is None:
+        lower = upper.transpose(-1, -2)
+    r = _mv(diag, b)
+    r = r + torch.cat([_mv(upper, b[..., 1:, :]),
+                       torch.zeros_like(b[..., :1, :])], dim=-2)
+    return r + torch.cat([torch.zeros_like(b[..., :1, :]),
+                          _mv(lower, b[..., :-1, :])], dim=-2)
+
+
 def block_tridiag_residual_compensated(diag, upper, b, x, lower=None):
     """b - K x in compensated arithmetic (shapes of ``block_tridiag_solve``)."""
     if lower is None:

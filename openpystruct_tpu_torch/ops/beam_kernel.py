@@ -2,7 +2,7 @@
 Adam iteration, per launch (port of the JAX package's
 ``ops/beam_kernel.py`` bending-only kernels).
 
-Two public wrappers keep the JAX launchers' argument order and shapes:
+Three public wrappers keep the JAX launchers' argument order and shapes:
 
 - ``beam_analysis`` (``pallas_beam_analysis``, kernel ``_beam_kernel_b2``):
   element stiffness -> masked bending-only 2x2 block-tridiagonal assembly
@@ -15,13 +15,24 @@ Two public wrappers keep the JAX launchers' argument order and shapes:
   ``_beam_opt_kernel_b2``): the same solve, the combined loss, its
   gradient (semi, or the exact adjoint: one more substitution pair and
   ``refine`` sweeps on the saved factors), and the Adam update with clamp.
+- ``beam_solve`` (``pallas_beam_solve``, kernel ``_beam_kernel`` with an
+  explicit right-hand side): the 3-DOF assembly of K(I) with full 3x3
+  blocks (an arbitrary RHS may load the axial chain), masking, Jacobi
+  scaling, block-Thomas with saved Sinv and C, ``refine`` compensated
+  sweeps; the pivot is min_i |det3(S_i)|, without the axial-chain product.
+
+``beam_analysis`` is differentiable in I, the point loads and the UDL, as
+``pallas_beam_analysis`` is through its ``custom_vjp``: the backward pass is
+``_analysis_bwd`` line for line, one ``beam_solve`` of K lam = g_hat (K is
+symmetric) and banded products.
 
 The straight-beam system is block-diagonal per DOF class: the axial DOF
 couples only to itself and has no load in the scenario schema, so u_x is
 exactly 0 and the 2x2 bending chain carries the whole solution.
 
 Each wrapper sends a CPU tensor to the plain PyTorch version beside it
-(``beam_analysis_reference``, ``beam_opt_step_reference``), and launches the
+(``beam_analysis_reference``, ``beam_opt_step_reference``,
+``beam_solve_reference``), and launches the
 CUDA kernel (``csrc/beam_kernel.cu``) on a CUDA tensor, or raises.  There is
 no fallback from the kernel to the plain version.  ``LAUNCHES`` counts
 kernel launches and ``PLAIN_CALLS`` the calls the wrappers sent to the
@@ -45,9 +56,18 @@ import torch.nn.functional as F
 
 from openpystruct_tpu_torch.fem.solve import two_prod, two_sum
 from openpystruct_tpu_torch.ops import _build
+from openpystruct_tpu_torch.ops.block_tridiag import (
+    _inv3,
+    _mm,
+    _mtm,
+    _mtv,
+    _mv,
+)
+from openpystruct_tpu_torch.ops.block_tridiag import lanes_first as _lanes_first
+from openpystruct_tpu_torch.ops.block_tridiag import lanes_last as _lanes_last
 
-LAUNCHES = {"beam_analysis": 0, "beam_opt_step": 0}
-PLAIN_CALLS = {"beam_analysis": 0, "beam_opt_step": 0}
+LAUNCHES = {"beam_analysis": 0, "beam_opt_step": 0, "beam_solve": 0}
+PLAIN_CALLS = {"beam_analysis": 0, "beam_opt_step": 0, "beam_solve": 0}
 
 
 def reset_counts() -> None:
@@ -365,6 +385,125 @@ def _adam_step(I, mu, nu, g, lr_t, bc1, bc2, clamp_min):
 
 
 # ---------------------------------------------------------------------------
+# Plain version of the 3-DOF explicit-RHS solve: (B, n, 3, 3) blocks, the
+# recurrences Python loops over nodes.
+# ---------------------------------------------------------------------------
+
+
+def _assemble3(ks, free, rhs):
+    """Masked 3-DOF assembly with an explicit RHS: diag and upper (B, n, 3,
+    3) (upper row i couples node i to i+1; the last row is 0), f (B, n, 3)."""
+    ea_p, k11_p, k12_p, k13_p, _ = (F.pad(k, (1, 0)) for k in ks)  # elem i-1
+    ea_n, k11_n, k12_n, k13_n, k2_n = (F.pad(k, (0, 1)) for k in ks)  # elem i
+    d00 = ea_p + ea_n
+    d11 = k11_p + k11_n
+    d12 = -k12_p + k12_n
+    d22 = k13_p + k13_n
+    f0, f1, f2 = free.unbind(-1)
+    fn0, fn1, fn2 = torch.cat([free[:, 1:], free[:, -1:]], dim=1).unbind(-1)
+    z = torch.zeros_like(d00)
+
+    def blocks(rows):
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+    diag = blocks([[d00 * f0 * f0 + d00 * (1.0 - f0), z, z],
+                   [z, d11 * f1 * f1 + d11 * (1.0 - f1), d12 * f1 * f2],
+                   [z, d12 * f2 * f1, d22 * f2 * f2 + d22 * (1.0 - f2)]])
+    upper = blocks([[-ea_n * f0 * fn0, z, z],
+                    [z, -k11_n * f1 * fn1, k12_n * f1 * fn2],
+                    [z, -k12_n * f2 * fn1, k2_n * f2 * fn2]])
+    return diag, upper, rhs * free
+
+
+def _scale3(diag, upper, f):
+    """Jacobi scaling s = rsqrt(diag); the last upper row stays as is."""
+    s = torch.rsqrt(torch.diagonal(diag, dim1=-2, dim2=-1))
+    diag = diag * s[..., :, None] * s[..., None, :]
+    upper = torch.cat([upper[:, :-1] * s[:, :-1, :, None] * s[:, 1:, None, :],
+                       upper[:, -1:]], dim=1)
+    return diag, upper, f * s, s
+
+
+def _det3(m):
+    """The TPU kernel's ``_det3`` expansion."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def _factor3(diag, upper, f):
+    """Factorization saving Sinv and C, fused with the forward sweep.
+    Returns sinv, c (B, n, 3, 3), y (B, n, 3) and min_i |det3(S_i)|."""
+    s = diag[:, 0]
+    piv = torch.abs(_det3(s))
+    sinv = [_inv3(s)]
+    c = [_mm(sinv[0], upper[:, 0])]
+    y = [_mv(sinv[0], f[:, 0])]
+    for i in range(1, diag.shape[1]):
+        u_prev = upper[:, i - 1]
+        s = diag[:, i] - _mtm(u_prev, c[-1])
+        sinv.append(_inv3(s))
+        c.append(_mm(sinv[-1], upper[:, i]))
+        y.append(_mv(sinv[-1], f[:, i] - _mtv(u_prev, y[-1])))
+        piv = torch.minimum(piv, torch.abs(_det3(s)))
+    return (torch.stack(sinv, 1), torch.stack(c, 1), torch.stack(y, 1), piv)
+
+
+def _bsub3(y, c):
+    """x_i = y_i - C_i x_{i+1} from x_{n-1} = y_{n-1}."""
+    xs = [y[:, -1]]
+    for i in range(y.shape[1] - 2, -1, -1):
+        xs.append(y[:, i] - _mv(c[:, i], xs[-1]))
+    return torch.stack(xs[::-1], 1)
+
+
+def _subst3(r, upper, sinv, c):
+    """Solve K_s x = r with the saved factors."""
+    ys = [_mv(sinv[:, 0], r[:, 0])]
+    for i in range(1, r.shape[1]):
+        ys.append(_mv(sinv[:, i], r[:, i] - _mtv(upper[:, i - 1], ys[-1])))
+    return _bsub3(torch.stack(ys, 1), c)
+
+
+def _refine3(refine, diag, upper, sinv, c, f, x):
+    """``refine`` sweeps: an error-free residual f - K_s x, one substitution
+    with the saved factors, x += correction."""
+    n = x.shape[1]
+    ar = torch.arange(n, device=x.device)
+    ip, iq = (ar - 1).clamp(min=0), ar.clamp(max=max(n - 2, 0))
+    lm = upper[:, ip].transpose(-1, -2)     # U_{i-1}^T
+    um = upper[:, iq]                       # U_i
+    for _ in range(refine):
+        x_p = F.pad(x[:, :-1], (0, 0, 1, 0))
+        x_n = F.pad(x[:, 1:], (0, 0, 0, 1))
+        work = []
+        for a in range(3):
+            acc_s = f[..., a]
+            acc_c = torch.zeros_like(acc_s)
+            for b in range(3):
+                for mat, vec in ((diag, x), (lm, x_p), (um, x_n)):
+                    p, e = two_prod(-mat[..., a, b], vec[..., b])
+                    acc_s, e2 = two_sum(acc_s, p)
+                    acc_c = acc_c + e2 + e
+            work.append(acc_s + acc_c)
+        x = x + _subst3(torch.stack(work, -1), upper, sinv, c)
+    return x
+
+
+def beam_solve_reference(I, Le, free_mask, rhs, E, A, refine=1):
+    """Plain version of the explicit-RHS solve.  I, Le (B, nelem);
+    free_mask (B, n, 3) 0/1; rhs (B, n, 3).  Returns x (B, n, 3) and the
+    pivot min_i |det3(S_i)| (B,)."""
+    ks = _stiffness(I, Le, E, E * A)
+    diag, upper, f = _assemble3(ks, free_mask, rhs)
+    diag, upper, f, s = _scale3(diag, upper, f)
+    sinv, c, y, piv = _factor3(diag, upper, f)
+    y = _refine3(refine, diag, upper, sinv, c, f, _bsub3(y, c))
+    return y * s, piv
+
+
+# ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
@@ -376,8 +515,8 @@ _D = ctypes.c_double
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The library of all four kernels (``csrc/beam_kernel.cu``), with the
-    argument types of its C entry points."""
+    """The library of the five beam kernels (``csrc/beam_kernel.cu``), with
+    the argument types of its C entry points."""
     lib = _build.load("beam_kernel")
     lib.beam_analysis_f32.argtypes = [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P]
     lib.beam_opt_step_f32.argtypes = ([_P] * 12 + [_I] * 4 + [_F] * 8
@@ -386,10 +525,11 @@ def _lib():
                                            + [_P])
     lib.beam_opt_step_dd_f32io.argtypes = ([_P] * 13 + [_I] * 2 + [_D] * 5
                                            + [_F] * 4 + [_P])
+    lib.beam_solve_f32.argtypes = [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P]
     lib.beam_ws_floats_per_node.argtypes = [_I]
     for fn in (lib.beam_analysis_f32, lib.beam_opt_step_f32,
                lib.beam_analysis_dd_f32io, lib.beam_opt_step_dd_f32io,
-               lib.beam_ws_floats_per_node):
+               lib.beam_solve_f32, lib.beam_ws_floats_per_node):
         fn.restype = _I
     return lib
 
@@ -413,21 +553,11 @@ def _check_launch(dev, nelem, B, **tensors):
     n = nelem + 1
     shapes = dict(I_t=(nelem, B), mu_t=(nelem, B), nu_t=(nelem, B),
                   Le_t=(nelem, B), free_t=(n, 3, B), loads_t=(n, B),
-                  udl=(B,))
+                  udl=(B,), rhs_t=(n, 3, B))
     for t in tensors.values():
         if not t.is_contiguous():
             raise ValueError("launch inputs must be contiguous")
     _check(dev, **{k: (t, shapes[k]) for k, t in tensors.items()})
-
-
-def _lanes_last(t):
-    """(B, ...) -> contiguous (..., B): neighbouring threads (lanes) read
-    neighbouring addresses."""
-    return t.movedim(0, -1).contiguous()
-
-
-def _lanes_first(t):
-    return t.movedim(-1, 0).contiguous()
 
 
 def _run(rc, name, launches=LAUNCHES):
@@ -494,14 +624,49 @@ def launch_beam_opt_step(I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl,
     return I_o, mu_o, nu_o, stats
 
 
-def beam_analysis(I, Le, free_mask, point_loads, udl, E, A, refine=1):
-    """Fused batched beam FEA (``pallas_beam_analysis``).
+def launch_beam_solve(I_t, Le_t, free_t, rhs_t, E, A, refine=1):
+    """Launch the explicit-RHS solve kernel on lane-innermost inputs: I_t,
+    Le_t (nelem, B), free_t, rhs_t (n, 3, B), all contiguous float32 on one
+    card.  Returns x_t (n, 3, B) and the pivot (B,)."""
+    nelem, B = I_t.shape
+    n = nelem + 1
+    dev = I_t.device
+    _check_launch(dev, nelem, B, I_t=I_t, Le_t=Le_t, free_t=free_t,
+                  rhs_t=rhs_t)
+    lib = _lib()
+    x = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
+    piv = torch.empty((B,), dtype=torch.float32, device=dev)
+    ws = torch.empty((n, lib.beam_ws_floats_per_node(4), B),
+                     dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.beam_solve_f32(
+            I_t.data_ptr(), Le_t.data_ptr(), free_t.data_ptr(),
+            rhs_t.data_ptr(), x.data_ptr(), piv.data_ptr(), ws.data_ptr(),
+            B, n, int(refine), float(E), float(E * A), stream)
+    _run(rc, "beam_solve")
+    return x, piv
 
-    I, Le (B, nelem); free_mask (B, n, 3) float 0/1, 1 where the DOF is
-    free; point_loads (B, n) nodal Fy; udl (B,).  Returns u (B, n, 3),
-    V (B, nelem), M (B, nelem) and the min Schur pivot (B,).  CPU tensors
-    run the plain version; CUDA tensors (float32) launch the kernel.
-    """
+
+def beam_solve(I, Le, free_mask, rhs, E, A, refine=1):
+    """Fused assembly and solve of K(I) x = rhs for an explicit (B, n, 3)
+    right-hand side, constrained DOFs projected out (``pallas_beam_solve``).
+    Returns x (B, n, 3) and the pivot (B,).  CPU tensors run the plain
+    version; CUDA tensors (float32) launch the kernel."""
+    if not I.is_cuda:
+        PLAIN_CALLS["beam_solve"] += 1
+        return beam_solve_reference(I, Le, free_mask, rhs, E, A, refine)
+    B, nelem = I.shape
+    _check(I.device, I=(I, (B, nelem)), Le=(Le, (B, nelem)),
+           free_mask=(free_mask, (B, nelem + 1, 3)),
+           rhs=(rhs, (B, nelem + 1, 3)))
+    x, piv = launch_beam_solve(_lanes_last(I), _lanes_last(Le),
+                               _lanes_last(free_mask), _lanes_last(rhs), E,
+                               A, refine)
+    return _lanes_first(x), piv
+
+
+def _analysis_forward(I, Le, free_mask, point_loads, udl, E, A, refine):
     if not I.is_cuda:
         PLAIN_CALLS["beam_analysis"] += 1
         return beam_analysis_reference(I, Le, free_mask, point_loads, udl,
@@ -514,6 +679,78 @@ def beam_analysis(I, Le, free_mask, point_loads, udl, E, A, refine=1):
         _lanes_last(I), _lanes_last(Le), _lanes_last(free_mask),
         _lanes_last(point_loads), udl.contiguous(), E, A, refine)
     return _lanes_first(u), _lanes_first(V), _lanes_first(M), piv
+
+
+class _BeamAnalysis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, I, Le, free_mask, point_loads, udl, E, A, refine):
+        u, V, M, piv = _analysis_forward(I, Le, free_mask, point_loads, udl,
+                                         E, A, refine)
+        ctx.save_for_backward(I, Le, free_mask, u)
+        ctx.consts = (E, A, refine)
+        ctx.mark_non_differentiable(piv)
+        return u, V, M, piv
+
+    @staticmethod
+    def backward(ctx, gu, gV, gM, _gpiv):
+        """``_analysis_bwd``: with K(I) u = f(loads, udl) and V, M linear in
+        the element displacements with I-linear coefficients,
+        g_hat = gu + (dV/du)^T gV + (dM/du)^T gM, lam = K^-1 g_hat (one
+        explicit-RHS solve), gI_e = -lam_e^T (dK_e/dI_e) u_e + gV dV/dI +
+        gM dM/dI, gloads = lam_y, gudl = lam . df/dw + the -w Le/2,
+        -w Le^2/12 recovery terms.  Le and the mask get no gradient."""
+        I, Le, free_mask, u = ctx.saved_tensors
+        E, A, refine = ctx.consts
+        k11 = 12.0 * E * I / Le**3
+        k12 = 6.0 * E * I / Le**2
+        k13 = 4.0 * E * I / Le
+        k2 = 2.0 * E * I / Le
+
+        # (dV/du)^T gV + (dM/du)^T gM scattered onto the nodal cotangent
+        g_hat = gu.clone()
+        g_hat[:, :-1, 1] += gV * k11 + gM * k12
+        g_hat[:, :-1, 2] += gV * k12 + gM * k13
+        g_hat[:, 1:, 1] += -gV * k11 - gM * k12
+        g_hat[:, 1:, 2] += gV * k12 + gM * k2
+        g_hat = g_hat * free_mask
+
+        lam, _ = beam_solve(I, Le, free_mask, g_hat, E, A, refine)
+
+        uy_i, th_i = u[:, :-1, 1], u[:, :-1, 2]
+        uy_j, th_j = u[:, 1:, 1], u[:, 1:, 2]
+        ly_i, lt_i = lam[:, :-1, 1], lam[:, :-1, 2]
+        ly_j, lt_j = lam[:, 1:, 1], lam[:, 1:, 2]
+        # (dK_e/dI_e) u_e rows (bending block per unit I)
+        c1 = E / Le**3
+        r_uyi = c1 * (12.0 * (uy_i - uy_j) + 6.0 * Le * (th_i + th_j))
+        r_thi = c1 * Le * (6.0 * (uy_i - uy_j)
+                           + Le * (4.0 * th_i + 2.0 * th_j))
+        r_thj = c1 * Le * (6.0 * (uy_i - uy_j)
+                           + Le * (2.0 * th_i + 4.0 * th_j))
+        gI_K = -(ly_i * r_uyi - ly_j * r_uyi + lt_i * r_thi + lt_j * r_thj)
+        # direct dV/dI, dM/dI of the force recovery at fixed u
+        gI = gI_K + gV * r_uyi + gM * r_thi
+        # lam is zero at constrained DOFs: no masking needed
+        gloads = lam[..., 1]
+        Le_p, Le_n = F.pad(Le, (1, 0)), F.pad(Le, (0, 1))
+        gudl = (torch.sum(lam[..., 1] * (Le_p + Le_n) * 0.5, dim=-1)
+                + torch.sum(lam[..., 2] * (Le_n**2 - Le_p**2) / 12.0, dim=-1)
+                - torch.sum(gV * Le * 0.5 + gM * Le**2 / 12.0, dim=-1))
+        return gI, None, None, gloads, gudl, None, None, None
+
+
+def beam_analysis(I, Le, free_mask, point_loads, udl, E, A, refine=1):
+    """Fused batched beam FEA (``pallas_beam_analysis``), differentiable in
+    I, point_loads and udl.
+
+    I, Le (B, nelem); free_mask (B, n, 3) float 0/1, 1 where the DOF is
+    free; point_loads (B, n) nodal Fy; udl (B,).  Returns u (B, n, 3),
+    V (B, nelem), M (B, nelem) and the min Schur pivot (B,).  CPU tensors
+    run the plain version; CUDA tensors (float32) launch the kernel.  The
+    backward pass runs ``beam_solve`` (kernel or plain version, by device).
+    """
+    return _BeamAnalysis.apply(I, Le, free_mask, point_loads, udl, E, A,
+                               refine)
 
 
 def beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1,

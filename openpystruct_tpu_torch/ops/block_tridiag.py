@@ -1,0 +1,270 @@
+"""Batched symmetric 3x3 block-tridiagonal solve (port of the JAX package's
+``ops/block_tridiag.py``).
+
+- ``block_tridiag_solve`` (``pallas_block_tridiag_solve``, kernel
+  ``_thomas_kernel``): block-Thomas factorization fused with the forward
+  sweep, then the back sweep, one launch per solve.  Meshes of
+  ``STREAM_FROM_N`` nodes or more go to the two-launch streamed kernel of
+  ``ops/block_stream.py`` instead, the port's own dispatch threshold.
+- ``solve_sym`` (``pallas_solve_sym``): the differentiable solve with
+  ``refine`` compensated refinement sweeps, each a whole new solve of the
+  compensated residual; its backward pass is one more refined solve.
+
+``block_tridiag_solve`` sends a CPU tensor to the plain version
+(``thomas_reference``) and launches the CUDA kernel
+(``csrc/block_tridiag.cu``) on a CUDA float32 tensor, or raises; there is no
+fallback.  ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the calls
+sent to the plain version.  The plain version repeats the kernel's
+arithmetic in its order (the cofactor inverse times 1/det, 3x3 products
+summed over k = 0, 1, 2) and takes any leading batch dimensions; the kernel
+takes (B, n, 3, 3) systems.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from openpystruct_tpu_torch.fem.solve import (
+    block_tridiag_residual_compensated,
+)
+from openpystruct_tpu_torch.ops import _build
+
+LAUNCHES = {"block_tridiag_solve": 0}
+PLAIN_CALLS = {"block_tridiag_solve": 0}
+
+# Meshes of this many nodes or more take the streamed kernel: the smallest
+# of n = 101, 301, 1001 at which it is no slower than the one-launch kernel
+# on 16384 lanes (chip_smoke.py phase 6, PERF.md).  The one-launch kernel
+# serves meshes below 101; phase 6 also times both kernels at n = 51.
+STREAM_FROM_N = 101
+
+
+def reset_counts() -> None:
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version.  Blocks are (..., 3, 3) tensors; the recurrence is
+# a Python loop over rows.
+# ---------------------------------------------------------------------------
+
+
+def _inv3(m):
+    """Cofactor inverse of (..., 3, 3) blocks times 1/det (the TPU kernel's
+    ``_inv3_det``)."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    D = -(b * i - c * h)
+    E = a * i - c * g
+    F = -(a * h - b * g)
+    G = b * f - c * e
+    H = -(a * f - c * d)
+    I = a * e - b * d
+    inv_det = 1.0 / (a * A + b * B + c * C)
+    cof = torch.stack([torch.stack([A, D, G], -1), torch.stack([B, E, H], -1),
+                       torch.stack([C, F, I], -1)], -2)
+    return cof * inv_det[..., None, None]
+
+
+def _mm(p, q):
+    """p q, summed over k in order."""
+    return (p[..., :, 0, None] * q[..., None, 0, :]
+            + p[..., :, 1, None] * q[..., None, 1, :]
+            + p[..., :, 2, None] * q[..., None, 2, :])
+
+
+def _mtm(p, q):
+    """p^T q."""
+    return (p[..., 0, :, None] * q[..., None, 0, :]
+            + p[..., 1, :, None] * q[..., None, 1, :]
+            + p[..., 2, :, None] * q[..., None, 2, :])
+
+
+def _mv(p, v):
+    return (p[..., :, 0] * v[..., 0, None] + p[..., :, 1] * v[..., 1, None]
+            + p[..., :, 2] * v[..., 2, None])
+
+
+def _mtv(p, v):
+    return (p[..., 0, :] * v[..., 0, None] + p[..., 1, :] * v[..., 1, None]
+            + p[..., 2, :] * v[..., 2, None])
+
+
+def thomas_forward_reference(diag, upper, b):
+    """Factorization fused with the forward sweep, from zero carries:
+    S_i = D_i - U_{i-1}^T C_{i-1}, C_i = S_i^-1 U_i (U_{n-1} = 0),
+    y_i = S_i^-1 (b_i - U_{i-1}^T y_{i-1}).  Returns C (..., n, 3, 3) and
+    y (..., n, 3), what the streamed forward kernel writes."""
+    n = diag.shape[-3]
+    u_prev = torch.zeros_like(diag[..., 0, :, :])
+    c_prev = torch.zeros_like(u_prev)
+    y_prev = torch.zeros_like(b[..., 0, :])
+    cs, ys = [], []
+    for i in range(n):
+        sinv = _inv3(diag[..., i, :, :] - _mtm(u_prev, c_prev))
+        u = upper[..., i, :, :] if i < n - 1 else torch.zeros_like(u_prev)
+        y_prev = _mv(sinv, b[..., i, :] - _mtv(u_prev, y_prev))
+        c_prev = _mm(sinv, u)
+        u_prev = u
+        cs.append(c_prev)
+        ys.append(y_prev)
+    return torch.stack(cs, -3), torch.stack(ys, -2)
+
+
+def thomas_backward_reference(c, y):
+    """Back sweep x_i = y_i - C_i x_{i+1} from a zero carry."""
+    x = torch.zeros_like(y[..., 0, :])
+    xs = []
+    for i in range(y.shape[-2] - 1, -1, -1):
+        x = y[..., i, :] - _mv(c[..., i, :, :], x)
+        xs.append(x)
+    return torch.stack(xs[::-1], -2)
+
+
+def thomas_reference(diag, upper, b):
+    """Plain version of the block-Thomas solve: diag (..., n, 3, 3), upper
+    (..., n-1, 3, 3) (lower = upper^T), b (..., n, 3) -> x (..., n, 3)."""
+    return thomas_backward_reference(*thomas_forward_reference(diag, upper, b))
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The library of kernels #4 and #6 (``csrc/block_tridiag.cu``)."""
+    lib = _build.load("block_tridiag")
+    lib.thomas_f32.argtypes = [_P] * 5 + [_I] * 2 + [_P]
+    lib.thomas_streamed_f32.argtypes = [_P] * 6 + [_I] * 2 + [_P]
+    for fn in (lib.thomas_f32, lib.thomas_streamed_f32):
+        fn.restype = _I
+    return lib
+
+
+def check_system(diag, upper, b):
+    """Raise unless (diag, upper, b) are float32 (B, n, 3, 3), (B, n-1, 3,
+    3), (B, n, 3) on one device.  Returns (B, n)."""
+    if diag.dim() != 4 or diag.shape[-2:] != (3, 3):
+        raise ValueError(f"diag has shape {tuple(diag.shape)}, expected "
+                         "(B, n, 3, 3)")
+    B, n = diag.shape[:2]
+    for name, t, shape in (("diag", diag, (B, n, 3, 3)),
+                           ("upper", upper, (B, n - 1, 3, 3)),
+                           ("b", b, (B, n, 3))):
+        if t.device != diag.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{diag.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernels take float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    return B, n
+
+
+def lanes_last(t):
+    """(B, ...) -> contiguous (..., B): neighbouring threads (lanes) read
+    neighbouring addresses."""
+    return t.movedim(0, -1).contiguous()
+
+
+def lanes_first(t):
+    return t.movedim(-1, 0).contiguous()
+
+
+def launch_thomas(diag_t, upper_t, b_t):
+    """Launch kernel #4 on lane-innermost float32 systems: diag_t (n, 3, 3,
+    B), upper_t (n-1, 3, 3, B), b_t (n, 3, B), contiguous on one card.
+    Returns x_t (n, 3, B)."""
+    n, B = b_t.shape[0], b_t.shape[-1]
+    dev = b_t.device
+    x = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
+    ws = torch.empty((max(n - 1, 1), 3, 3, B), dtype=torch.float32,
+                     device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().thomas_f32(diag_t.data_ptr(), upper_t.data_ptr(),
+                               b_t.data_ptr(), x.data_ptr(), ws.data_ptr(),
+                               B, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"block_tridiag_solve launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["block_tridiag_solve"] += 1
+    return x
+
+
+def block_tridiag_solve(diag, upper, b):
+    """Solve K x = b for a batch of symmetric block-tridiagonal systems
+    (``pallas_block_tridiag_solve``): diag (B, n, 3, 3), upper (B, n-1, 3,
+    3) with lower = upper^T, b (B, n, 3) -> x (B, n, 3).  CPU tensors run
+    the plain version; CUDA tensors (float32) launch the kernel, the
+    streamed one from ``STREAM_FROM_N`` nodes."""
+    if not diag.is_cuda:
+        PLAIN_CALLS["block_tridiag_solve"] += 1
+        return thomas_reference(diag, upper, b)
+    B, n = check_system(diag, upper, b)
+    if n >= STREAM_FROM_N:
+        from openpystruct_tpu_torch.ops.block_stream import (
+            block_tridiag_solve_streamed,
+        )
+
+        return block_tridiag_solve_streamed(diag, upper, b)
+    return lanes_first(launch_thomas(lanes_last(diag), lanes_last(upper),
+                                     lanes_last(b)))
+
+
+# ---------------------------------------------------------------------------
+# Differentiable refined solve
+# ---------------------------------------------------------------------------
+
+
+def _refined(diag, upper, b, refine):
+    """A solve, then ``refine`` sweeps: each solves the compensated residual
+    anew and adds the correction (``_pallas_refined``)."""
+    x = block_tridiag_solve(diag, upper, b)
+    for _ in range(refine):
+        r = block_tridiag_residual_compensated(diag, upper, b, x)
+        x = x + block_tridiag_solve(diag, upper, r)
+    return x
+
+
+class _SolveSym(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, diag, upper, b, refine):
+        x = _refined(diag, upper, b, refine)
+        ctx.refine = refine
+        ctx.save_for_backward(diag, upper, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        diag, upper, x = ctx.saved_tensors
+        # K is symmetric: the adjoint system is K itself
+        lam = _refined(diag, upper, g.contiguous(), ctx.refine)
+        diag_bar = -lam[..., :, :, None] * x[..., :, None, :]
+        # the stored upper block feeds both bands of K:
+        # upper_bar_i = -lam_i x_{i+1}^T - x_i lam_{i+1}^T
+        upper_bar = (-lam[..., :-1, :, None] * x[..., 1:, None, :]
+                     - x[..., :-1, :, None] * lam[..., 1:, None, :])
+        return diag_bar, upper_bar, lam, None
+
+
+def solve_sym(diag, upper, b, refine=0):
+    """Differentiable batched symmetric solve with ``refine`` compensated
+    refinement sweeps (``pallas_solve_sym``).  Shapes of
+    ``block_tridiag_solve``; the backward pass is one more refined solve."""
+    return _SolveSym.apply(diag, upper, b, refine)

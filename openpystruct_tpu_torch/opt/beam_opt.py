@@ -161,19 +161,11 @@ def optimize_beam(scenario: BeamScenario, beam: BeamConfig = BeamConfig(),
     )
 
 
-def _check_path(I, fused, dd):
-    # dd runs its own kernels whatever ``fused`` says, as in the JAX package
-    if not (dd or fused) and I.is_cuda:
-        raise NotImplementedError(
-            "fused=False runs the split path, whose block-Thomas kernel "
-            "(openpystruct_tpu ops/block_tridiag.py _thomas_kernel) is not "
-            "ported to CUDA yet"
-        )
-
-
-def _make_kernel_step(scenario, beam, opt, refine, fused, dtype, dd=False):
+def _make_kernel_step(scenario, beam, opt, refine, fused, dtype, dd=False,
+                      solve=solve_beam_batched):
     """One optimizer iteration for the whole batch:
-    ``step(I, mu, nu, epoch) -> (I_new, mu, nu, stats (B, 4))``."""
+    ``step(I, mu, nu, epoch) -> (I_new, mu, nu, stats (B, 4))``; the split
+    path solves with ``solve``."""
     E, G, A = beam.E, beam.G, beam.A
 
     if dd and opt.grad_mode != "semi":
@@ -204,7 +196,7 @@ def _make_kernel_step(scenario, beam, opt, refine, fused, dtype, dd=False):
         with torch.enable_grad():
             # semi mode treats the whole FE solve as a constant per epoch
             I_solve = Ig.detach() if opt.grad_mode == "semi" else Ig
-            sol = solve_beam_batched(I_solve, scenario, E, A, refine=refine)
+            sol = solve(I_solve, scenario, E, A, refine=refine)
             comps = structural_loss(Ig, sol.bending_moments,
                                     sol.shear_forces, E, G,
                                     opt.alpha_moment, opt.alpha_shear,
@@ -280,7 +272,8 @@ def _run_epochs(body, state, epoch, max_epochs, keep_going):
     return state, epoch
 
 
-def _final_solution(scenario, I_solved, beam, refine, fused, dd=False):
+def _final_solution(scenario, I_solved, beam, refine, fused, dd=False,
+                    solve=solve_beam_batched):
     """One analysis at the last-solved I, the solve the loop's last
     evaluation saw.  Returns ``(BeamSolution, pivot or None)``."""
     I_solved = I_solved.detach()
@@ -298,13 +291,13 @@ def _final_solution(scenario, I_solved, beam, refine, fused, dd=False):
                            rotations=u[..., 2], shear_forces=V,
                            bending_moments=M)
         return sol, piv
-    return solve_beam_batched(I_solved, scenario, beam.E, beam.A,
-                              refine=refine), None
+    return solve(I_solved, scenario, beam.E, beam.A, refine=refine), None
 
 
-def _result(scenario, state, beam, refine, fused, dd):
+def _result(scenario, state, beam, refine, fused, dd,
+            solve=solve_beam_batched):
     sol, piv = _final_solution(scenario, state["I_solved"], beam, refine,
-                               fused, dd)
+                               fused, dd, solve)
     st = state["stats"]
     return BeamOptResult(
         I=state["I"], I_solved=state["I_solved"], solution=sol,
@@ -328,18 +321,19 @@ def optimize_beam_batched(scenario: BeamScenario,
     ``fused`` (default True) runs one ``beam_opt_step`` per epoch: solve,
     loss, gradient (semi or adjoint) and Adam in one kernel launch on the
     card, or its plain version for CPU tensors.  ``fused=False`` is the
-    split path (plain solve + autograd), CPU only until the block-Thomas
-    kernel is ported.  ``dd=True`` (the rescue's arithmetic) runs
-    ``beam_opt_step_dd`` and a final ``beam_analysis_dd`` instead, whatever
-    ``fused`` says: solve, loss and semi-gradient in float64, Adam in I0's
-    dtype, the pivot in ``result.pivot``; ``refine`` is not used and
-    adjoint mode raises.
+    split path: plain assembly, the block-Thomas solve (``solve_sym``: the
+    kernel on a CUDA float32 batch, its plain version on a CPU one), the
+    loss and autograd; semi mode detaches I at the solve input, adjoint
+    mode backpropagates through one more solve.  ``dd=True``
+    (the rescue's arithmetic) runs ``beam_opt_step_dd`` and a final
+    ``beam_analysis_dd`` instead, whatever ``fused`` says: solve, loss and
+    semi-gradient in float64, Adam in I0's dtype, the pivot in
+    ``result.pivot``; ``refine`` is not used and adjoint mode raises.
     """
     B, nelem = scenario.node_x.shape[0], scenario.node_x.shape[-1] - 1
     if I0 is None:
         I0 = _default_I0(scenario, beam, (B, nelem))
     fused = True if fused is None else fused
-    _check_path(I0, fused, dd)
     body = _make_freeze_body(
         _make_kernel_step(scenario, beam, opt, refine, fused, I0.dtype, dd),
         opt)
@@ -383,17 +377,25 @@ def optimize_beam_compact(scenario: BeamScenario,
     results equal ``optimize_beam_batched``'s; only the epochs frozen lanes
     would spend are skipped.
     """
+    return _optimize_compact(scenario, beam, opt, I0, refine,
+                             True if fused is None else fused, min_bucket, dd,
+                             solve_beam_batched)
+
+
+def _optimize_compact(scenario, beam, opt, I0, refine, fused, min_bucket, dd,
+                      solve):
+    """``optimize_beam_compact`` whose split path solves with ``solve``:
+    ``solve_beam_batched``, or for the host float64 rescue the plain
+    ``fem.solve`` solver of ``solve_beam``, the JAX rescue's arithmetic."""
     B, nelem = scenario.node_x.shape[0], scenario.node_x.shape[-1] - 1
     if I0 is None:
         I0 = _default_I0(scenario, beam, (B, nelem))
-    fused = True if fused is None else fused
-    _check_path(I0, fused, dd)
     sizes = _compact_sizes(B, min_bucket)
 
     def run_stage(scen, st, epoch, next_size):
         body = _make_freeze_body(
-            _make_kernel_step(scen, beam, opt, refine, fused, I0.dtype, dd),
-            opt)
+            _make_kernel_step(scen, beam, opt, refine, fused, I0.dtype, dd,
+                              solve), opt)
         return _run_epochs(body, st, epoch, opt.max_epochs,
                            lambda s: int((~s["done"]).sum()) > next_size)
 
@@ -410,4 +412,4 @@ def optimize_beam_compact(scenario: BeamScenario,
         # gidx is part of a permutation: a conflict-free scatter
         for k, v in ws.items():
             state[k][gidx] = v
-    return _result(scenario, state, beam, refine, fused, dd)
+    return _result(scenario, state, beam, refine, fused, dd, solve)

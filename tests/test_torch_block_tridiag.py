@@ -1,0 +1,138 @@
+"""Port: the block-Thomas solves (kernels #4 and #6 of PERF.md's table) and
+the differentiable refined solve against the JAX Pallas kernels.
+
+Both sides run in float64 on the CPU on the same numpy-seeded systems:
+``pallas_block_tridiag_solve``, ``pallas_block_tridiag_solve_streamed`` and
+``pallas_solve_sym`` in interpret mode against the port's plain versions
+(``thomas_reference``, which the wrappers run for CPU tensors).  They repeat
+the same arithmetic in the same order, so they agree to a few ulps; the gate
+is 1e-10 of each output's scale.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openpystruct_tpu.config import ScenarioConfig
+from openpystruct_tpu.datagen import sample_scenario
+from openpystruct_tpu.fem.beam import assemble_beam_system
+from openpystruct_tpu.ops.block_stream import (
+    pallas_block_tridiag_solve_streamed,
+)
+from openpystruct_tpu.ops.block_tridiag import (
+    pallas_block_tridiag_solve,
+    pallas_solve_sym,
+)
+from openpystruct_tpu_torch.ops import block_stream as tbs
+from openpystruct_tpu_torch.ops import block_tridiag as tbt
+
+E, A = 200e9, 0.01
+TOL = 1e-10
+
+
+def _spd(B, n, seed):
+    """Random symmetric positive definite block-tridiagonal systems."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(B, n, 3, 3))
+    d = d @ d.transpose(0, 1, 3, 2) + 6.0 * np.eye(3)
+    u = rng.normal(size=(B, n - 1, 3, 3)) * 0.3
+    return d, u, rng.normal(size=(B, n, 3))
+
+
+def _beam(B, n, seed):
+    """Jacobi-scaled beam systems on JAX-drawn scenarios, as
+    solve_beam_batched hands them to the solve."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), B)
+    scs = jax.vmap(lambda k: sample_scenario(k, ScenarioConfig(num_nodes=n))
+                   )(keys)
+    I = np.exp(np.random.default_rng(seed).normal(size=(B, n - 1)) * 0.3) * 0.5
+    d, u, f = jax.vmap(lambda i, s: assemble_beam_system(i, s, E, A))(
+        jnp.asarray(I), scs)
+    d, u, f = (np.asarray(a, np.float64) for a in (d, u, f))
+    s = 1.0 / np.sqrt(np.diagonal(d, axis1=-2, axis2=-1))
+    return (d * s[..., :, None] * s[..., None, :],
+            u * s[:, :-1, :, None] * s[:, 1:, None, :], f * s)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float64))
+
+
+def _close(a, b, what, tol=TOL):
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = np.asarray(b, np.float64)
+    np.testing.assert_allclose(a, b, rtol=tol, atol=tol * np.abs(b).max(),
+                               err_msg=what)
+
+
+SYSTEMS = {"spd-n21": lambda: _spd(3, 21, 0),
+           "beam-n41": lambda: _beam(4, 41, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(SYSTEMS))
+def test_thomas_matches_pallas(case):
+    d, u, b = SYSTEMS[case]()
+    ref = pallas_block_tridiag_solve(jnp.asarray(d), jnp.asarray(u),
+                                     jnp.asarray(b), interpret=True)
+    _close(tbt.thomas_reference(_t(d), _t(u), _t(b)), ref, "thomas_reference")
+    tbt.reset_counts()
+    x = tbt.block_tridiag_solve(_t(d), _t(u), _t(b))
+    assert tbt.PLAIN_CALLS == {"block_tridiag_solve": 1}
+    assert tbt.LAUNCHES == {"block_tridiag_solve": 0}
+    tbt.reset_counts()
+    _close(x, ref, "block_tridiag_solve")
+
+
+def test_streamed_matches_pallas():
+    """n = 70 is not a multiple of the TPU kernel's 64-node chunk: two
+    chunks there, one sweep here."""
+    d, u, b = _beam(3, 70, 2)
+    ref = pallas_block_tridiag_solve_streamed(
+        jnp.asarray(d), jnp.asarray(u), jnp.asarray(b), interpret=True)
+    tbs.reset_counts()
+    x = tbs.block_tridiag_solve_streamed(_t(d), _t(u), _t(b))
+    assert tbs.PLAIN_CALLS == {"block_tridiag_solve_streamed": 1}
+    tbs.reset_counts()
+    _close(x, ref, "block_tridiag_solve_streamed")
+    # the split at the forward/backward boundary is thomas_reference's
+    c, y = tbt.thomas_forward_reference(_t(d), _t(u), _t(b))
+    assert c.shape == (3, 70, 3, 3) and y.shape == (3, 70, 3)
+    assert torch.equal(c[:, -1], torch.zeros_like(c[:, -1]))
+    assert torch.equal(tbt.thomas_backward_reference(c, y), x)
+
+
+@pytest.mark.parametrize("refine", [0, 2])
+@pytest.mark.parametrize("case", sorted(SYSTEMS))
+def test_solve_sym_forward_and_vjp_match_pallas(case, refine):
+    d, u, b = SYSTEMS[case]()
+    g = np.random.default_rng(9).normal(size=b.shape)
+    x, vjp = jax.vjp(lambda d_, u_, b_: pallas_solve_sym(d_, u_, b_, refine,
+                                                         True),
+                     jnp.asarray(d), jnp.asarray(u), jnp.asarray(b))
+    gd, gu, gb = vjp(jnp.asarray(g))
+    dt, ut, bt = (_t(a).requires_grad_(True) for a in (d, u, b))
+    xt = tbt.solve_sym(dt, ut, bt, refine)
+    _close(xt, x, "x")
+    gdt, gut, gbt = torch.autograd.grad(xt, (dt, ut, bt), _t(g))
+    _close(gdt, gd, "diag_bar")
+    _close(gbt, gb, "b_bar")
+    _close(gut, gu, "upper_bar")
+    # the stored upper block feeds both bands: the lower band's term
+    # -x_i lam_{i+1}^T is a real part of upper_bar
+    lam = gbt
+    first = -lam[:, :-1, :, None] * xt.detach()[:, 1:, None, :]
+    assert (gut - first).abs().max() > 1e-3 * gut.abs().max()
+
+
+def test_solve_sym_refinement_solves_anew():
+    """Each refinement sweep is one more whole solve: refine r costs 1 + r
+    solves forward and as many backward."""
+    d, u, b = (_t(a).requires_grad_(True) for a in _spd(2, 9, 3))
+    tbt.reset_counts()
+    x = tbt.solve_sym(d, u, b, 2)
+    assert tbt.PLAIN_CALLS["block_tridiag_solve"] == 3
+    x.sum().backward()
+    assert tbt.PLAIN_CALLS["block_tridiag_solve"] == 6
+    tbt.reset_counts()

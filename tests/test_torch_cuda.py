@@ -21,9 +21,16 @@ from openpystruct_tpu_torch.datagen import (
     run_batch,
     sample_scenarios,
 )
-from openpystruct_tpu_torch.fem.beam import constraint_mask
+from openpystruct_tpu_torch.fem import solve_beam_checked
+from openpystruct_tpu_torch.fem.beam import (
+    assemble_beam_system,
+    constraint_mask,
+    solve_beam_batched,
+)
 from openpystruct_tpu_torch.ops import beam_kernel as tk
 from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
+from openpystruct_tpu_torch.ops import block_stream as tbs
+from openpystruct_tpu_torch.ops import block_tridiag as tbt
 from openpystruct_tpu_torch.opt import beam_opt
 
 BEAM = BeamConfig(udl=-1000.0)
@@ -50,6 +57,19 @@ def _inputs(B, seed, device, dtype, cfg=ScenarioConfig()):
     )
     # float32 values first, so the float64 run sees the same inputs
     return {k: v.float().to(device=device, dtype=dtype) for k, v in x.items()}
+
+
+def _systems(B, seed, device, dtype, cfg=ScenarioConfig()):
+    """Jacobi-scaled beam systems (diag, upper, f) as solve_beam_batched
+    hands them to the solve, assembled in float32."""
+    gen = torch.Generator().manual_seed(seed)
+    sc = sample_scenarios(gen, B, cfg, device="cpu", dtype=torch.float32)
+    I = torch.exp(torch.randn((B, sc.num_nodes - 1), generator=gen) * 0.3) * 0.5
+    d, u, f = assemble_beam_system(I, sc, E, A)
+    s = torch.rsqrt(torch.diagonal(d, dim1=-2, dim2=-1))
+    d = d * s[..., :, None] * s[..., None, :]
+    u = u * s[..., :-1, :, None] * s[..., 1:, None, :]
+    return tuple(t.to(device=device, dtype=dtype) for t in (d, u, f * s))
 
 
 def _hold(kern, f64, f32):
@@ -103,12 +123,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         tk.beam_analysis(x["I"], x["Le"].cpu(), x["free"], x["loads"],
                          x["udl"], E, A)
-    with pytest.raises(NotImplementedError):
-        from openpystruct_tpu_torch.fem.beam import solve_beam_batched
-
-        sc = sample_scenarios(torch.Generator().manual_seed(0), 2,
-                              device=cuda)
-        solve_beam_batched(torch.full((2, 100), 0.5, device=cuda), sc, E, A)
+    d, u, b = _systems(8, 3, cuda, torch.float64)
+    with pytest.raises(TypeError):
+        tbt.block_tridiag_solve(d, u, b)
+    with pytest.raises(ValueError):
+        tbt.block_tridiag_solve(d.float(), u.float()[:, 1:], b.float())
 
 
 @pytest.mark.cuda
@@ -117,7 +136,8 @@ def test_batch_program_launches_kernels_only(cuda):
                           device=cuda)
     tk.reset_counts()
     batch = run_batch(sc, BEAM, DATAGEN_OPT)
-    assert tk.PLAIN_CALLS == {"beam_analysis": 0, "beam_opt_step": 0}
+    assert tk.PLAIN_CALLS == {"beam_analysis": 0, "beam_opt_step": 0,
+                              "beam_solve": 0}
     assert tk.LAUNCHES["beam_analysis"] == 1
     # the done flags are read every _SYNC_EVERY epochs: up to 3 epochs run
     # on frozen lanes after the last one converged
@@ -172,7 +192,8 @@ def test_random_bridge_batch_launches_kernels_only(cuda):
         m.reset_counts()
     batch = generate_batch(torch.Generator().manual_seed(7), 512,
                            ScenarioConfig(random_bridge=True), device=cuda)
-    assert tk.PLAIN_CALLS == {"beam_analysis": 0, "beam_opt_step": 0}
+    assert tk.PLAIN_CALLS == {"beam_analysis": 0, "beam_opt_step": 0,
+                              "beam_solve": 0}
     assert tkd.PLAIN_CALLS == {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
     assert tkd.LAUNCHES["beam_analysis_dd"] == 1
     assert tkd.LAUNCHES["beam_opt_step_dd"] > 0
@@ -196,3 +217,127 @@ def test_adjoint_rescue_stays_off_the_host_unless_asked(cuda):
                            opt_cfg=opt, device=cuda, rescue="f64")
     assert tkd.LAUNCHES == {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
     assert batch.valid.is_cuda and batch.valid.float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [False, True], ids=["thomas", "streamed"])
+def test_block_tridiag_kernels(cuda, streamed):
+    """Kernel #4 and the streamed kernel #6 against the plain version, on
+    fixed-bridge and random-bridge systems."""
+    for seed, cfg in ((7, ScenarioConfig()),
+                      (8, ScenarioConfig(random_bridge=True))):
+        x32 = _systems(300, seed, cuda, torch.float32, cfg)
+        x64 = [t.double() for t in x32]
+        mod, name = ((tbs, "block_tridiag_solve_streamed") if streamed
+                     else (tbt, "block_tridiag_solve"))
+        before = mod.LAUNCHES[name]
+        kern = (tbs.block_tridiag_solve_streamed(*x32) if streamed
+                else tbt.launch_thomas(*(tbt.lanes_last(t) for t in x32)))
+        if not streamed:
+            kern = tbt.lanes_first(kern)
+        assert mod.LAUNCHES[name] == before + 1
+        torch.cuda.synchronize()
+        _hold([kern], [tbt.thomas_reference(*x64)],
+              [tbt.thomas_reference(*x32)])
+
+
+@pytest.mark.cuda
+def test_beam_solve_kernel(cuda):
+    x32, x64 = (_inputs(300, 9, cuda, dt) for dt in (torch.float32,
+                                                       torch.float64))
+    gen = torch.Generator().manual_seed(9)
+    rhs = torch.randn((300, 101, 3), generator=gen) * 1e4
+    args32 = [x32[k] for k in ("I", "Le", "free")] + [rhs.to(cuda)]
+    args64 = [x64[k] for k in ("I", "Le", "free")] + [rhs.to(cuda).double()]
+    before = tk.LAUNCHES["beam_solve"]
+    kern = tk.beam_solve(*args32, E, A, 1)
+    assert tk.LAUNCHES["beam_solve"] == before + 1
+    f64 = tk.beam_solve_reference(*args64, E, A, 1)
+    f32 = tk.beam_solve_reference(*args32, E, A, 1)
+    torch.cuda.synchronize()
+    _hold(kern, f64, f32)
+
+
+@pytest.mark.cuda
+def test_solve_sym_backward_and_split_path_on_the_card(cuda):
+    """solve_beam_batched on a CUDA batch launches the block-Thomas solve,
+    forward and backward; deflections and dL/dI held against the plain
+    float64 route by _hold's rule."""
+    gen = torch.Generator().manual_seed(10)
+    sc = sample_scenarios(gen, 64, device="cpu", dtype=torch.float64)
+    I64 = torch.exp(torch.randn((64, 100), generator=gen) * 0.3) * 0.5
+    outs = {}
+    for name, dev, dt in (("kernel", cuda, torch.float32),
+                          ("plain32", "cpu", torch.float32),
+                          ("plain64", "cpu", torch.float64)):
+        I = I64.to(device=dev, dtype=dt).requires_grad_(True)
+        s = sc.map(lambda t: (t.to(dt) if t.is_floating_point() else t)
+                   .to(dev))
+        tbt.reset_counts()
+        tbs.reset_counts()
+        sol = solve_beam_batched(I, s, E, A, refine=1)
+        (g,) = torch.autograd.grad((sol.bending_moments**2).sum() * 1e-9
+                                   + (sol.deflections**2).sum() * 1e3, I)
+        outs[name] = [sol.deflections.detach().cpu(), g.cpu()]
+        if name == "kernel":
+            # n = 101 is past STREAM_FROM_N: the streamed kernel
+            assert tbs.LAUNCHES["block_tridiag_solve_streamed"] == 4
+            assert tbt.PLAIN_CALLS["block_tridiag_solve"] == 0
+    tbt.reset_counts()
+    _hold(outs["kernel"], outs["plain64"], outs["plain32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["semi", "adjoint"])
+def test_split_optimizer_launches_kernels_only(cuda, mode):
+    """optimize_beam_batched(fused=False) on a CUDA batch: every solve,
+    forward and (in adjoint mode) backward, is a kernel launch."""
+    sc = sample_scenarios(torch.Generator().manual_seed(13), 128, device=cuda)
+    opt = dataclasses.replace(DATAGEN_OPT, grad_mode=mode, max_epochs=8)
+    for m in (tk, tbt, tbs):
+        m.reset_counts()
+    res = beam_opt.optimize_beam_batched(sc, BEAM, opt, refine=1, fused=False)
+    # n = 101 is past STREAM_FROM_N: the streamed kernel
+    assert tbs.LAUNCHES["block_tridiag_solve_streamed"] > 0
+    assert tbs.PLAIN_CALLS["block_tridiag_solve_streamed"] == 0
+    assert tbt.PLAIN_CALLS["block_tridiag_solve"] == 0
+    assert tk.LAUNCHES["beam_opt_step"] == 0
+    assert res.solution.deflections.is_cuda
+    assert torch.isfinite(res.I).all()
+    assert (res.I >= DATAGEN_OPT.clamp_min).all()
+    for m in (tk, tbt, tbs):
+        m.reset_counts()
+
+
+@pytest.mark.cuda
+def test_beam_analysis_gradient_on_the_card(cuda):
+    x32, x64 = (_inputs(128, 11, cuda, dt) for dt in (torch.float32,
+                                                        torch.float64))
+    grads = {}
+    for name, x, fn in (("kernel", x32, tk.beam_analysis),
+                        ("plain32", x32, tk.beam_analysis_reference),
+                        ("plain64", x64, tk.beam_analysis_reference)):
+        I = x["I"].clone().requires_grad_(True)
+        u, V, M, _ = fn(I, x["Le"], x["free"], x["loads"], x["udl"], E, A, 1)
+        loss = (M**2).sum() * 1e-9 + (V**2).sum() * 1e-7 + (u[..., 1]**2
+                                                             ).sum() * 1e3
+        (grads[name],) = torch.autograd.grad(loss, I)
+    torch.cuda.synchronize()
+    _hold([grads["kernel"]], [grads["plain64"]], [grads["plain32"]])
+
+
+@pytest.mark.cuda
+def test_solve_beam_checked_stays_on_the_card(cuda):
+    for m in (tk, tkd, tbt):
+        m.reset_counts()
+    sc = sample_scenarios(torch.Generator().manual_seed(12), 256,
+                          ScenarioConfig(random_bridge=True), device=cuda)
+    I = torch.full((256, 100), 0.05, device=cuda)
+    sol, info = solve_beam_checked(I, sc, E, A, tol=1e-4)
+    assert info["used_dd"].is_cuda and info["used_dd"].any()
+    assert tkd.LAUNCHES["beam_analysis_dd"] == 1
+    assert tkd.PLAIN_CALLS["beam_analysis_dd"] == 0
+    assert tbt.PLAIN_CALLS["block_tridiag_solve"] == 0
+    assert sol.deflections.is_cuda
+    for m in (tk, tkd, tbt):
+        m.reset_counts()

@@ -51,11 +51,29 @@ def test_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "openpystruct_tpu_torch.ops", "openpystruct_tpu_torch.ops.block_stream",
+    "openpystruct_tpu_torch.ops.beam_kernel",
+    "openpystruct_tpu_torch.fem.accuracy", "openpystruct_tpu_torch.fem.solve",
+])
+def test_module_imports_first(module):
+    """ops imports fem.solve and fem imports ops inside its functions:
+    each side imports cleanly as the first module of a process."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", f"import {module}"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_import_builds_no_kernel():
-    """Importing every module, the float64 rescue kernels' included, runs
-    no nvcc and loads no library: kernels build at their first launch."""
+    """Importing every module, the float64 rescue kernels', the
+    block-Thomas solves' and the autopilot's included, runs no nvcc and
+    loads no library: kernels build at their first launch."""
     modules = sorted(p for p in PORT.rglob("*.py") if p.name != "__init__.py")
-    assert PORT / "ops" / "beam_kernel_dd.py" in modules
+    for name in ("ops/beam_kernel_dd.py", "ops/block_tridiag.py",
+                 "ops/block_stream.py", "fem/accuracy.py"):
+        assert PORT / name in modules
     code = (
         "".join("import openpystruct_tpu_torch." + ".".join(
             p.relative_to(PORT).with_suffix("").parts) + "\n"

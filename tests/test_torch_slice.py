@@ -30,7 +30,8 @@ def test_slice_end_to_end_cpu_f64(tmp_path):
     cols = generate_dataset(0, 10, batch_size=5, opt_cfg=FAST, device="cpu",
                             dtype=torch.float64, on_batch=seen.append)
     assert len(seen) == 2
-    assert tk.LAUNCHES == {"beam_analysis": 0, "beam_opt_step": 0}
+    assert tk.LAUNCHES == {"beam_analysis": 0, "beam_opt_step": 0,
+                           "beam_solve": 0}
     assert tk.PLAIN_CALLS["beam_analysis"] == 2
     assert tk.PLAIN_CALLS["beam_opt_step"] == sum(
         int(b.result.n_epochs.max()) for b in seen)
