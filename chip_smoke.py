@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: datagen (the
 fixed bridge, the random bridge and the 201-node mesh with their float64
-rescue), the split solve path, the differentiable fused analysis and the
-accuracy autopilot.
+rescue), the split solve path, the differentiable fused analysis, the
+accuracy autopilot with its streamed float64 large-mesh route, and the
+bidirectional block-Thomas experiment.
 
     python3 chip_smoke.py [--seed 0] [--quick]
 
@@ -23,14 +24,20 @@ Phases, each of which raises on failure (exit code not 0):
    kernel's error on the quasi-cantilever lanes is printed beside them;
 3c. the split-path kernels against their plain versions at B = 16384, n =
    101 and 201, on fixed-bridge and random-bridge systems: the explicit-RHS
-   beam solve (#3, x and pivot), the block-Thomas solve (#4) and the
-   streamed one (#6).  On the fixed bridge at n = 101 by phase 3's rule.
+   beam solve (#3, x and pivot), the block-Thomas solve (#4), the
+   bidirectional one (#5, against its own plain version) and the streamed
+   one (#6).  On the fixed bridge at n = 101 by phase 3's rule.
    Elsewhere float32 keeps about no digits (plain float32's own error is
    ~1 of the lane's scale), so the forward errors are printed, not held;
    on all four cases each kernel's backward error (the residual of the
    system in float64, relative to |K| |x| + |b| per lane) must be no more
    than twice the plain float32 version's, or 1e-6, at the median, the
    99th percentile and the worst lane, with no more non-finite lanes;
+3d. the streamed float64 solve (#9) against its plain version on the
+   float64-assembled systems of phase 3b's 16384 random-bridge lanes plus
+   the four quasi-cantilever lanes (n = 101) and of 16384 span-scaled
+   tail-overhang lanes at n = 1001: per-lane error no more than 1e-5 of
+   the lane's scale, pivots within a relative 1e-3 (phase 3b's rule);
 4. the main path: ``generate_dataset`` (DATAGEN_OPT, refine 1, lane
    compaction) over two 16384-lane fixed-bridge batches, the 13-key JSON
    written and read back, both kernels launched and no plain version
@@ -53,12 +60,17 @@ Phases, each of which raises on failure (exit code not 0):
    split paths (epochs cut to SPLIT_CHECK_EPOCHS for all three, to keep the
    host's plain runs short); then the gradient of ``beam_analysis`` (kernel
    #1 forward, #3 backward) on 16384 lanes against the plain float32 and
-   float64 routes by phase 3's rule;
+   float64 routes by phase 3's rule; then ``block_tridiag_solve(bidi=True)``
+   (#5) on 16384 fixed-bridge lanes at n = 101 and 1001, held by backward
+   error against the default route's by phase 3c's rule;
 4e. ``solve_beam_checked(tol=1e-4)`` on 16384 random-bridge lanes at n =
-   101 and on 16384 fixed-span lanes at n = 201 and 501
-   (tests/test_accuracy.py's family): every lane it certifies within 1e-4
+   101, on 16384 fixed-span lanes at n = 201 and 501
+   (tests/test_accuracy.py's family) and on 16384 span-scaled tail-overhang
+   lanes at n = 1001 (tests/test_block_stream_dd.py's family, past
+   ``fem.accuracy.DD_STREAM_FROM_N``): every lane it certifies within 1e-4
    of the lane's scale of the plain float64 solve, the escalation through
-   the float64 analysis kernel, no plain version and nothing on the host;
+   the float64 analysis kernel below the threshold and the streamed
+   float64 kernel from it, no plain version and nothing on the host;
 5. the whole optimizer on 512 lanes with the kernels, with the plain
    float32 path and with the plain float64 path: the kernel path's median
    per-lane loss gap to float64 no more than twice the plain float32
@@ -70,12 +82,16 @@ Phases, each of which raises on failure (exit code not 0):
 6. times: CUDA events, median of 20 launches per kernel, beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
-   float64, H100 SXM); for #4 and #6 also the dense ``torch.linalg.solve``
-   of the same systems (the library yardstick), and the two kernels in
-   turns at n = 51, 101, 301 and 1001, with the dispatch threshold that
-   n = 101, 301 and 1001 imply.
+   float64, H100 SXM); for #4, #5 and #6 also the dense float32
+   ``torch.linalg.solve`` of the same systems, for #9 the dense float64 one
+   (the library yardsticks); #4, #5 and #6 in turns at n = 51, 101, 301
+   and 1001, with the dispatch threshold that n = 101, 301 and 1001 imply;
+   and solve_beam_checked's two escalation routes in turns on 16384
+   fixed-span lanes at n = 201, 501, 1001 and 2001 (the float64 analysis
+   wrapper, #7, against the float64 assembly, layout and #9), with the
+   ``DD_STREAM_FROM_N`` they imply.
 
-``--quick`` stops after phase 3c.  Prints the card line, a JSON line of
+``--quick`` stops after phase 3d.  Prints the card line, a JSON line of
 kernel results, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or away from the repository, it fails before printing any result.
 """
@@ -104,6 +120,8 @@ SOURCE = {
     "beam_solve": CSRC + "beam_kernel.cu",
     "block_tridiag_solve": CSRC + "block_tridiag.cu",
     "block_tridiag_solve_streamed": CSRC + "block_tridiag.cu",
+    "block_tridiag_solve_bidi": CSRC + "block_tridiag.cu",
+    "solve_dd_streamed": CSRC + "block_tridiag.cu",
 }
 REPLACES = {
     "beam_analysis": "openpystruct_tpu/ops/beam_kernel.py:751",
@@ -114,6 +132,9 @@ REPLACES = {
     "block_tridiag_solve": "openpystruct_tpu/ops/block_tridiag.py:143",
     # _fwd_kernel; its _bwd_kernel is block_stream.py:111
     "block_tridiag_solve_streamed": "openpystruct_tpu/ops/block_stream.py:68",
+    "block_tridiag_solve_bidi": "openpystruct_tpu/ops/block_tridiag.py:186",
+    # _fwd_kernel_dd; its _bwd_kernel_dd is block_stream_dd.py:131
+    "solve_dd_streamed": "openpystruct_tpu/ops/block_stream_dd.py:75",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
@@ -128,9 +149,12 @@ SPLIT_CHECK_EPOCHS = 30  # epoch cut of phase 4d's 512-lane check
 CHECKED_TOL = 1e-4     # solve_beam_checked's tolerance in phase 4e
 STREAM_NS = (101, 301, 1001)   # meshes that set the #4 vs #6 threshold
 BELOW_NS = (51,)               # and a mesh below it, timed beside them
+DD_ROUTE_NS = (201, 501, 1001, 2001)  # meshes that set DD_STREAM_FROM_N
+DD_ROUTE_DEFAULT = 788         # the JAX package's own escalation point
+DD_CHECK_N = 1001      # the span-scaled overhang lanes of phases 3d, 4e
 BACKWARD_FLOOR = 1e-6  # floor of phase 3c's backward-error rule
 SPLIT_KERNELS = ("beam_solve", "block_tridiag_solve",
-                 "block_tridiag_solve_streamed")
+                 "block_tridiag_solve_streamed", "block_tridiag_solve_bidi")
 DATAGEN_KERNELS = ("beam_analysis", "beam_opt_step", "beam_analysis_dd",
                    "beam_opt_step_dd")
 
@@ -157,10 +181,14 @@ def log(*a):
 
 
 def flops_per_lane(n, refine, kind):
-    # block-Thomas (#4, #6), per row: S = D - U^T C 54, cofactor inverse
-    # 42, C = Sinv U 45, y 33, back sweep 18
+    # block-Thomas (#4, #5, #6), per row: S = D - U^T C 54, cofactor
+    # inverse 42, C = Sinv U 45, y 33, back sweep 18; #5's meeting row adds
+    # ~110 once per lane, under 1% at n = 101 and not counted; #9 adds the
+    # pivot's |det| and min per row
     if kind == "thomas":
         return 192 * n
+    if kind == "thomas_dd":
+        return 194 * n
     # explicit-RHS 3-DOF solve (#3), per node: stiffness 10, assembly 47,
     # scaling 45, factor with C and det3 190, back sweep 18, unscaling 3;
     # a refinement sweep: residual 300, substitution 51, update 3
@@ -188,6 +216,9 @@ def bytes_per_lane(n, kind):
     if kind == "thomas":
         # diag (n, 3, 3), upper (n-1, 3, 3), b (n, 3) in; x (n, 3) out
         return 4 * (9 * n + 9 * nelem + 3 * n + 3 * n)
+    if kind == "thomas_dd":
+        # the same system in float64 in; x (n, 3) and the pivot float32 out
+        return 8 * (9 * n + 9 * nelem + 3 * n) + 4 * (3 * n + 1)
     if kind == "solve3":
         # I, Le, free (n, 3), rhs (n, 3) in; x (n, 3), pivot out
         return 4 * (2 * nelem + 3 * n + 3 * n + 3 * n + 1)
@@ -286,11 +317,11 @@ def backward_errors(torch, matvec, diag, upper, b, x):
     return torch.where(torch.isfinite(err), err, torch.inf)
 
 
-def hold_backward(torch, name, ek, ep):
+def hold_backward(torch, name, ek, ep, versus="plain f32"):
     """Phase 3c's rule on backward errors: the kernel's no more than twice
-    the plain float32 version's, or BACKWARD_FLOOR, at the median, the 99th
-    percentile and the worst lane, and no more non-finite lanes.  Returns
-    the kernel's 99th percentile."""
+    the plain float32 version's (or ``versus``'s), or BACKWARD_FLOOR, at
+    the median, the 99th percentile and the worst lane, and no more
+    non-finite lanes.  Returns the kernel's 99th percentile."""
     ks, ps = ek.sort().values, ep.sort().values
     row = []
     for q in (0.5, 0.99, 1.0):
@@ -299,13 +330,13 @@ def hold_backward(torch, name, ek, ep):
         row.append((k, p))
         if not k <= max(2.0 * p, BACKWARD_FLOOR):
             raise AssertionError(f"{name}: backward error {k:.3e} at q={q} "
-                                 f"exceeds twice plain float32's {p:.3e}")
+                                 f"exceeds twice {versus}'s {p:.3e}")
     bad_k, bad_p = (int((~torch.isfinite(e)).sum()) for e in (ek, ep))
     if bad_k > bad_p:
-        raise AssertionError(f"{name}: {bad_k} non-finite lanes, plain "
-                             f"float32 {bad_p}")
+        raise AssertionError(f"{name}: {bad_k} non-finite lanes, {versus} "
+                             f"{bad_p}")
     log(f"  {name:>14}: backward err p50 / p99 / max: kernel "
-        + " / ".join(f"{k:.2e}" for k, _ in row) + " | plain f32 "
+        + " / ".join(f"{k:.2e}" for k, _ in row) + f" | {versus} "
         + " / ".join(f"{p:.2e}" for _, p in row))
     return row[1][0]
 
@@ -506,29 +537,36 @@ def split_inputs(torch, sample_scenarios, constraint_mask,
 
 def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
                         x, E, A, refine, label, gate):
-    """#3, #4 and #6 against their plain versions in float32 and float64
-    on the same float32 inputs: forward errors by phase 3's rule (held if
-    ``gate``, else printed), backward errors always held.  Returns per
-    kernel the forward errors against float64 (``hold``) and the backward
-    error's 99th percentile."""
+    """#3, #4, #5 and #6 against their plain versions in float32 and
+    float64 on the same float32 inputs: forward errors by phase 3's rule
+    (held if ``gate``, else printed), backward errors always held; #5's
+    plain float32 version is the two-chain one.  Returns per kernel the
+    forward errors against float64 (``hold``) and the backward error's 99th
+    percentile."""
     errs = {}
     sys32 = x["sys"]
     sys64 = [t.double() for t in sys32]
-    kern4 = tbt.lanes_first(tbt.launch_thomas(*(tbt.lanes_last(t)
-                                                for t in sys32)))
+    sys_t = [tbt.lanes_last(t) for t in sys32]
+    kern4 = tbt.lanes_first(tbt.launch_thomas(*sys_t))
+    kern5 = tbt.lanes_first(tbt.launch_thomas_bidi(*sys_t))
     kern6 = tbs.block_tridiag_solve_streamed(*sys32)
+    del sys_t
     p32 = tbt.thomas_reference(*sys32)
+    p32_bidi = tbt.thomas_bidi_reference(*sys32)
     p64 = tbt.thomas_reference(*sys64)
     torch.cuda.synchronize()
     log(f"phase 3c: {label}: block-Thomas kernels vs plain")
     bw_p32 = backward_errors(torch, matvec, *sys32, p32)
-    for name, tag, kern in (("block_tridiag_solve", "#4", kern4),
-                            ("block_tridiag_solve_streamed", "#6", kern6)):
-        errs[name] = hold(torch, f"{tag} x", kern, p32, p64, gate=gate)
+    bw_p32_bidi = backward_errors(torch, matvec, *sys32, p32_bidi)
+    for name, tag, kern, plain, bw_plain in (
+            ("block_tridiag_solve", "#4", kern4, p32, bw_p32),
+            ("block_tridiag_solve_bidi", "#5", kern5, p32_bidi, bw_p32_bidi),
+            ("block_tridiag_solve_streamed", "#6", kern6, p32, bw_p32)):
+        errs[name] = hold(torch, f"{tag} x", kern, plain, p64, gate=gate)
         errs[name]["backward_p99"] = hold_backward(
             torch, f"{tag} x", backward_errors(torch, matvec, *sys32, kern),
-            bw_p32)
-    del p32, p64, sys64, kern4, kern6
+            bw_plain)
+    del p32, p32_bidi, p64, sys64, kern4, kern5, kern6
     args32 = [x[k] for k in ("I", "Le", "free", "rhs")]
     args64 = [t.double() for t in args32]
     kern = tk.beam_solve(*args32, E, A, refine)
@@ -549,6 +587,84 @@ def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
         torch, "#3 x", backward_errors(torch, matvec, d64, u64, b64, kern[0]),
         backward_errors(torch, matvec, d64, u64, b64, p32[0]))
     return errs
+
+
+def dense_system(torch, diag, upper, b):
+    """The dense (B, 3n, 3n) matrices and (B, 3n, 1) right-hand sides of
+    symmetric block-tridiagonal systems, in their dtype."""
+    B, n = diag.shape[:2]
+    K = torch.zeros((B, n, 3, n, 3), dtype=diag.dtype, device=diag.device)
+    idx = torch.arange(n, device=diag.device)
+    K[:, idx, :, idx, :] = diag.transpose(0, 1)
+    K[:, idx[:-1], :, idx[1:], :] = upper.transpose(0, 1)
+    K[:, idx[1:], :, idx[:-1], :] = upper.transpose(0, 1).transpose(-1, -2)
+    return K.reshape(B, 3 * n, 3 * n), b.reshape(B, 3 * n, 1)
+
+
+def overhang(torch, BeamScenario, n, B, seed, dev, tails=(16, 48)):
+    """tests/test_block_stream_dd.py's n = 641 family at n nodes: a
+    span-scaled beam (Le = 2 m) pinned at node 0 with rollers every 64
+    nodes from node 63, the last one a tail of U(16, 48) nodes (32-96 m)
+    before the free end, one point load in the tail's outer half, and
+    I = 0.05 U(0.8, 1.2).  At n = 1001 float32 misses by 1e-2 to 1e-1 of
+    the lane's scale, and the float64 pivots lie at 1e-11 to 1e-9: the
+    autopilot escalates every lane and certifies most of them."""
+    gen = torch.Generator().manual_seed(seed)
+    lane = torch.arange(B)
+    tail = torch.randint(tails[0], tails[1] + 1, (B,), generator=gen)
+    last = n - 1 - tail
+    node = torch.arange(n)[None, :]
+    roller = (node >= 63) & ((node - 63) % 64 == 0) & (node <= last[:, None])
+    roller[lane, last] = True
+    loads = torch.zeros((B, n))
+    pos = last + tail // 2 + (torch.rand(B, generator=gen)
+                              * (tail // 2)).long()
+    loads[lane, pos] = -3.5e5
+    I = 0.05 * (0.8 + 0.4 * torch.rand((B, n - 1), generator=gen))
+    sc = BeamScenario(node_x=torch.linspace(0.0, 2.0 * (n - 1), n).repeat(
+        B, 1), roller_mask=roller, point_loads=loads,
+        udl=torch.full((B,), -1000.0))
+    return I.to(dev), sc.map(lambda t: t.to(dev))
+
+
+def beam_args(torch, constraint_mask, I, sc):
+    """(I, Le, free, loads, udl) of the float64 analysis and the streamed
+    float64 solve, float32."""
+    return (I, torch.diff(sc.node_x, dim=-1),
+            (~constraint_mask(sc)).to(torch.float32), sc.point_loads, sc.udl)
+
+
+def check_dd_streamed(torch, tsd, args, E, A, label, pivots_of=None):
+    """Kernel #9 (wrapper) against its plain version on the same float64
+    systems, assembled from ``args``: per-lane error of x no more than
+    DD_TOL of the lane's scale, pivots within a relative 1e-3.  With
+    ``pivots_of`` (the float64 analysis's pivots of the same lanes), their
+    ratio to #9's is printed.  Returns the max abs error and the per-lane
+    error's 99th percentile."""
+    sys_dd = tsd.assemble_beam_system_dd(*args, E, A)[:3]
+    kern = tsd.solve_dd_streamed(*sys_dd)
+    plain = tsd.thomas_dd_reference(*sys_dd)
+    torch.cuda.synchronize()
+    e = lane_errors(torch, kern[0], plain[0].double())
+    ratio = kern[1].double() / plain[1].double()
+    log(f"phase 3d: {label}: #9 x per-lane err p50 "
+        f"{e.quantile(0.5).item():.3e} p99 {e.quantile(0.99).item():.3e} "
+        f"max {e.max().item():.3e} | pivot ratio kernel/plain min "
+        f"{ratio.min().item():.9f} max {ratio.max().item():.9f} | pivots "
+        f"min {plain[1].min().item():.3e} max {plain[1].max().item():.3e}")
+    if not e.max().item() <= DD_TOL:
+        raise AssertionError(f"#9: error {e.max().item():.3e} exceeds "
+                             f"{DD_TOL:.0e} of the lane's scale")
+    if not ((ratio - 1.0).abs() <= 1e-3).all():
+        raise AssertionError("#9 pivot off by more than 1e-3")
+    if pivots_of is not None:
+        r7 = pivots_of.double() / kern[1][-len(pivots_of):].double()
+        log("  #7 pivot (a_axial |det2|) / #9 pivot (min |det S_i|) on the "
+            "quasi-cantilever lanes: " + ", ".join(f"{r:.6f}"
+                                                   for r in r7.tolist()))
+    return dict(abs=(kern[0].double() - plain[0].double()).abs().max()
+                .item(), rel_p99=e.quantile(0.99).item(),
+                plain32_rel_p99=None)
 
 
 # ---------------------------------------------------------------------------
@@ -710,7 +826,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quick", action="store_true",
-                    help="phases 1-3b only (a first check of a new kernel)")
+                    help="phases 1-3d only (a first check of a new kernel)")
     args = ap.parse_args(argv)
 
     import torch
@@ -735,6 +851,7 @@ def main(argv=None) -> int:
         write_json_dataset,
     )
     from openpystruct_tpu_torch.datagen import generate as gen_mod
+    from openpystruct_tpu_torch.fem import accuracy as tacc
     from openpystruct_tpu_torch.fem import solve_beam_checked
     from openpystruct_tpu_torch.fem.beam import (
         BeamScenario,
@@ -746,13 +863,14 @@ def main(argv=None) -> int:
     from openpystruct_tpu_torch.ops import beam_kernel as tk
     from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
     from openpystruct_tpu_torch.ops import block_stream as tbs
+    from openpystruct_tpu_torch.ops import block_stream_dd as tsd
     from openpystruct_tpu_torch.ops import block_tridiag as tbt
     from openpystruct_tpu_torch.opt.beam_opt import (
         _adam_scalars,
         optimize_beam_batched,
         optimize_beam_compact,
     )
-    mods = (tk, tkd, tbt, tbs)
+    mods = (tk, tkd, tbt, tbs, tsd)
 
     # FEM math never runs in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -823,6 +941,21 @@ def main(argv=None) -> int:
                 split101 = x
             del x
     errs.update(errs_split[(101, "fixed bridge")])
+
+    # ---- phase 3d: the streamed float64 solve against its plain version --
+    ana_keys = ("I", "Le", "free", "loads", "udl")
+    qc_piv = tkd.beam_analysis_dd(*(qc[k] for k in ana_keys), E, A)[3]
+    rb_qc = [torch.cat([rb_inputs[k], qc[k]]) for k in ana_keys]
+    errs["solve_dd_streamed"] = check_dd_streamed(
+        torch, tsd, rb_qc, E, A, f"{B} random-bridge + 4 quasi-cantilever "
+        "lanes, n=101", pivots_of=qc_piv)
+    del rb_qc
+    I_o, sc_o = overhang(torch, BeamScenario, DD_CHECK_N, B, args.seed + 12,
+                         dev)
+    errs_fine_dd = check_dd_streamed(
+        torch, tsd, beam_args(torch, constraint_mask, I_o, sc_o), E, A,
+        f"{B} span-scaled overhang lanes, n={DD_CHECK_N}")
+    del I_o, sc_o
     if args.quick:
         log(f"quick check passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -1086,11 +1219,43 @@ def main(argv=None) -> int:
         hold(torch, nm, k, p.to(dev), t)
     del xg, grads, truth
 
+    # the bidirectional experiment as a user calls it; the default route
+    # (#6 at these n) is its yardstick
+    path_bidi = 0
+    for n_b in (101, DD_CHECK_N):
+        sys_b = (split101 if n_b == 101 else split_inputs(
+            torch, sample_scenarios, constraint_mask, assemble_beam_system,
+            args.seed + 13, BATCH, n_b, ScenarioConfig(), E, A, dev))["sys"]
+        log(f"phase 4d: block_tridiag_solve(bidi=True) on {BATCH} "
+            f"fixed-bridge lanes, n={n_b}, vs the default route")
+        reset_counts(*mods)
+        torch.cuda.synchronize()
+        x_b = tbt.block_tridiag_solve(*sys_b, bidi=True)
+        torch.cuda.synchronize()
+        launches, plain = read_counts(*mods)
+        if (launches["block_tridiag_solve_bidi"] != 1
+                or any(v != 0 for v in plain.values())):
+            raise AssertionError(f"bidi=True did not run kernel #5 only: "
+                                 f"{launches} {plain}")
+        path_bidi += launches["block_tridiag_solve_bidi"]
+        x_d = tbt.block_tridiag_solve(*sys_b)
+        hold_backward(torch, "#5 x", backward_errors(
+            torch, block_tridiag_matvec, *sys_b, x_b), backward_errors(
+            torch, block_tridiag_matvec, *sys_b, x_d), versus="default route")
+        del sys_b, x_b, x_d
+
     # ---- phase 4e: the accuracy autopilot ---------------------------------
+    # the large-mesh case past DD_STREAM_FROM_N, at DD_CHECK_N or, past
+    # that, at the smallest measured n at or above the threshold
+    n_big = (DD_CHECK_N if tacc.DD_STREAM_FROM_N <= DD_CHECK_N else
+             min(k for k in DD_ROUTE_NS if k >= tacc.DD_STREAM_FROM_N))
     path_checked = {}
     for label, n_c in (("random bridge", 101), ("fixed span", 201),
-                       ("fixed span", 501)):
-        if label == "random bridge":
+                       ("fixed span", 501), ("span-scaled overhang", n_big)):
+        if label == "span-scaled overhang":
+            I_c, sc_c = overhang(torch, BeamScenario, n_c, BATCH,
+                                 args.seed + 14, dev)
+        elif label == "random bridge":
             gen = torch.Generator().manual_seed(args.seed + 11)
             sc_c = sample_scenarios(gen, BATCH, rb_cfg, device=dev,
                                     dtype=torch.float32)
@@ -1115,8 +1280,14 @@ def main(argv=None) -> int:
             raise AssertionError(f"a plain version ran: {plain}")
         if not sol.deflections.is_cuda or not used.is_cuda:
             raise AssertionError("solve_beam_checked left the card")
-        if used.any() and launches["beam_analysis_dd"] == 0:
-            raise AssertionError("lanes escalated without the float64 kernel")
+        dd_kernel = ("solve_dd_streamed" if n_c >= tacc.DD_STREAM_FROM_N
+                     else "beam_analysis_dd")
+        other = ({"solve_dd_streamed", "beam_analysis_dd"} - {dd_kernel}).pop()
+        if used.any() and launches[dd_kernel] == 0 or launches[other] != 0:
+            raise AssertionError(f"lanes escalated without {dd_kernel}, or "
+                                 f"through {other}: {launches}")
+        if label == "span-scaled overhang" and not used.any():
+            raise AssertionError("the large mesh escalated no lane")
         for k, v in launches.items():
             path_checked[k] = path_checked.get(k, 0) + v
         # the plain float64 solve of the same inputs, on the card
@@ -1144,7 +1315,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"a certified lane is {worst:.3e} off "
                                  "float64")
     if path_checked["beam_analysis_dd"] == 0:
-        raise AssertionError("phase 4e escalated no lane")
+        raise AssertionError("phase 4e escalated no lane through #7")
     del sys64, truth, sol
 
     # ---- phase 5: the whole optimizer, kernels vs plain -------------------
@@ -1290,11 +1461,29 @@ def main(argv=None) -> int:
             plain=lambda: tbt.thomas_backward_reference(
                 *tbt.thomas_forward_reference(*sys32)),
             kind="thomas"),
+        "block_tridiag_solve_bidi": dict(
+            wrapper=lambda: tbt.block_tridiag_solve(*sys32, bidi=True),
+            kernel=lambda: tbt.launch_thomas_bidi(*sys_t),
+            layout=lambda: ([lanes_last(x) for x in sys32],
+                            [lanes_first(sys_t[2])]),
+            plain=lambda: tbt.thomas_bidi_reference(*sys32), kind="thomas"),
     })
+    # #9 on the float64 systems of phase 3b's random-bridge lanes
+    sys_dd = tsd.assemble_beam_system_dd(*(rb_inputs[k] for k in ana_keys),
+                                         E, A)[:3]
+    sys_dd_t = [lanes_last(x) for x in sys_dd]
+    x_dd_t = torch.empty_like(sys_dd_t[2], dtype=torch.float32)
+    cases["solve_dd_streamed"] = dict(
+        wrapper=lambda: tsd.solve_dd_streamed(*sys_dd),
+        kernel=lambda: tsd.launch_thomas_streamed_dd(*sys_dd_t),
+        layout=lambda: ([lanes_last(x) for x in sys_dd],
+                        [lanes_first(x_dd_t)]),
+        plain=lambda: tsd.thomas_dd_reference(*sys_dd), kind="thomas_dd")
     # launches on each kernel's main path: the fixed bridge (phase 4) for
     # #1-#2, the random bridge (phase 4b) for #7-#8, the gradient of the
     # analysis (4d) for #3, the split path (4d) and the autopilot (4e) for
-    # #4 and #6
+    # #4 and #6, the bidi=True runs (4d) for #5, the autopilot's large
+    # mesh (4e) for #9
     path_launches = dict(
         path_fb, beam_analysis_dd=launches_rb["beam_analysis_dd"],
         beam_opt_step_dd=launches_rb["beam_opt_step_dd"],
@@ -1303,33 +1492,36 @@ def main(argv=None) -> int:
                              + path_checked["block_tridiag_solve"]),
         block_tridiag_solve_streamed=(
             path_split["block_tridiag_solve_streamed"]
-            + path_checked["block_tridiag_solve_streamed"]))
-    for k in ("block_tridiag_solve", "block_tridiag_solve_streamed"):
+            + path_checked["block_tridiag_solve_streamed"]),
+        block_tridiag_solve_bidi=path_bidi,
+        solve_dd_streamed=path_checked["solve_dd_streamed"])
+    for k in ("block_tridiag_solve", "block_tridiag_solve_streamed",
+              "block_tridiag_solve_bidi", "solve_dd_streamed"):
         if path_launches[k] == 0:
             raise AssertionError(f"{k} was not launched on its path")
     errs_fine.update(errs_split[(201, "fixed bridge")])
     adjoint_ms = time_ms(torch, lambda: tk.launch_beam_opt_step(
         *opt_t, *scalars, E, G, grad_semi=False, refine=refine), 20)
 
-    # the library yardstick of #4 and #6: one dense LU solve of the same
-    # systems, float32 (no TF32 in an LU)
-    Bd, nd = sys32[0].shape[:2]
-    K = torch.zeros((Bd, nd, 3, nd, 3), device=dev)
-    idx = torch.arange(nd, device=dev)
-    K[:, idx, :, idx, :] = sys32[0].transpose(0, 1)
-    K[:, idx[:-1], :, idx[1:], :] = sys32[1].transpose(0, 1)
-    K[:, idx[1:], :, idx[:-1], :] = sys32[1].transpose(0, 1).transpose(-1, -2)
-    K = K.reshape(Bd, 3 * nd, 3 * nd)
-    rhs_d = sys32[2].reshape(Bd, 3 * nd, 1)
-    x_dense = torch.linalg.solve(K, rhs_d).reshape(Bd, nd, 3)
-    dense_gap = lane_errors(torch, tbt.thomas_reference(*sys32),
-                            x_dense.double()).median().item()
-    library_ms = time_ms(torch, lambda: torch.linalg.solve(K, rhs_d), 3,
-                         warmup=1)
-    log(f"  library: torch.linalg.solve on the dense ({Bd}, {3 * nd}, "
-        f"{3 * nd}) float32 systems {library_ms:.3f} ms (p50 per-lane gap "
-        f"to the plain block-Thomas {dense_gap:.2e})")
-    del K, x_dense
+    # the library yardsticks: one dense LU solve of the same systems, in
+    # float32 for #4, #5 and #6 (no TF32 in an LU), in float64 for #9
+    library = {}
+    for kind_l, sys_l, plain_l in (
+            ("thomas", sys32, lambda: tbt.thomas_reference(*sys32)),
+            ("thomas_dd", sys_dd, lambda: tsd.thomas_dd_reference(
+                *sys_dd)[0])):
+        K, rhs_d = dense_system(torch, *sys_l)
+        Bd, nd = sys_l[0].shape[:2]
+        x_dense = torch.linalg.solve(K, rhs_d).reshape(Bd, nd, 3)
+        dense_gap = lane_errors(torch, plain_l(),
+                                x_dense.double()).median().item()
+        library[kind_l] = time_ms(torch, lambda: torch.linalg.solve(K, rhs_d),
+                                  3, warmup=1)
+        log(f"  library: torch.linalg.solve on the dense ({Bd}, {3 * nd}, "
+            f"{3 * nd}) {sys_l[0].dtype} systems {library[kind_l]:.3f} ms "
+            f"(p50 per-lane gap to the plain block-Thomas {dense_gap:.2e})")
+        del K, rhs_d, x_dense
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, c in cases.items():
@@ -1338,7 +1530,7 @@ def main(argv=None) -> int:
         t_layout = time_ms(torch, c["layout"], 20)
         t_plain = time_ms(torch, c["plain"], 5, warmup=1)
         b_ms, b_by = bound_ms(B, n, refine, c["kind"])
-        lib_ms = library_ms if c["kind"] == "thomas" else None
+        lib_ms = library.get(c["kind"])
         log(f"  {name}: wrapper {t_wrap:.3f} ms = kernel {t_kern:.3f} ms + "
             f"layout ~{t_layout:.3f} ms | plain {t_plain:.3f} ms | bound "
             f"{1e3 * b_ms:.1f} us ({b_by}) | library "
@@ -1353,9 +1545,10 @@ def main(argv=None) -> int:
             # per-lane errors against float64, of the lane's scale, p99
             rel_err_p99=errs[name]["rel_p99"],
             plain32_rel_err_p99=errs[name]["plain32_rel_p99"],
-            rel_err_p99_n201=finite_or_none(errs_fine[name]["rel_p99"]),
+            rel_err_p99_n201=finite_or_none(
+                errs_fine.get(name, {}).get("rel_p99")),
             plain32_rel_err_p99_n201=finite_or_none(
-                errs_fine[name]["plain32_rel_p99"]),
+                errs_fine.get(name, {}).get("plain32_rel_p99")),
         ))
         if name in SPLIT_KERNELS:
             kernels[-1]["backward_err_p99"] = {
@@ -1366,10 +1559,15 @@ def main(argv=None) -> int:
     log(f"  beam_opt_step adjoint: kernel {adjoint_ms:.3f} ms | bound "
         f"{1e3 * kernels[1]['adjoint_bound_ms']:.1f} us")
     log("  library_ms: no single PyTorch call computes #1-#3 or #7-#8")
+    for k in kernels:
+        if k["name"] == "solve_dd_streamed":
+            k["rel_err_p99_n1001"] = errs_fine_dd["rel_p99"]
+    del sys_dd, sys_dd_t, x_dd_t
 
-    # #4 against #6, kernels alone, in turns #4, #6, #6, #4
-    log(f"phase 6: block-Thomas #4 vs streamed #6 at B={B}, n in "
-        f"{BELOW_NS + STREAM_NS} (kernel ms, mean of two medians of 20)")
+    # #4, #6 and #5, kernels alone, in turns #4, #6, #5, #5, #6, #4
+    log(f"phase 6: block-Thomas #4 vs streamed #6 vs bidirectional #5 at "
+        f"B={B}, n in {BELOW_NS + STREAM_NS} (kernel ms, mean of two "
+        "medians of 20)")
     by_n = {}
     for n_t in BELOW_NS + STREAM_NS:
         # the fixed bridge's roller tags need n >= 100: the 51-node mesh
@@ -1380,26 +1578,59 @@ def main(argv=None) -> int:
                           dev)
         st = [lanes_last(x) for x in xs["sys"]]
         del xs
-        turns = [time_ms(torch, f, 20) for f in (
-            lambda: tbt.launch_thomas(*st),
-            lambda: tbs.launch_thomas_streamed(*st),
-            lambda: tbs.launch_thomas_streamed(*st),
-            lambda: tbt.launch_thomas(*st))]
-        by_n[n_t] = ((turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
-        log(f"  n={n_t}: #4 {by_n[n_t][0]:.3f} ms ({turns[0]:.3f}, "
-            f"{turns[3]:.3f}) | #6 {by_n[n_t][1]:.3f} ms ({turns[1]:.3f}, "
-            f"{turns[2]:.3f}) | bound "
-            f"{1e3 * bound_ms(B, n_t, 0, 'thomas')[0]:.1f} us")
+        fns = (lambda: tbt.launch_thomas(*st),
+               lambda: tbs.launch_thomas_streamed(*st),
+               lambda: tbt.launch_thomas_bidi(*st))
+        turns = [time_ms(torch, fns[j], 20) for j in (0, 1, 2, 2, 1, 0)]
+        by_n[n_t] = tuple((turns[j] + turns[5 - j]) / 2 for j in range(3))
+        log(f"  n={n_t}: " + " | ".join(
+            f"{tag} {by_n[n_t][j]:.3f} ms ({turns[j]:.3f}, "
+            f"{turns[5 - j]:.3f})" for j, tag in enumerate(("#4", "#6",
+                                                            "#5")))
+            + f" | bound {1e3 * bound_ms(B, n_t, 0, 'thomas')[0]:.1f} us")
         del st
     implied = min((k for k in STREAM_NS if by_n[k][1] <= by_n[k][0]),
                   default=None)
     log(f"  dispatch threshold this run implies: {implied}; "
         f"block_tridiag.STREAM_FROM_N = {tbt.STREAM_FROM_N}")
+    turn_names = ("block_tridiag_solve", "block_tridiag_solve_streamed",
+                  "block_tridiag_solve_bidi")
     for k in kernels:
-        if k["name"] in ("block_tridiag_solve",
-                         "block_tridiag_solve_streamed"):
-            j = 0 if k["name"] == "block_tridiag_solve" else 1
+        if k["name"] in turn_names:
+            j = turn_names.index(k["name"])
             k["kernel_ms_by_n"] = {str(n_t): v[j] for n_t, v in by_n.items()}
+
+    # solve_beam_checked's escalation routes, each whole: the float64
+    # analysis wrapper (#7) against the float64 assembly, layout and #9;
+    # in turns #7, #9, #9, #7
+    log(f"phase 6: escalation routes at B={BATCH} on fixed-span lanes, n in "
+        f"{DD_ROUTE_NS}: beam_analysis_dd (#7) vs solve_beam_dd_streamed "
+        "(#9) (ms, mean of two medians of 5)")
+    route = {}
+    for n_r in DD_ROUTE_NS:
+        args_r = beam_args(torch, constraint_mask, *fixed_span(
+            torch, BeamScenario, n_r, BATCH, args.seed + 30 + n_r, dev))
+        fns = (lambda: tkd.beam_analysis_dd(*args_r, E, A),
+               lambda: tsd.solve_beam_dd_streamed(*args_r, E, A))
+        torch.cuda.reset_peak_memory_stats()
+        turns = [time_ms(torch, fns[j], 5, warmup=1) for j in (0, 1, 1, 0)]
+        route[n_r] = ((turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
+        log(f"  n={n_r}: #7 route {route[n_r][0]:.3f} ms ({turns[0]:.3f}, "
+            f"{turns[3]:.3f}) | #9 route {route[n_r][1]:.3f} ms "
+            f"({turns[1]:.3f}, {turns[2]:.3f}) | #9/#7 "
+            f"{route[n_r][1] / route[n_r][0]:.3f} | peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        del args_r, fns
+        torch.cuda.empty_cache()
+    implied_dd = min((k for k in DD_ROUTE_NS if route[k][1] <= route[k][0]),
+                     default=DD_ROUTE_DEFAULT)
+    log(f"  DD_STREAM_FROM_N this run implies: {implied_dd}; "
+        f"accuracy.DD_STREAM_FROM_N = {tacc.DD_STREAM_FROM_N}")
+    route_names = ("beam_analysis_dd", "solve_dd_streamed")
+    for k in kernels:
+        if k["name"] in route_names:
+            j = route_names.index(k["name"])
+            k["route_ms_by_n"] = {str(n_r): v[j] for n_r, v in route.items()}
     if read_counts(*mods)[0] == counts_before:
         raise AssertionError("timing loop launched nothing")
     log(f"done in {time.perf_counter() - t_start:.1f} s")

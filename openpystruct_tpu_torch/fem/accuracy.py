@@ -8,10 +8,13 @@ meshes (cond ~ n^4) stall near n = 200 and diverge near n = 500, and the
 random-bridge tail keeps no digits.  ``solve_beam_checked`` solves in
 float32 with adaptive compensated refinement, estimates each lane's error
 from its last refinement correction, and re-solves the lanes that miss
-``tol`` (or whose float32 Schur pivot looks singular) with
-``beam_analysis_dd``: the float64 kernel on the card, its plain float64
-version for a CPU batch; neither leaves the batch's device.  It warns, or
-raises, for lanes not even float64 can certify.
+``tol`` (or whose float32 Schur pivot looks singular) in float64: with
+``beam_analysis_dd`` (the fused float64 analysis) below ``DD_STREAM_FROM_N``
+nodes and with ``solve_beam_dd_streamed`` (the streamed float64 solve) from
+there, as the JAX package escalates past its resident dd kernel's range.
+Each runs its kernel on the card and its plain float64 version for a CPU
+batch; neither leaves the batch's device.  It warns, or raises, for lanes
+not even float64 can certify.
 
 One departure from the JAX package's code: the estimate is floored by one
 more correction, from the float64 residual of the system assembled in
@@ -56,6 +59,16 @@ _EPS_DD = 2.0 ** -48
 # singular rather than merely ill-conditioned (datagen.generate's
 # RESCUE_PIVOT_TOL rationale)
 _SINGULAR_PIVOT = 1e-12
+
+# Meshes of this many nodes or more escalate through the streamed float64
+# solve (kernel #9), smaller ones through the fused float64 analysis (#7).
+# The rule that set block_tridiag.STREAM_FROM_N: the smallest of n = 201,
+# 501, 1001, 2001 at which #9's whole route (float64 assembly, layout,
+# kernel) is no slower than #7's on 16384 lanes (chip_smoke.py phase 6,
+# PERF.md), or, slower at all four, the n from which the JAX package
+# escalates through its streamed dd kernel: pick_sub(n, 52) is None from
+# n = 788.
+DD_STREAM_FROM_N = 788
 
 
 def auto_refine(n_nodes: int) -> int:
@@ -126,17 +139,23 @@ def solve_beam_checked(I, scenario: BeamScenario, E, A, tol: float = 1e-4,
 
     Float32 (the batch's dtype) with adaptive compensated refinement first;
     lanes whose error estimate exceeds ``tol``, or whose Schur pivot falls
-    below 1e-9, are re-solved by ``beam_analysis_dd`` in float64 on the
-    batch's device.  Returns ``(BeamSolution, info)``; ``info`` holds
-    per-lane tensors ``est`` (relative error estimate), ``used_dd`` (the
-    escalated lanes) and ``pivot`` (float64 Schur pivots of escalated lanes,
-    NaN elsewhere).  ``on_fail`` says what happens when a lane cannot be
+    below 1e-9, are re-solved in float64 on the batch's device, by
+    ``beam_analysis_dd`` below ``DD_STREAM_FROM_N`` nodes and by
+    ``solve_beam_dd_streamed`` from there.  Returns ``(BeamSolution,
+    info)``; ``info`` holds per-lane tensors ``est`` (relative error
+    estimate), ``used_dd`` (the escalated lanes) and ``pivot`` (float64
+    Schur pivots of escalated lanes, NaN elsewhere: #7's a_axial |det2|, or
+    #9's min |det S_i| of the full scaled system, equal in exact
+    arithmetic).  ``on_fail`` says what happens when a lane cannot be
     certified at ``tol`` even in float64 or is structurally singular:
     "warn" emits a RuntimeWarning, "raise" raises ValueError.
 
     Eager and not differentiable: a diagnostic API, not a hot loop.
     """
     from openpystruct_tpu_torch.ops.beam_kernel_dd import beam_analysis_dd
+    from openpystruct_tpu_torch.ops.block_stream_dd import (
+        solve_beam_dd_streamed,
+    )
 
     B = I.shape[0]
     diag, upper, f = assemble_beam_system(I, scenario, E, A)
@@ -162,10 +181,13 @@ def solve_beam_checked(I, scenario: BeamScenario, E, A, tol: float = 1e-4,
 
     if flagged.numel():
         free = (~constraint_mask(scenario)).to(I.dtype)
-        u_hi, _, _, piv_hi = beam_analysis_dd(
-            I[flagged], Le.to(I.dtype)[flagged], free[flagged],
-            scenario.point_loads.to(I.dtype)[flagged],
-            scenario.udl.to(I.dtype)[flagged], float(E), float(A))
+        args = (I[flagged], Le.to(I.dtype)[flagged], free[flagged],
+                scenario.point_loads.to(I.dtype)[flagged],
+                scenario.udl.to(I.dtype)[flagged], float(E), float(A))
+        if scenario.node_x.shape[-1] >= DD_STREAM_FROM_N:
+            u_hi, piv_hi = solve_beam_dd_streamed(*args)
+        else:
+            u_hi, _, _, piv_hi = beam_analysis_dd(*args)
         u = u.clone()
         u[flagged] = u_hi.to(u.dtype)
         used_dd[flagged] = True

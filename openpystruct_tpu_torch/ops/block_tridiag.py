@@ -6,18 +6,22 @@
   sweep, then the back sweep, one launch per solve.  Meshes of
   ``STREAM_FROM_N`` nodes or more go to the two-launch streamed kernel of
   ``ops/block_stream.py`` instead, the port's own dispatch threshold.
+- ``block_tridiag_solve(..., bidi=True)`` (kernel ``_thomas_kernel_bidi``):
+  the bidirectional experiment, two elimination chains from the ends that
+  meet at row n // 2, at every n >= 3 (the kernel has no mesh ceiling).
+  The default route does not take it.
 - ``solve_sym`` (``pallas_solve_sym``): the differentiable solve with
   ``refine`` compensated refinement sweeps, each a whole new solve of the
   compensated residual; its backward pass is one more refined solve.
 
 ``block_tridiag_solve`` sends a CPU tensor to the plain version
-(``thomas_reference``) and launches the CUDA kernel
-(``csrc/block_tridiag.cu``) on a CUDA float32 tensor, or raises; there is no
-fallback.  ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the calls
-sent to the plain version.  The plain version repeats the kernel's
-arithmetic in its order (the cofactor inverse times 1/det, 3x3 products
-summed over k = 0, 1, 2) and takes any leading batch dimensions; the kernel
-takes (B, n, 3, 3) systems.
+(``thomas_reference``, or ``thomas_bidi_reference`` with ``bidi``) and
+launches the CUDA kernel (``csrc/block_tridiag.cu``) on a CUDA float32
+tensor, or raises; there is no fallback.  ``LAUNCHES`` counts kernel
+launches and ``PLAIN_CALLS`` the calls sent to the plain version.  The plain
+versions repeat the kernels' arithmetic in their order (the cofactor
+inverse times 1/det, 3x3 products summed over k = 0, 1, 2) and take any
+leading batch dimensions; the kernels take (B, n, 3, 3) systems.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from openpystruct_tpu_torch.fem.solve import (
 )
 from openpystruct_tpu_torch.ops import _build
 
-LAUNCHES = {"block_tridiag_solve": 0}
-PLAIN_CALLS = {"block_tridiag_solve": 0}
+LAUNCHES = {"block_tridiag_solve": 0, "block_tridiag_solve_bidi": 0}
+PLAIN_CALLS = {"block_tridiag_solve": 0, "block_tridiag_solve_bidi": 0}
 
 # Meshes of this many nodes or more take the streamed kernel: the smallest
 # of n = 101, 301, 1001 at which it is no slower than the one-launch kernel
@@ -54,9 +58,9 @@ def reset_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _inv3(m):
-    """Cofactor inverse of (..., 3, 3) blocks times 1/det (the TPU kernel's
-    ``_inv3_det``)."""
+def _inv3_det(m):
+    """Cofactor inverse of (..., 3, 3) blocks times 1/det, and det (the TPU
+    kernel's ``_inv3_det``)."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
@@ -69,10 +73,15 @@ def _inv3(m):
     G = b * f - c * e
     H = -(a * f - c * d)
     I = a * e - b * d
-    inv_det = 1.0 / (a * A + b * B + c * C)
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / det
     cof = torch.stack([torch.stack([A, D, G], -1), torch.stack([B, E, H], -1),
                        torch.stack([C, F, I], -1)], -2)
-    return cof * inv_det[..., None, None]
+    return cof * inv_det[..., None, None], det
+
+
+def _inv3(m):
+    return _inv3_det(m)[0]
 
 
 def _mm(p, q):
@@ -89,6 +98,13 @@ def _mtm(p, q):
             + p[..., 2, :, None] * q[..., None, 2, :])
 
 
+def _mmt(p, q):
+    """p q^T."""
+    return (p[..., :, 0, None] * q[..., None, :, 0]
+            + p[..., :, 1, None] * q[..., None, :, 1]
+            + p[..., :, 2, None] * q[..., None, :, 2])
+
+
 def _mv(p, v):
     return (p[..., :, 0] * v[..., 0, None] + p[..., :, 1] * v[..., 1, None]
             + p[..., :, 2] * v[..., 2, None])
@@ -99,25 +115,29 @@ def _mtv(p, v):
             + p[..., 2, :] * v[..., 2, None])
 
 
-def thomas_forward_reference(diag, upper, b):
+def thomas_forward_reference(diag, upper, b, pivot=False):
     """Factorization fused with the forward sweep, from zero carries:
     S_i = D_i - U_{i-1}^T C_{i-1}, C_i = S_i^-1 U_i (U_{n-1} = 0),
     y_i = S_i^-1 (b_i - U_{i-1}^T y_{i-1}).  Returns C (..., n, 3, 3) and
-    y (..., n, 3), what the streamed forward kernel writes."""
+    y (..., n, 3), what the streamed forward kernel writes, and with
+    ``pivot`` also min_i |det S_i| (...,), NaN if any det is."""
     n = diag.shape[-3]
     u_prev = torch.zeros_like(diag[..., 0, :, :])
     c_prev = torch.zeros_like(u_prev)
     y_prev = torch.zeros_like(b[..., 0, :])
+    piv = torch.full_like(diag[..., 0, 0, 0], float("inf"))
     cs, ys = [], []
     for i in range(n):
-        sinv = _inv3(diag[..., i, :, :] - _mtm(u_prev, c_prev))
+        sinv, det = _inv3_det(diag[..., i, :, :] - _mtm(u_prev, c_prev))
+        piv = torch.minimum(piv, det.abs())
         u = upper[..., i, :, :] if i < n - 1 else torch.zeros_like(u_prev)
         y_prev = _mv(sinv, b[..., i, :] - _mtv(u_prev, y_prev))
         c_prev = _mm(sinv, u)
         u_prev = u
         cs.append(c_prev)
         ys.append(y_prev)
-    return torch.stack(cs, -3), torch.stack(ys, -2)
+    out = torch.stack(cs, -3), torch.stack(ys, -2)
+    return (*out, piv) if pivot else out
 
 
 def thomas_backward_reference(c, y):
@@ -136,6 +156,43 @@ def thomas_reference(diag, upper, b):
     return thomas_backward_reference(*thomas_forward_reference(diag, upper, b))
 
 
+def thomas_bidi_reference(diag, upper, b):
+    """Plain version of the bidirectional solve (n >= 3), in its order:
+    the left chain over rows [0, m) and the right chain over rows (m, n),
+    m = n // 2, each from zero carries; the meeting row m; then the back
+    sweeps outward.  Right chain: S'_k = D_k - U_k C'_{k+1}, C'_k =
+    S'_k^-1 U_{k-1}^T, y'_k = S'_k^-1 (b_k - U_k y'_{k+1}).  Meeting row:
+    S_m = D_m - U_{m-1}^T C_{m-1} - (U_m S'_{m+1}^-1) U_m^T."""
+    n = diag.shape[-3]
+    if n < 3:
+        raise ValueError(f"the bidirectional solve needs n >= 3, got {n}")
+    m = n // 2
+    c, y, x = [None] * n, [None] * n, [None] * n
+    zero = torch.zeros_like(diag[..., 0, :, :])
+    u_l, c_l, y_l = zero, zero, torch.zeros_like(b[..., 0, :])
+    for i in range(m):
+        sinv = _inv3(diag[..., i, :, :] - _mtm(u_l, c_l))
+        u = upper[..., i, :, :]
+        y[i] = y_l = _mv(sinv, b[..., i, :] - _mtv(u_l, y_l))
+        c[i] = c_l = _mm(sinv, u)
+        u_l = u
+    u_r, c_r, y_r = zero, zero, torch.zeros_like(b[..., 0, :])
+    for k in range(n - 1, m, -1):
+        sinv_r = _inv3(diag[..., k, :, :] - _mm(u_r, c_r))
+        u = upper[..., k - 1, :, :]
+        y[k] = y_r = _mv(sinv_r, b[..., k, :] - _mv(u_r, y_r))
+        c[k] = c_r = _mmt(sinv_r, u)
+        u_r = u
+    s_m = (diag[..., m, :, :] - _mtm(u_l, c_l)) - _mmt(_mm(u_r, sinv_r), u_r)
+    q = (b[..., m, :] - _mtv(u_l, y_l)) - _mv(u_r, y_r)
+    x[m] = _mv(_inv3(s_m), q)
+    for i in range(m - 1, -1, -1):
+        x[i] = y[i] - _mv(c[i], x[i + 1])
+    for k in range(m + 1, n):
+        x[k] = y[k] - _mv(c[k], x[k - 1])
+    return torch.stack(x, -2)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -146,17 +203,20 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The library of kernels #4 and #6 (``csrc/block_tridiag.cu``)."""
+    """The library of kernels #4, #5, #6 and #9 (``csrc/block_tridiag.cu``)."""
     lib = _build.load("block_tridiag")
     lib.thomas_f32.argtypes = [_P] * 5 + [_I] * 2 + [_P]
+    lib.thomas_bidi_f32.argtypes = [_P] * 5 + [_I] * 2 + [_P]
     lib.thomas_streamed_f32.argtypes = [_P] * 6 + [_I] * 2 + [_P]
-    for fn in (lib.thomas_f32, lib.thomas_streamed_f32):
+    lib.thomas_streamed_dd_f64.argtypes = [_P] * 7 + [_I] * 2 + [_P]
+    for fn in (lib.thomas_f32, lib.thomas_bidi_f32, lib.thomas_streamed_f32,
+               lib.thomas_streamed_dd_f64):
         fn.restype = _I
     return lib
 
 
-def check_system(diag, upper, b):
-    """Raise unless (diag, upper, b) are float32 (B, n, 3, 3), (B, n-1, 3,
+def check_system(diag, upper, b, dtype=torch.float32):
+    """Raise unless (diag, upper, b) are ``dtype`` (B, n, 3, 3), (B, n-1, 3,
     3), (B, n, 3) on one device.  Returns (B, n)."""
     if diag.dim() != 4 or diag.shape[-2:] != (3, 3):
         raise ValueError(f"diag has shape {tuple(diag.shape)}, expected "
@@ -168,8 +228,8 @@ def check_system(diag, upper, b):
         if t.device != diag.device:
             raise ValueError(f"{name} is on {t.device}, expected "
                              f"{diag.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernels take float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes {dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
@@ -207,12 +267,42 @@ def launch_thomas(diag_t, upper_t, b_t):
     return x
 
 
-def block_tridiag_solve(diag, upper, b):
+def launch_thomas_bidi(diag_t, upper_t, b_t):
+    """Launch kernel #5 on lane-innermost float32 systems (layouts of
+    ``launch_thomas``), n >= 3.  Returns x_t (n, 3, B)."""
+    n, B = b_t.shape[0], b_t.shape[-1]
+    dev = b_t.device
+    x = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
+    ws = torch.empty((n, 3, 3, B), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().thomas_bidi_f32(diag_t.data_ptr(), upper_t.data_ptr(),
+                                    b_t.data_ptr(), x.data_ptr(),
+                                    ws.data_ptr(), B, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"block_tridiag_solve(bidi=True) launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES["block_tridiag_solve_bidi"] += 1
+    return x
+
+
+def block_tridiag_solve(diag, upper, b, bidi=False):
     """Solve K x = b for a batch of symmetric block-tridiagonal systems
     (``pallas_block_tridiag_solve``): diag (B, n, 3, 3), upper (B, n-1, 3,
     3) with lower = upper^T, b (B, n, 3) -> x (B, n, 3).  CPU tensors run
     the plain version; CUDA tensors (float32) launch the kernel, the
-    streamed one from ``STREAM_FROM_N`` nodes."""
+    streamed one from ``STREAM_FROM_N`` nodes.  ``bidi=True`` takes the
+    bidirectional kernel at every n >= 3 and raises ``ValueError`` below."""
+    if bidi:
+        n = diag.shape[-3]
+        if n < 3:
+            raise ValueError(f"bidi=True needs n >= 3 nodes, got {n}")
+        if not diag.is_cuda:
+            PLAIN_CALLS["block_tridiag_solve_bidi"] += 1
+            return thomas_bidi_reference(diag, upper, b)
+        check_system(diag, upper, b)
+        return lanes_first(launch_thomas_bidi(
+            lanes_last(diag), lanes_last(upper), lanes_last(b)))
     if not diag.is_cuda:
         PLAIN_CALLS["block_tridiag_solve"] += 1
         return thomas_reference(diag, upper, b)

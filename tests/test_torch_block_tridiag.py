@@ -1,12 +1,13 @@
-"""Port: the block-Thomas solves (kernels #4 and #6 of PERF.md's table) and
-the differentiable refined solve against the JAX Pallas kernels.
+"""Port: the block-Thomas solves (kernels #4, #5 and #6 of PERF.md's table)
+and the differentiable refined solve against the JAX Pallas kernels.
 
 Both sides run in float64 on the CPU on the same numpy-seeded systems:
-``pallas_block_tridiag_solve``, ``pallas_block_tridiag_solve_streamed`` and
-``pallas_solve_sym`` in interpret mode against the port's plain versions
-(``thomas_reference``, which the wrappers run for CPU tensors).  They repeat
-the same arithmetic in the same order, so they agree to a few ulps; the gate
-is 1e-10 of each output's scale.
+``pallas_block_tridiag_solve`` (with and without ``bidi``),
+``pallas_block_tridiag_solve_streamed`` and ``pallas_solve_sym`` in
+interpret mode against the port's plain versions (``thomas_reference`` and
+``thomas_bidi_reference``, which the wrappers run for CPU tensors).  They
+repeat the same arithmetic in the same order, so they agree to a few ulps;
+the gate is 1e-10 of each output's scale.
 """
 
 import jax
@@ -25,6 +26,8 @@ from openpystruct_tpu.ops.block_tridiag import (
     pallas_block_tridiag_solve,
     pallas_solve_sym,
 )
+from openpystruct_tpu_torch.fem.beam import BeamScenario as TBeamScenario
+from openpystruct_tpu_torch.fem.beam import assemble_beam_system as t_assemble
 from openpystruct_tpu_torch.ops import block_stream as tbs
 from openpystruct_tpu_torch.ops import block_tridiag as tbt
 
@@ -56,6 +59,27 @@ def _beam(B, n, seed):
             u * s[:, :-1, :, None] * s[:, 1:, None, :], f * s)
 
 
+def _span(B, n, seed):
+    """Jacobi-scaled beam systems on a span-scaled mesh (Le = 2 m) pinned
+    at node 0 with rollers at every third node and the last, numpy-seeded
+    loads and I: well posed at any n >= 2, without sampling a scenario."""
+    rng = np.random.default_rng(seed)
+    roller = np.zeros((B, n), bool)
+    roller[:, 3::3] = roller[:, -1] = True
+    sc = TBeamScenario(
+        node_x=torch.linspace(0.0, 2.0 * (n - 1), n,
+                              dtype=torch.float64).repeat(B, 1),
+        roller_mask=torch.from_numpy(roller),
+        point_loads=torch.from_numpy(-3e5 * rng.uniform(size=(B, n))),
+        udl=torch.full((B,), -1000.0, dtype=torch.float64))
+    I = torch.from_numpy(np.exp(rng.normal(size=(B, n - 1)) * 0.3) * 0.5)
+    d, u, f = t_assemble(I, sc, E, A)
+    s = torch.rsqrt(torch.diagonal(d, dim1=-2, dim2=-1))
+    return tuple(t.numpy() for t in (
+        d * s[..., :, None] * s[..., None, :],
+        u * s[:, :-1, :, None] * s[:, 1:, None, :], f * s))
+
+
 def _t(x):
     return torch.from_numpy(np.array(x, np.float64))
 
@@ -79,10 +103,44 @@ def test_thomas_matches_pallas(case):
     _close(tbt.thomas_reference(_t(d), _t(u), _t(b)), ref, "thomas_reference")
     tbt.reset_counts()
     x = tbt.block_tridiag_solve(_t(d), _t(u), _t(b))
-    assert tbt.PLAIN_CALLS == {"block_tridiag_solve": 1}
-    assert tbt.LAUNCHES == {"block_tridiag_solve": 0}
+    assert tbt.PLAIN_CALLS == {"block_tridiag_solve": 1,
+                               "block_tridiag_solve_bidi": 0}
+    assert tbt.LAUNCHES == {"block_tridiag_solve": 0,
+                            "block_tridiag_solve_bidi": 0}
     tbt.reset_counts()
     _close(x, ref, "block_tridiag_solve")
+
+
+@pytest.mark.parametrize("n", [3, 4, 21, 23, 31, 32])
+def test_bidi_matches_pallas(n):
+    """The two-chain solve at both parities of n, n = 3 and 4 the smallest
+    meshes the JAX kernel had to clamp its indices for, on three ``_spd``
+    and two beam systems in one batch; the beam systems are ``_span``'s (a
+    sampled scenario needs n >= 100 for its rollers).  Each kind is held
+    at its own scale."""
+    parts = [_spd(3, n, n), _span(2, n, n)]
+    d, u, b = (np.concatenate(a) for a in zip(*parts))
+    ref = np.asarray(pallas_block_tridiag_solve(
+        jnp.asarray(d), jnp.asarray(u), jnp.asarray(b), interpret=True,
+        bidi=True))
+    tbt.reset_counts()
+    x = tbt.block_tridiag_solve(_t(d), _t(u), _t(b), bidi=True)
+    assert tbt.PLAIN_CALLS == {"block_tridiag_solve": 0,
+                               "block_tridiag_solve_bidi": 1}
+    tbt.reset_counts()
+    # the same solution as the one-chain sweep
+    x1 = tbt.thomas_reference(_t(d), _t(u), _t(b))
+    for kind, lanes in (("spd", slice(0, 3)), ("beam", slice(3, 5))):
+        _close(x[lanes], ref[lanes], f"bidi=True, {kind}")
+        _close(x[lanes], x1[lanes].numpy(), f"bidi vs thomas, {kind}")
+
+
+def test_bidi_needs_three_nodes():
+    d, u, b = (_t(a) for a in _spd(2, 2, 0))
+    with pytest.raises(ValueError, match="n >= 3"):
+        tbt.block_tridiag_solve(d, u, b, bidi=True)
+    with pytest.raises(ValueError, match="n >= 3"):
+        tbt.thomas_bidi_reference(d, u, b)
 
 
 def test_streamed_matches_pallas():

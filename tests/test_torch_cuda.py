@@ -12,6 +12,7 @@ checks at full width (B = 16384).
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,8 +22,10 @@ from openpystruct_tpu_torch.datagen import (
     run_batch,
     sample_scenarios,
 )
+from openpystruct_tpu_torch.fem import accuracy as tacc
 from openpystruct_tpu_torch.fem import solve_beam_checked
 from openpystruct_tpu_torch.fem.beam import (
+    BeamScenario,
     assemble_beam_system,
     constraint_mask,
     solve_beam_batched,
@@ -30,11 +33,18 @@ from openpystruct_tpu_torch.fem.beam import (
 from openpystruct_tpu_torch.ops import beam_kernel as tk
 from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
 from openpystruct_tpu_torch.ops import block_stream as tbs
+from openpystruct_tpu_torch.ops import block_stream_dd as tsd
 from openpystruct_tpu_torch.ops import block_tridiag as tbt
 from openpystruct_tpu_torch.opt import beam_opt
 
 BEAM = BeamConfig(udl=-1000.0)
 E, A, G = BEAM.E, BEAM.A, BEAM.G
+# the largest per-lane difference of #4 to the plain float32 version on
+# _systems(300, 7 or 8), fixed and random bridge, before the row step became
+# a template (3.015e-2 and 9.057e+1, tools/block_tridiag_ab.py on the
+# previous kernels, NVIDIA H100 80GB HBM3, 700.00 W), rounded up: float32
+# keeps no digits on the random bridge
+KERNEL_VS_PLAIN32 = {False: 3.02e-2, True: 9.06e+1}
 
 
 @pytest.fixture
@@ -340,4 +350,108 @@ def test_solve_beam_checked_stays_on_the_card(cuda):
     assert tbt.PLAIN_CALLS["block_tridiag_solve"] == 0
     assert sol.deflections.is_cuda
     for m in (tk, tkd, tbt):
+        m.reset_counts()
+
+
+@pytest.mark.cuda
+def test_block_tridiag_kernels_unchanged_by_templating(cuda):
+    """#4 and #6 after their row step became a template over the scalar
+    type: still bitwise equal to each other, and off the plain float32
+    version run on the same card by no more than before (per-lane, of the
+    lane's scale; FMA contraction is the only difference)."""
+    for seed, cfg in ((7, ScenarioConfig()),
+                      (8, ScenarioConfig(random_bridge=True))):
+        x32 = _systems(300, seed, cuda, torch.float32, cfg)
+        kern4 = tbt.lanes_first(tbt.launch_thomas(
+            *(tbt.lanes_last(t) for t in x32)))
+        kern6 = tbs.block_tridiag_solve_streamed(*x32)
+        plain = tbt.thomas_reference(*x32)
+        torch.cuda.synchronize()
+        assert torch.equal(kern4, kern6)
+        assert _lane_err(kern4, plain) <= KERNEL_VS_PLAIN32[cfg.random_bridge]
+
+
+def _spd_systems(B, n, seed, device):
+    """Random symmetric positive definite block-tridiagonal systems,
+    float32."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(B, n, 3, 3))
+    d = d @ d.transpose(0, 1, 3, 2) + 6.0 * np.eye(3)
+    u = rng.normal(size=(B, n - 1, 3, 3)) * 0.3
+    return tuple(torch.from_numpy(a).to(device=device, dtype=torch.float32)
+                 for a in (d, u, rng.normal(size=(B, n, 3))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 4, 101])
+def test_bidi_kernel(cuda, n):
+    """Kernel #5 against its plain version (the same two chains in
+    float32) by _hold's rule, on 300 lanes (not a multiple of the 64-thread
+    block): random SPD systems at n = 3 and 4, fixed-bridge beam systems at
+    n = 101."""
+    x32 = (_systems(300, 15, cuda, torch.float32) if n == 101
+           else _spd_systems(300, n, n, cuda))
+    before = tbt.LAUNCHES["block_tridiag_solve_bidi"]
+    kern = tbt.block_tridiag_solve(*x32, bidi=True)
+    assert tbt.LAUNCHES["block_tridiag_solve_bidi"] == before + 1
+    torch.cuda.synchronize()
+    _hold([kern], [tbt.thomas_reference(*(t.double() for t in x32))],
+          [tbt.thomas_bidi_reference(*x32)])
+    d, u, b = _spd_systems(4, 2, 0, cuda)
+    with pytest.raises(ValueError, match="n >= 3"):
+        tbt.block_tridiag_solve(d, u, b, bidi=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 300])
+def test_streamed_dd_kernel(cuda, B):
+    """Kernel #9 against its plain version on the same float64 systems
+    (random-bridge lanes at n = 101, assembled in float64): both compute in
+    float64 and write float32, so they agree to float32 rounding (bar: 1e-5
+    of the lane's scale, pivots within 1e-3 relative)."""
+    x = _inputs(B, 14, cuda, torch.float32, ScenarioConfig(random_bridge=True))
+    sys_dd = tsd.assemble_beam_system_dd(
+        *(x[k] for k in ("I", "Le", "free", "loads", "udl")), E, A)[:3]
+    before = tsd.LAUNCHES["solve_dd_streamed"]
+    kern = tsd.solve_dd_streamed(*sys_dd)
+    assert tsd.LAUNCHES["solve_dd_streamed"] == before + 1
+    plain = tsd.thomas_dd_reference(*sys_dd)
+    torch.cuda.synchronize()
+    assert kern[0].dtype == torch.float32 and kern[1].shape == (B,)
+    assert _lane_err(kern[0], plain[0]) <= 1e-5
+    assert ((kern[1].double() / plain[1].double() - 1).abs() <= 1e-3).all()
+    with pytest.raises(TypeError):
+        tsd.solve_dd_streamed(*(t.float() for t in sys_dd))
+
+
+@pytest.mark.cuda
+def test_solve_beam_checked_large_mesh_streams(cuda):
+    """A span-scaled mesh of DD_STREAM_FROM_N nodes (Le = 2 m, rollers
+    every 64 nodes, a 64 m tail overhang): the lanes escalate through the
+    streamed float64 kernel #9 on the card, not the fused one, and no
+    plain version runs."""
+    n, B = tacc.DD_STREAM_FROM_N, 64
+    roller = torch.zeros((B, n), dtype=torch.bool)
+    roller[:, 63:n - 32:64] = True
+    roller[:, n - 33] = True
+    loads = torch.zeros((B, n))
+    loads[:, n - 10] = -3.5e5
+    sc = BeamScenario(
+        node_x=torch.linspace(0.0, 2.0 * (n - 1), n).repeat(B, 1),
+        roller_mask=roller, point_loads=loads,
+        udl=torch.full((B,), -1000.0)).map(lambda t: t.to(cuda))
+    gen = torch.Generator().manual_seed(16)
+    I = (0.05 * (0.8 + 0.4 * torch.rand((B, n - 1), generator=gen))).to(cuda)
+    mods = (tk, tkd, tbt, tbs, tsd)
+    for m in mods:
+        m.reset_counts()
+    sol, info = solve_beam_checked(I, sc, E, A, tol=1e-4)
+    assert info["used_dd"].all()
+    assert tsd.LAUNCHES["solve_dd_streamed"] == 1
+    assert tkd.LAUNCHES["beam_analysis_dd"] == 0
+    for m in mods:
+        assert not any(m.PLAIN_CALLS.values()), m.PLAIN_CALLS
+    assert sol.deflections.is_cuda and torch.isfinite(sol.deflections).all()
+    assert (info["pivot"] > 1e-12).all()
+    for m in mods:
         m.reset_counts()

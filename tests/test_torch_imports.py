@@ -53,6 +53,7 @@ def test_import_pulls_in_no_jax():
 
 @pytest.mark.parametrize("module", [
     "openpystruct_tpu_torch.ops", "openpystruct_tpu_torch.ops.block_stream",
+    "openpystruct_tpu_torch.ops.block_stream_dd",
     "openpystruct_tpu_torch.ops.beam_kernel",
     "openpystruct_tpu_torch.fem.accuracy", "openpystruct_tpu_torch.fem.solve",
 ])
@@ -68,11 +69,13 @@ def test_module_imports_first(module):
 
 def test_import_builds_no_kernel():
     """Importing every module, the float64 rescue kernels', the
-    block-Thomas solves' and the autopilot's included, runs no nvcc and
-    loads no library: kernels build at their first launch."""
+    block-Thomas solves', the streamed float64 solve's and the autopilot's
+    included, runs no nvcc and loads no library: kernels build at their
+    first launch."""
     modules = sorted(p for p in PORT.rglob("*.py") if p.name != "__init__.py")
     for name in ("ops/beam_kernel_dd.py", "ops/block_tridiag.py",
-                 "ops/block_stream.py", "fem/accuracy.py"):
+                 "ops/block_stream.py", "ops/block_stream_dd.py",
+                 "fem/accuracy.py"):
         assert PORT / name in modules
     code = (
         "".join("import openpystruct_tpu_torch." + ".".join(
