@@ -79,7 +79,9 @@ Phases, each of which raises on failure (exit code not 0):
    host) on the same 256 rejected random-bridge lanes, 100 epochs: equal
    valid masks, equal epochs on the rescued lanes, I within 1e-3 relative
    (1e-7 absolute), deflections within 1e-3 of the lane's scale;
-6. times: CUDA events, median of 20 launches per kernel, beside the plain
+6. times: CUDA events, median of 20 launches per kernel (wrapper, kernel
+   alone and, where the wrapper transposes, its layout copies; #8 reads the
+   optimizer's lanes-first tensors and copies none), beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
    float64, H100 SXM); for #4, #5 and #6 also the dense float32
@@ -116,7 +118,7 @@ SOURCE = {
     "beam_analysis": CSRC + "beam_kernel.cu",
     "beam_opt_step": CSRC + "beam_kernel.cu",
     "beam_analysis_dd": CSRC + "beam_kernel.cu",
-    "beam_opt_step_dd": CSRC + "beam_kernel.cu",
+    "beam_opt_step_dd": CSRC + "beam_opt_dd.cu",
     "beam_solve": CSRC + "beam_kernel.cu",
     "block_tridiag_solve": CSRC + "block_tridiag.cu",
     "block_tridiag_solve_streamed": CSRC + "block_tridiag.cu",
@@ -893,7 +895,7 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["beam_kernel", "block_tridiag"])
+    built = _build.build(["beam_kernel", "block_tridiag", "beam_opt_dd"])
     log(f"phase 2: built {len(built)} libraries in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for info in built.values():
@@ -1393,7 +1395,6 @@ def main(argv=None) -> int:
     rb_opt = [rb_inputs[k]
               for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
     rb_ana_t = [lanes_last(x) for x in rb_ana[:-1]] + [rb_ana[-1]]
-    rb_opt_t = [lanes_last(x) for x in rb_opt[:-1]] + [rb_opt[-1]]
     counts_before = read_counts(*mods)[0]
     cases = {
         "beam_analysis": dict(
@@ -1423,12 +1424,12 @@ def main(argv=None) -> int:
                                 rb_ana_t[2], rb_ana_t[0], rb_ana_t[0])]),
             plain=lambda: tkd.beam_analysis_dd_reference(*rb_ana, E, A),
             kind="analysis_dd"),
+        # no layout: the kernel reads the optimizer's tensors as they lie
         "beam_opt_step_dd": dict(
             wrapper=lambda: tkd.beam_opt_step_dd(*rb_opt, *scalars, E, A, G),
-            kernel=lambda: tkd.launch_beam_opt_step_dd(*rb_opt_t, *scalars,
-                                                       E, A, G),
-            layout=lambda: ([lanes_last(x) for x in rb_opt[:-1]],
-                            [lanes_first(x) for x in rb_opt_t[:3]]),
+            kernel=lambda: tkd.launch_beam_opt_step_dd(*rb_opt, *scalars, E,
+                                                       A, G),
+            layout=None,
             plain=lambda: tkd.beam_opt_step_dd_reference(*rb_opt, *scalars,
                                                          E, A, G),
             kind="opt_dd"),
@@ -1527,12 +1528,15 @@ def main(argv=None) -> int:
     for name, c in cases.items():
         t_wrap = time_ms(torch, c["wrapper"], 20)
         t_kern = time_ms(torch, c["kernel"], 20)
-        t_layout = time_ms(torch, c["layout"], 20)
+        t_layout = (time_ms(torch, c["layout"], 20) if c["layout"] else
+                    None)
         t_plain = time_ms(torch, c["plain"], 5, warmup=1)
         b_ms, b_by = bound_ms(B, n, refine, c["kind"])
         lib_ms = library.get(c["kind"])
         log(f"  {name}: wrapper {t_wrap:.3f} ms = kernel {t_kern:.3f} ms + "
-            f"layout ~{t_layout:.3f} ms | plain {t_plain:.3f} ms | bound "
+            + (f"layout ~{t_layout:.3f} ms" if t_layout is not None else
+               "no layout copy")
+            + f" | plain {t_plain:.3f} ms | bound "
             f"{1e3 * b_ms:.1f} us ({b_by}) | library "
             + (f"{lib_ms:.3f} ms" if lib_ms is not None else "none")
             + f" | {path_launches[name]} launches on its path")

@@ -515,7 +515,7 @@ _D = ctypes.c_double
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The library of the five beam kernels (``csrc/beam_kernel.cu``), with
+    """The library of the four beam kernels (``csrc/beam_kernel.cu``), with
     the argument types of its C entry points."""
     lib = _build.load("beam_kernel")
     lib.beam_analysis_f32.argtypes = [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P]
@@ -523,13 +523,10 @@ def _lib():
                                       + [_P])
     lib.beam_analysis_dd_f32io.argtypes = ([_P] * 10 + [_I] * 2 + [_D] * 2
                                            + [_P])
-    lib.beam_opt_step_dd_f32io.argtypes = ([_P] * 13 + [_I] * 2 + [_D] * 5
-                                           + [_F] * 4 + [_P])
     lib.beam_solve_f32.argtypes = [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P]
     lib.beam_ws_floats_per_node.argtypes = [_I]
     for fn in (lib.beam_analysis_f32, lib.beam_opt_step_f32,
-               lib.beam_analysis_dd_f32io, lib.beam_opt_step_dd_f32io,
-               lib.beam_solve_f32, lib.beam_ws_floats_per_node):
+               lib.beam_analysis_dd_f32io, lib.beam_solve_f32, lib.beam_ws_floats_per_node):
         fn.restype = _I
     return lib
 

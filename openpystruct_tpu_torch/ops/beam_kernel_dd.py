@@ -4,13 +4,10 @@
 The JAX package re-optimizes the lanes the float32 validity gate rejects
 (random-bridge scenarios, meshes finer than 101 nodes) in double-double
 arithmetic, float32 hi/lo pairs emulating a ~48-bit mantissa on the TPU.
-The H100 has native FP64, so "dd" here means float64: the kernels of
-``csrc/beam_kernel.cu`` instantiate the float32 kernels' stage functions
-for ``double``, as the JAX dd module hands its float32 stages hi/lo pairs.
-Inputs and outputs stay float32.  The kernels take any mesh: one thread
-walks a lane's nodes with its scratch in a device-memory workspace the
-wrapper sizes to the batch, so the TPU kernel's VMEM ceiling (the JAX
-module's ``fits_dd``) does not carry over and has no counterpart here.
+The H100 has native FP64, so "dd" here means float64, with float32 inputs
+and outputs.  The kernels take any mesh (n >= 2): their scratch lives in
+device memory the wrapper sizes to the batch, so the TPU kernel's VMEM
+ceiling (the JAX module's ``fits_dd``) has no counterpart here.
 
 - ``beam_analysis_dd`` (``pallas_beam_analysis_dd``, kernel
   ``_beam_dd_kernel``): ``beam_analysis``'s contract without the refinement
@@ -18,12 +15,18 @@ module's ``fits_dd``) does not carry over and has no counterpart here.
   stiffness -> masked bending-only 2x2 assembly (u_x exactly 0) -> Jacobi
   scaling -> factorization fused with the forward sweep -> back sweep ->
   u, V, M.  The 3-DOF min Schur pivot a_i |det2(S_i)|, with the axial
-  chain's a_i, is computed in float64 and returned in float32.
+  chain's a_i, is computed in float64 and returned in float32.  Its kernel
+  (``csrc/beam_kernel.cu``) instantiates the float32 kernels' stage
+  functions for ``double``, as the JAX dd module hands its float32 stages
+  hi/lo pairs; the wrapper transposes to and from lanes-innermost layouts.
 - ``beam_opt_step_dd`` (``pallas_beam_opt_step_dd``, kernel
   ``_beam_dd_opt_kernel``): the same solve, the loss and its semi-gradient
   in float64; Adam in float32 on the gradient cast to float32, with the
   same lr_t, bc1, bc2 scalars; the pivot as a fifth output.  There is no
-  adjoint mode, as in the JAX package.
+  adjoint mode, as in the JAX package.  Its kernel (``csrc/beam_opt_dd.cu``)
+  walks each lane in two fused sweeps and reads and writes the optimizer's
+  lanes-first tensors directly: the wrapper copies no layout, and takes only
+  contiguous tensors.
 
 Each wrapper sends a CPU tensor to the plain PyTorch version beside it
 (``beam_analysis_dd_reference``, ``beam_opt_step_dd_reference``), which takes
@@ -35,8 +38,12 @@ launches and ``PLAIN_CALLS`` the calls sent to the plain versions.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from openpystruct_tpu_torch.ops import _build
 from openpystruct_tpu_torch.ops.beam_kernel import (
     _adam_step,
     _assemble_b2,
@@ -58,7 +65,7 @@ from openpystruct_tpu_torch.ops.beam_kernel import (
 LAUNCHES = {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
 PLAIN_CALLS = {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
 
-# beam_ws_floats_per_node's kind for the float64 kernels' workspace
+# beam_ws_floats_per_node's kind for the float64 analysis kernel's workspace
 _WS_KIND_DD = 3
 
 
@@ -156,29 +163,56 @@ def launch_beam_analysis_dd(I_t, Le_t, free_t, loads_t, udl, E, A):
     return u, V, M, piv
 
 
-def launch_beam_opt_step_dd(I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl,
+@functools.lru_cache(maxsize=None)
+def _opt_lib():
+    """The library of the opt-step kernel (``csrc/beam_opt_dd.cu``)."""
+    lib = _build.load("beam_opt_dd")
+    P, I_, D, F_ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                    ctypes.c_float)
+    lib.beam_opt_step_dd_f32io.argtypes = ([P] * 13 + [I_] * 2 + [D] * 5
+                                           + [F_] * 4 + [P])
+    lib.beam_opt_dd_scratch_per_node.argtypes = []
+    for fn in (lib.beam_opt_step_dd_f32io, lib.beam_opt_dd_scratch_per_node):
+        fn.restype = I_
+    return lib
+
+
+def launch_beam_opt_step_dd(I, mu, nu, Le, free_mask, point_loads, udl,
                             lr_t, bc1, bc2, E, A, G, alpha_m=1e-2,
                             alpha_s=1e-2, clamp_min=1e-8):
-    """Launch the float64 opt-step kernel on lane-innermost float32 inputs
-    (layouts of ``launch_beam_analysis_dd``; mu_t, nu_t (nelem, B)).
-    Returns I_t, mu_t, nu_t (nelem, B), stats_t (4, B) and pivot (B,)."""
-    nelem, B = I_t.shape
+    """Launch the float64 opt-step kernel on the optimizer's lanes-first
+    float32 tensors, as they are: I, mu, nu, Le (B, nelem), free_mask (B, n,
+    3), point_loads (B, n), udl (B,), contiguous on one card, nelem >= 1.
+    Returns I_new, mu_new, nu_new (B, nelem), stats (B, 4) and the pivot
+    (B,)."""
+    B, nelem = I.shape
     n = nelem + 1
-    dev = I_t.device
-    _check_launch(dev, nelem, B, I_t=I_t, mu_t=mu_t, nu_t=nu_t, Le_t=Le_t,
-                  free_t=free_t, loads_t=loads_t, udl=udl)
-    lib = _lib()
-    I_o, mu_o, nu_o = (torch.empty_like(I_t) for _ in range(3))
-    stats = torch.empty((4, B), dtype=torch.float32, device=dev)
+    dev = I.device
+    if nelem < 1:
+        raise ValueError("beam_opt_step_dd needs at least one element")
+    ins = dict(I=I, mu=mu, nu=nu, Le=Le, free_mask=free_mask,
+               point_loads=point_loads, udl=udl)
+    shapes = dict(I=(B, nelem), mu=(B, nelem), nu=(B, nelem),
+                  Le=(B, nelem), free_mask=(B, n, 3), point_loads=(B, n),
+                  udl=(B,))
+    _check(dev, **{k: (t, shapes[k]) for k, t in ins.items()})
+    for k, t in ins.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{k} is not contiguous: the kernel reads the "
+                             "lanes-first layout as it lies and copies none")
+    lib = _opt_lib()
+    I_o, mu_o, nu_o = (torch.empty_like(I) for _ in range(3))
+    stats = torch.empty((B, 4), dtype=torch.float32, device=dev)
     piv = torch.empty((B,), dtype=torch.float32, device=dev)
-    ws = _workspace(lib, n, B, dev)
+    scratch = torch.empty((n, lib.beam_opt_dd_scratch_per_node(), B),
+                          dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.beam_opt_step_dd_f32io(
-            I_t.data_ptr(), mu_t.data_ptr(), nu_t.data_ptr(),
-            Le_t.data_ptr(), free_t.data_ptr(), loads_t.data_ptr(),
-            udl.data_ptr(), I_o.data_ptr(), mu_o.data_ptr(), nu_o.data_ptr(),
-            stats.data_ptr(), piv.data_ptr(), ws.data_ptr(), B, n,
+            I.data_ptr(), mu.data_ptr(), nu.data_ptr(), Le.data_ptr(),
+            free_mask.data_ptr(), point_loads.data_ptr(), udl.data_ptr(),
+            I_o.data_ptr(), mu_o.data_ptr(), nu_o.data_ptr(),
+            stats.data_ptr(), piv.data_ptr(), scratch.data_ptr(), B, n,
             float(E), float(E * A), float(G), float(alpha_m), float(alpha_s),
             float(clamp_min), float(lr_t), float(bc1), float(bc2), stream)
     _run(rc, "beam_opt_step_dd", LAUNCHES)
@@ -212,21 +246,14 @@ def beam_opt_step_dd(I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1,
     """One fused semi-gradient Adam iteration with the solve, loss and
     gradient in float64 (``pallas_beam_opt_step_dd``).  Returns I_new,
     mu_new, nu_new (B, nelem), stats (B, 4) and the pivot (B,).  CPU tensors
-    run the plain version; CUDA tensors (float32) launch the kernel.
+    run the plain version; CUDA tensors (float32, contiguous) launch the
+    kernel, with no layout copy.
     """
     if not I.is_cuda:
         PLAIN_CALLS["beam_opt_step_dd"] += 1
         return beam_opt_step_dd_reference(
             I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1, bc2, E, A,
             G, alpha_m, alpha_s, clamp_min)
-    B, nelem = I.shape
-    _check(I.device, I=(I, (B, nelem)), mu=(mu, (B, nelem)),
-           nu=(nu, (B, nelem)), Le=(Le, (B, nelem)),
-           free_mask=(free_mask, (B, nelem + 1, 3)),
-           point_loads=(point_loads, (B, nelem + 1)), udl=(udl, (B,)))
-    I_t, mu_t, nu_t, stats, piv = launch_beam_opt_step_dd(
-        _lanes_last(I), _lanes_last(mu), _lanes_last(nu), _lanes_last(Le),
-        _lanes_last(free_mask), _lanes_last(point_loads), udl.contiguous(),
-        lr_t, bc1, bc2, E, A, G, alpha_m, alpha_s, clamp_min)
-    return (_lanes_first(I_t), _lanes_first(mu_t), _lanes_first(nu_t),
-            _lanes_first(stats), piv)
+    return launch_beam_opt_step_dd(I, mu, nu, Le, free_mask, point_loads, udl,
+                                   lr_t, bc1, bc2, E, A, G, alpha_m, alpha_s,
+                                   clamp_min)

@@ -14,15 +14,14 @@
 // gradient (semi, or the exact adjoint: one more substitution pair and
 // `refine` sweeps on the saved factors), and Adam with clamp.
 //
-// beam_analysis_dd_kernel and beam_opt_step_dd_kernel replace
-// openpystruct_tpu/ops/beam_kernel_dd.py _beam_dd_kernel and
-// _beam_dd_opt_kernel, the rescue's double-double kernels.  The H100 has
+// beam_analysis_dd_kernel replaces openpystruct_tpu/ops/beam_kernel_dd.py
+// _beam_dd_kernel, the rescue's double-double analysis.  The H100 has
 // native FP64, so "dd" here means float64: the same stage functions,
 // instantiated for double (as the JAX dd module hands its float32 stages
 // hi/lo pairs), with float32 inputs and outputs.  No refinement stage and
-// no saved C, as in the dd kernels; the pivot's axial chain runs in float64
-// too.  The opt step is semi-gradient only, and its Adam update runs in
-// float32 on the gradient cast to float32, as _beam_dd_opt_kernel's does.
+// no saved C, as in the dd kernel; the pivot's axial chain runs in float64
+// too.  The rescue's opt step (_beam_dd_opt_kernel) has a kernel of its own
+// in beam_opt_dd.cu.
 //
 // Design.  Each thread walks its lane's 101-node recurrence serially, as
 // one TPU vector lane did.  The per-lane scratch (~27 values per node) does
@@ -45,8 +44,10 @@
 //  - scratch traffic: the workspace (~190 MB at B = 16384, twice that in
 //    float64) streams through L2 and HBM several times per call instead of
 //    staying on chip.
-// Fixing these (lanes per warp sharing a recurrence, scratch in shared
-// memory or registers for shorter chains) is later work.
+// beam_opt_dd.cu is the redesign of the rescue's opt step along these
+// lines: two fused sweeps over read-only lanes-first inputs, 7 doubles of
+// scratch per node written once and read once, no layout copies.  The
+// kernels here keep the simple design.
 //
 // Floating point: no --use_fast_math; IEEE division and square root.  The
 // compiler may contract a*b+c into an FMA anywhere except in the
@@ -625,7 +626,7 @@ beam_opt_step_kernel(const float* __restrict__ I_t,
              mu_out, nu_out);
 }
 
-// The float64 solve both rescue kernels share: stiffness -> assembly with
+// The float64 solve of the rescue's analysis: stiffness -> assembly with
 // the axial chain -> scaling -> factor with the fused forward sweep (no C)
 // -> back sweep.  Returns the 3-DOF min pivot.
 __device__ double solve_dd(const Lane<double>& W, const In& I, const In& Le,
@@ -657,62 +658,6 @@ beam_analysis_dd_kernel(const float* __restrict__ I_t,
   const double w = udl[b];
   piv[b] = float(solve_dd(W, I, Le, free_t, loads, w, n, E, EA));
   write_solution(W, Le, w, n, u_t, V_t, M_t);
-}
-
-__global__ void __launch_bounds__(kBlock)
-beam_opt_step_dd_kernel(const float* __restrict__ I_t,
-                        const float* __restrict__ mu_t,
-                        const float* __restrict__ nu_t,
-                        const float* __restrict__ Le_t,
-                        const float* __restrict__ free_t,
-                        const float* __restrict__ loads_t,
-                        const float* __restrict__ udl,
-                        float* __restrict__ I_out, float* __restrict__ mu_out,
-                        float* __restrict__ nu_out,
-                        float* __restrict__ stats, float* __restrict__ piv,
-                        double* __restrict__ ws, int B, int n, double E,
-                        double EA, double Gs, double alpha_m, double alpha_s,
-                        float clamp_min, float lr_t, float bc1, float bc2) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t Bs = (size_t)B;
-  const Lane<double> W{ws, Bs, NC_DD, b};
-  const In I{I_t, Bs, b}, Le{Le_t, Bs, b}, loads{loads_t, Bs, b};
-  const In mu{mu_t, Bs, b}, nu{nu_t, Bs, b};
-  const double w = udl[b];
-  piv[b] = float(solve_dd(W, I, Le, free_t, loads, w, n, E, EA));
-
-  // forces, loss and the semi-gradient in float64; each element's Adam
-  // step needs only its own gradient, so it runs in the same pass
-  double tb = 0.0, ts = 0.0, ti = 0.0;
-  double uy_i = W(0, Y0) * W(0, S0), th_i = W(0, Y1) * W(0, S1);
-  for (int j = 0; j < n - 1; ++j) {
-    const double uy_j = W(j + 1, Y0) * W(j + 1, S0);
-    const double th_j = W(j + 1, Y1) * W(j + 1, S1);
-    const double k11 = W(j, KS1), k12 = W(j, KS2), k13 = W(j, KS3),
-                 k2 = W(j, KS4), le = Le(j), Ij = I(j);
-    const double V =
-        k11 * uy_i + k12 * th_i - k11 * uy_j + k12 * th_j - w * le * 0.5;
-    const double M = k12 * uy_i + k13 * th_i - k12 * uy_j + k2 * th_j -
-                     w * le * le / 12.0;
-    const double den_b = 2.0 * E * Ij + 1e-6;
-    const double den_s = Gs * (0.03 * sqrt(Ij));
-    const double be = M * M / den_b;
-    const double se = V * V / den_s;
-    const double g =
-        1.0 - alpha_m * be * 2.0 * E / den_b - alpha_s * 0.5 * se / Ij;
-    adam_f32(I, mu, nu, j, float(g), lr_t, bc1, bc2, clamp_min, I_out,
-             mu_out, nu_out);
-    tb = tb + be;
-    ts = ts + se;
-    ti = ti + Ij;
-    uy_i = uy_j;
-    th_i = th_j;
-  }
-  stats[0 * Bs + b] = float(ti + alpha_m * tb + alpha_s * ts);
-  stats[1 * Bs + b] = float(ti);
-  stats[2 * Bs + b] = float(alpha_m * tb);
-  stats[3 * Bs + b] = float(alpha_s * ts);
 }
 
 // ---------------------------------------------------------------------------
@@ -1060,8 +1005,8 @@ beam_solve_kernel(const float* __restrict__ I_t,
 extern "C" {
 
 // Workspace values per node per lane: kind 0 analysis, 1 opt step (semi),
-// 2 opt step (adjoint), 4 explicit-RHS solve, all float32; kind 3 either
-// float64 kernel, float64.
+// 2 opt step (adjoint), 4 explicit-RHS solve, all float32; kind 3 the
+// float64 analysis, float64.
 int beam_ws_floats_per_node(int kind) {
   switch (kind) {
     case 0: return NC_ANALYSIS;
@@ -1120,24 +1065,6 @@ int beam_analysis_dd_f32io(const float* I_t, const float* Le_t,
   const int blocks = (B + kBlock - 1) / kBlock;
   beam_analysis_dd_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       I_t, Le_t, free_t, loads_t, udl, u_t, V_t, M_t, piv, ws, B, n, E, EA);
-  return (int)cudaGetLastError();
-}
-
-int beam_opt_step_dd_f32io(const float* I_t, const float* mu_t,
-                           const float* nu_t, const float* Le_t,
-                           const float* free_t, const float* loads_t,
-                           const float* udl, float* I_out, float* mu_out,
-                           float* nu_out, float* stats, float* piv,
-                           double* ws, int B, int n, double E, double EA,
-                           double G, double alpha_m, double alpha_s,
-                           float clamp_min, float lr_t, float bc1, float bc2,
-                           void* stream) {
-  if (B <= 0) return 0;
-  const int blocks = (B + kBlock - 1) / kBlock;
-  beam_opt_step_dd_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl, I_out, mu_out, nu_out,
-      stats, piv, ws, B, n, E, EA, G, alpha_m, alpha_s, clamp_min, lr_t, bc1,
-      bc2);
   return (int)cudaGetLastError();
 }
 

@@ -174,10 +174,11 @@ def _make_kernel_step(scenario, beam, opt, refine, fused, dtype, dd=False,
             "semi-gradient mode only (OpenPyStruct_BeamOpt.py:150-151)"
         )
     if dd or fused:
-        Le = torch.diff(scenario.node_x, dim=-1).to(dtype)
-        free = (~constraint_mask(scenario)).to(dtype)
-        loads = scenario.point_loads.to(dtype)
-        udl = scenario.udl.to(dtype)
+        # contiguous once here, as the float64 kernel needs them
+        Le = torch.diff(scenario.node_x, dim=-1).to(dtype).contiguous()
+        free = (~constraint_mask(scenario)).to(dtype).contiguous()
+        loads = scenario.point_loads.to(dtype).contiguous()
+        udl = scenario.udl.to(dtype).contiguous()
 
         def kernel_step(I, mu, nu, epoch):
             lr_t, bc1, bc2 = _adam_scalars(opt, epoch, dtype)
@@ -213,6 +214,7 @@ def _make_kernel_step(scenario, beam, opt, refine, fused, dtype, dd=False,
 
 def _lane_state_init(I0):
     """Per-lane optimizer and early-stopping state."""
+    I0 = I0.contiguous()    # the float64 kernel reads the state as it lies
     B = I0.shape[0]
     dev = I0.device
     return dict(

@@ -194,6 +194,82 @@ def test_beam_opt_step_dd_kernel(cuda):
     assert ((kern[4].double() / plain[4].double() - 1).abs() <= 1e-3).all()
 
 
+def _beam_lanes(B, n, seed, device):
+    """Lanes-first float32 opt-step inputs of B beams of n nodes, from
+    numpy: a pin at node 0, a roller at the last node and at random inner
+    nodes, Le in [1, 3) m, lognormal I, point loads, udl -1000."""
+    rng = np.random.default_rng(seed)
+    free = np.ones((B, n, 3))
+    free[:, 0, :2] = 0.0
+    free[:, -1, 1] = 0.0
+    free[:, 1:-1, 1] = rng.random((B, n - 2)) > 0.15
+    x = dict(I=np.exp(rng.normal(size=(B, n - 1)) * 0.3) * 0.5,
+             mu=rng.normal(size=(B, n - 1)) * 0.1,
+             nu=rng.random((B, n - 1)) * 1e-2 + 1e-4,
+             Le=1.0 + 2.0 * rng.random((B, n - 1)), free=free,
+             loads=-3.5e5 * rng.random((B, n)) * (rng.random((B, n)) > 0.9),
+             udl=np.full((B,), -1000.0))
+    return [torch.from_numpy(x[k]).to(device=device, dtype=torch.float32)
+            for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 4, 101, 201])
+@pytest.mark.parametrize("B", [1, 33, 300])
+def test_beam_opt_step_dd_kernel_shapes(cuda, B, n):
+    """The two-sweep float64 opt-step kernel against its plain version at
+    ragged batches (33 and 300 lanes leave the last block part-filled) and
+    meshes shorter than one staged tile (n = 3, 4) or spanning many (101,
+    201): per-lane error no more than 1e-5 of the lane's scale, pivots
+    within 1e-3 relative (phase 3b's rule)."""
+    args = _beam_lanes(B, n, 100 * n + B, cuda)
+    tail = (0.009, 1.5, 400.0, E, A, G)
+    before = tkd.LAUNCHES["beam_opt_step_dd"]
+    kern = tkd.beam_opt_step_dd(*args, *tail)
+    assert tkd.LAUNCHES["beam_opt_step_dd"] == before + 1
+    plain = tkd.beam_opt_step_dd_reference(*args, *tail)
+    torch.cuda.synchronize()
+    for k, p in zip(kern[:4], plain[:4]):
+        assert k.shape == p.shape and k.is_contiguous()
+        assert _lane_err(k, p) <= 1e-5
+    assert ((kern[4].double() / plain[4].double() - 1).abs() <= 1e-3).all()
+
+
+@pytest.mark.cuda
+def test_beam_opt_step_dd_kernel_keeps_nan_lanes(cuda):
+    """A lane with a NaN I stays NaN through the pivot's nan_min and the
+    clamp's nan_max, as in the plain version; the other lanes are held by
+    phase 3b's rule."""
+    args = _beam_lanes(70, 101, 3, cuda)
+    args[0][5, 40] = float("nan")
+    tail = (0.009, 1.5, 400.0, E, A, G)
+    kern = tkd.beam_opt_step_dd(*args, *tail)
+    plain = tkd.beam_opt_step_dd_reference(*args, *tail)
+    torch.cuda.synchronize()
+    assert torch.isnan(kern[4][5]) and torch.isnan(kern[0][5]).any()
+    for k, p in zip(kern, plain):
+        assert torch.equal(torch.isnan(k), torch.isnan(p))
+    keep = torch.arange(70, device=cuda) != 5
+    for k, p in zip(kern[:4], plain[:4]):
+        assert _lane_err(k[keep], p[keep]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_beam_opt_step_dd_rejects_a_strided_input(cuda):
+    """The kernel reads the lanes-first layout as it lies: a transposed view
+    raises instead of being copied, and nothing launches."""
+    args = _beam_lanes(40, 101, 4, cuda)
+    tail = (0.009, 1.5, 400.0, E, A, G)
+    before = tkd.LAUNCHES["beam_opt_step_dd"]
+    for i in (0, 4):
+        bad = list(args)
+        bad[i] = args[i].movedim(0, -1).contiguous().movedim(-1, 0)
+        assert not bad[i].is_contiguous() and torch.equal(bad[i], args[i])
+        with pytest.raises(ValueError, match="contiguous"):
+            tkd.beam_opt_step_dd(*bad, *tail)
+    assert tkd.LAUNCHES["beam_opt_step_dd"] == before
+
+
 @pytest.mark.cuda
 def test_random_bridge_batch_launches_kernels_only(cuda):
     """The default rescue of a random-bridge batch on the card runs the
