@@ -80,8 +80,8 @@ Phases, each of which raises on failure (exit code not 0):
    valid masks, equal epochs on the rescued lanes, I within 1e-3 relative
    (1e-7 absolute), deflections within 1e-3 of the lane's scale;
 6. times: CUDA events, median of 20 launches per kernel (wrapper, kernel
-   alone and, where the wrapper transposes, its layout copies; #8 reads the
-   optimizer's lanes-first tensors and copies none), beside the plain
+   alone and, where the wrapper transposes, its layout copies; #2 and #8
+   read the optimizer's lanes-first tensors and copy none), beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
    float64, H100 SXM); for #4, #5 and #6 also the dense float32
@@ -116,7 +116,7 @@ REPO = Path(__file__).resolve().parent
 CSRC = "openpystruct_tpu_torch/ops/csrc/"
 SOURCE = {
     "beam_analysis": CSRC + "beam_kernel.cu",
-    "beam_opt_step": CSRC + "beam_kernel.cu",
+    "beam_opt_step": CSRC + "beam_opt.cu",
     "beam_analysis_dd": CSRC + "beam_kernel.cu",
     "beam_opt_step_dd": CSRC + "beam_opt_dd.cu",
     "beam_solve": CSRC + "beam_kernel.cu",
@@ -167,14 +167,22 @@ def log(*a):
 
 # ---------------------------------------------------------------------------
 # Bounds.  Bytes: every input read once, every output written once.  Flops
-# per node and lane, counted from csrc/beam_kernel.cu (an FMA counts 2):
+# per node and lane (an FMA counts 2), for the analysis counted from
+# csrc/beam_kernel.cu:
 #   stiffness 10, assembly 32 (+7 axial chain), scaling 20,
 #   factor+forward sweep 45 without C (+12 saving C, +13 axial pivot),
 #   back sweep 14 without C / 8 with C, substitution = 14 + back sweep,
 #   refinement sweep = residual 138 + substitution + 2,
-#   force recovery 23, loss 23, Adam 15;
-#   adjoint extra: force cotangents 27, g_hat 16, stash 27, substitution,
-#   `refine` sweeps, banded products 12.
+#   force recovery 23;
+# for the opt step (kinds "semi", "adjoint") from csrc/beam_opt.cu:
+#   first forward sweep 108 (stiffness 10, assembly 30, scaling 14, scaled
+#   U 8, factor 32, forward substitution 14), back sweep 14, each
+#   refinement a residual 134, a forward substitution 14 and a back sweep
+#   16; the last semi back sweep's element work 72 (stiffness 9, forces 25,
+#   loss 16, gradient 7, Adam 15); in adjoint mode that sweep does 110
+#   (no Adam; cotangents, rows and g_hat 53), then the adjoint solve's
+#   forward substitution 14, its back and refinement sweeps as the
+#   primal's, banded products 8 and Adam 15.
 # The float64 kernels (kinds "analysis_dd", "opt_dd") run stiffness,
 # assembly with the axial chain, scaling, the factor without C with the
 # axial pivot, the back sweep without C and force recovery, no refinement;
@@ -199,18 +207,14 @@ def flops_per_lane(n, refine, kind):
     if kind in ("analysis_dd", "opt_dd"):
         per_node = 10 + 32 + 7 + 20 + 45 + 13 + 14 + 23
         return (per_node + (23 + 15 if kind == "opt_dd" else 0)) * n
-    with_c = kind == "analysis"
-    bsub = 8 if with_c else 14
-    subst = 14 + bsub
-    sweep = 138 + subst + 2
-    per_node = 10 + 32 + 20 + 45 + bsub + refine * sweep + 23
-    if kind == "analysis":
-        per_node += 7 + 12 + 13
-    else:
-        per_node += 23 + 15
-        if kind == "adjoint":
-            per_node += 27 + 16 + 27 + (14 + 14) + refine * (138 + 28 + 2) + 12
-    return per_node * n
+    if kind in ("semi", "adjoint"):
+        sweeps = 14 + refine * (134 + 14 + 16)
+        if kind == "semi":
+            return (108 + sweeps + 72) * n
+        return (108 + sweeps + 110 + 14 + sweeps + 8 + 15) * n
+    # the analysis (#1): C saved, axial pivot, no loss
+    sweep = 138 + (14 + 8) + 2
+    return (10 + 32 + 20 + 45 + 8 + refine * sweep + 23 + 7 + 12 + 13) * n
 
 
 def bytes_per_lane(n, kind):
@@ -895,7 +899,8 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["beam_kernel", "block_tridiag", "beam_opt_dd"])
+    built = _build.build(["beam_kernel", "block_tridiag", "beam_opt",
+                          "beam_opt_dd"])
     log(f"phase 2: built {len(built)} libraries in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for info in built.values():
@@ -1389,7 +1394,6 @@ def main(argv=None) -> int:
     ana = [inputs[k] for k in ("I", "Le", "free", "loads", "udl")]
     opt = [inputs[k] for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
     ana_t = [lanes_last(x) for x in ana[:-1]] + [ana[-1]]
-    opt_t = [lanes_last(x) for x in opt[:-1]] + [opt[-1]]
     opt_kw = dict(grad_semi=True, refine=refine)
     rb_ana = [rb_inputs[k] for k in ("I", "Le", "free", "loads", "udl")]
     rb_opt = [rb_inputs[k]
@@ -1405,13 +1409,14 @@ def main(argv=None) -> int:
                                 ana_t[2], ana_t[0], ana_t[0])]),
             plain=lambda: tk.beam_analysis_reference(*ana, E, A, refine),
             kind="analysis"),
+        # #2 and #8: no layout, the kernels read the optimizer's tensors
+        # as they lie
         "beam_opt_step": dict(
             wrapper=lambda: tk.beam_opt_step(*opt, *scalars, E, A, G,
                                              **opt_kw),
-            kernel=lambda: tk.launch_beam_opt_step(*opt_t, *scalars, E, G,
+            kernel=lambda: tk.launch_beam_opt_step(*opt, *scalars, E, G,
                                                    **opt_kw),
-            layout=lambda: ([lanes_last(x) for x in opt[:-1]],
-                            [lanes_first(x) for x in opt_t[:3]]),
+            layout=None,
             plain=lambda: tk.beam_opt_step_reference(*opt, *scalars, E, A,
                                                      G, **opt_kw),
             kind="semi"),
@@ -1424,7 +1429,6 @@ def main(argv=None) -> int:
                                 rb_ana_t[2], rb_ana_t[0], rb_ana_t[0])]),
             plain=lambda: tkd.beam_analysis_dd_reference(*rb_ana, E, A),
             kind="analysis_dd"),
-        # no layout: the kernel reads the optimizer's tensors as they lie
         "beam_opt_step_dd": dict(
             wrapper=lambda: tkd.beam_opt_step_dd(*rb_opt, *scalars, E, A, G),
             kernel=lambda: tkd.launch_beam_opt_step_dd(*rb_opt, *scalars, E,
@@ -1502,7 +1506,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{k} was not launched on its path")
     errs_fine.update(errs_split[(201, "fixed bridge")])
     adjoint_ms = time_ms(torch, lambda: tk.launch_beam_opt_step(
-        *opt_t, *scalars, E, G, grad_semi=False, refine=refine), 20)
+        *opt, *scalars, E, G, grad_semi=False, refine=refine), 20)
 
     # the library yardsticks: one dense LU solve of the same systems, in
     # float32 for #4, #5 and #6 (no TF32 in an LU), in float64 for #9

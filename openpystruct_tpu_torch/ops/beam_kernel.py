@@ -15,6 +15,9 @@ Three public wrappers keep the JAX launchers' argument order and shapes:
   ``_beam_opt_kernel_b2``): the same solve, the combined loss, its
   gradient (semi, or the exact adjoint: one more substitution pair and
   ``refine`` sweeps on the saved factors), and the Adam update with clamp.
+  Its kernel (``csrc/beam_opt.cu``) walks each lane in fused sweeps and
+  reads and writes the optimizer's lanes-first tensors directly: the wrapper
+  copies no layout, and takes only contiguous tensors.
 - ``beam_solve`` (``pallas_beam_solve``, kernel ``_beam_kernel`` with an
   explicit right-hand side): the 3-DOF assembly of K(I) with full 3x3
   blocks (an arbitrary RHS may load the axial chain), masking, Jacobi
@@ -32,11 +35,11 @@ exactly 0 and the 2x2 bending chain carries the whole solution.
 
 Each wrapper sends a CPU tensor to the plain PyTorch version beside it
 (``beam_analysis_reference``, ``beam_opt_step_reference``,
-``beam_solve_reference``), and launches the
-CUDA kernel (``csrc/beam_kernel.cu``) on a CUDA tensor, or raises.  There is
-no fallback from the kernel to the plain version.  ``LAUNCHES`` counts
-kernel launches and ``PLAIN_CALLS`` the calls the wrappers sent to the
-plain versions.
+``beam_solve_reference``), and launches the CUDA kernel
+(``csrc/beam_kernel.cu``, ``csrc/beam_opt.cu``) on a CUDA tensor, or
+raises.  There is no fallback from the kernel to the plain version.
+``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the calls the
+wrappers sent to the plain versions.
 
 The plain versions repeat the kernels' arithmetic in the same order:
 vectorised over the batch and, where no recurrence runs, over the nodes;
@@ -515,18 +518,29 @@ _D = ctypes.c_double
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The library of the four beam kernels (``csrc/beam_kernel.cu``), with
-    the argument types of its C entry points."""
+    """The library of the analysis, float64 analysis and explicit-RHS solve
+    kernels (``csrc/beam_kernel.cu``), with the argument types of its C
+    entry points."""
     lib = _build.load("beam_kernel")
     lib.beam_analysis_f32.argtypes = [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P]
-    lib.beam_opt_step_f32.argtypes = ([_P] * 12 + [_I] * 4 + [_F] * 8
-                                      + [_P])
     lib.beam_analysis_dd_f32io.argtypes = ([_P] * 10 + [_I] * 2 + [_D] * 2
                                            + [_P])
     lib.beam_solve_f32.argtypes = [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P]
     lib.beam_ws_floats_per_node.argtypes = [_I]
-    for fn in (lib.beam_analysis_f32, lib.beam_opt_step_f32,
-               lib.beam_analysis_dd_f32io, lib.beam_solve_f32, lib.beam_ws_floats_per_node):
+    for fn in (lib.beam_analysis_f32, lib.beam_analysis_dd_f32io,
+               lib.beam_solve_f32, lib.beam_ws_floats_per_node):
+        fn.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _opt_lib():
+    """The library of the opt-step kernel (``csrc/beam_opt.cu``)."""
+    lib = _build.load("beam_opt")
+    lib.beam_opt_step_f32.argtypes = ([_P] * 12 + [_I] * 4 + [_F] * 8
+                                      + [_P])
+    lib.beam_opt_scratch_per_node.argtypes = [_I]
+    for fn in (lib.beam_opt_step_f32, lib.beam_opt_scratch_per_node):
         fn.restype = _I
     return lib
 
@@ -548,9 +562,8 @@ def _check_launch(dev, nelem, B, **tensors):
     """Raise unless every lane-innermost launch input (named as in the
     launchers) is contiguous float32 on ``dev`` with its shape."""
     n = nelem + 1
-    shapes = dict(I_t=(nelem, B), mu_t=(nelem, B), nu_t=(nelem, B),
-                  Le_t=(nelem, B), free_t=(n, 3, B), loads_t=(n, B),
-                  udl=(B,), rhs_t=(n, 3, B))
+    shapes = dict(I_t=(nelem, B), Le_t=(nelem, B), free_t=(n, 3, B),
+                  loads_t=(n, B), udl=(B,), rhs_t=(n, 3, B))
     for t in tensors.values():
         if not t.is_contiguous():
             raise ValueError("launch inputs must be contiguous")
@@ -591,32 +604,54 @@ def launch_beam_analysis(I_t, Le_t, free_t, loads_t, udl, E, A, refine=1):
     return u, V, M, piv
 
 
-def launch_beam_opt_step(I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl,
+def _check_lanes_first(name, I, mu, nu, Le, free_mask, point_loads, udl):
+    """Raise unless the opt-step inputs are the optimizer's lanes-first
+    float32 tensors, contiguous on one device: I, mu, nu, Le (B, nelem),
+    free_mask (B, n, 3), point_loads (B, n), udl (B,), nelem >= 1.  The
+    opt-step kernels read them as they lie and copy none."""
+    B, nelem = I.shape
+    n = nelem + 1
+    if nelem < 1:
+        raise ValueError(f"{name} needs at least one element")
+    ins = dict(I=I, mu=mu, nu=nu, Le=Le, free_mask=free_mask,
+               point_loads=point_loads, udl=udl)
+    shapes = dict(I=(B, nelem), mu=(B, nelem), nu=(B, nelem),
+                  Le=(B, nelem), free_mask=(B, n, 3), point_loads=(B, n),
+                  udl=(B,))
+    _check(I.device, **{k: (t, shapes[k]) for k, t in ins.items()})
+    for k, t in ins.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{k} is not contiguous: the kernel reads the "
+                             "lanes-first layout as it lies and copies none")
+
+
+def launch_beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl,
                          lr_t, bc1, bc2, E, G, alpha_m=1e-2, alpha_s=1e-2,
                          clamp_min=1e-8, grad_semi=True, refine=1):
-    """Launch the opt-step kernel on lane-innermost inputs (layouts of
-    ``launch_beam_analysis``; mu_t, nu_t (nelem, B)).  Returns I_t, mu_t,
-    nu_t (nelem, B) and stats_t (4, B)."""
-    nelem, B = I_t.shape
-    n = nelem + 1
-    dev = I_t.device
-    _check_launch(dev, nelem, B, I_t=I_t, mu_t=mu_t, nu_t=nu_t, Le_t=Le_t,
-                  free_t=free_t, loads_t=loads_t, udl=udl)
-    lib = _lib()
-    I_o, mu_o, nu_o = (torch.empty_like(I_t) for _ in range(3))
-    stats = torch.empty((4, B), dtype=torch.float32, device=dev)
-    ws = torch.empty((n, lib.beam_ws_floats_per_node(1 if grad_semi else 2),
-                      B), dtype=torch.float32, device=dev)
+    """Launch the opt-step kernel on the optimizer's lanes-first float32
+    tensors, as they are (``_check_lanes_first``).  Returns I_new, mu_new,
+    nu_new (B, nelem) and stats (B, 4)."""
+    _check_lanes_first("beam_opt_step", I, mu, nu, Le, free_mask, point_loads,
+                      udl)
+    B, nelem = I.shape
+    dev = I.device
+    lib = _opt_lib()
+    I_o, mu_o, nu_o = (torch.empty_like(I) for _ in range(3))
+    stats = torch.empty((B, 4), dtype=torch.float32, device=dev)
+    # lanes padded to whole 32-lane blocks: the kernel stages 128-byte rows
+    scratch = torch.empty(
+        (nelem + 1, lib.beam_opt_scratch_per_node(int(bool(grad_semi))),
+         -(-B // 32) * 32), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.beam_opt_step_f32(
-            I_t.data_ptr(), mu_t.data_ptr(), nu_t.data_ptr(),
-            Le_t.data_ptr(), free_t.data_ptr(), loads_t.data_ptr(),
-            udl.data_ptr(), I_o.data_ptr(), mu_o.data_ptr(), nu_o.data_ptr(),
-            stats.data_ptr(), ws.data_ptr(),
-            B, n, int(refine), int(bool(grad_semi)),
-            float(E), float(G), float(alpha_m), float(alpha_s),
-            float(clamp_min), float(lr_t), float(bc1), float(bc2), stream)
+            I.data_ptr(), mu.data_ptr(), nu.data_ptr(), Le.data_ptr(),
+            free_mask.data_ptr(), point_loads.data_ptr(), udl.data_ptr(),
+            I_o.data_ptr(), mu_o.data_ptr(), nu_o.data_ptr(),
+            stats.data_ptr(), scratch.data_ptr(), B, nelem + 1, int(refine),
+            int(bool(grad_semi)), float(E), float(G), float(alpha_m),
+            float(alpha_s), float(clamp_min), float(lr_t), float(bc1),
+            float(bc2), stream)
     _run(rc, "beam_opt_step")
     return I_o, mu_o, nu_o, stats
 
@@ -759,21 +794,14 @@ def beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1,
     the epoch's learning rate and bias corrections 1/(1-b1^t), 1/(1-b2^t).
     Returns I_new, mu_new, nu_new (B, nelem) and stats (B, 4): total,
     primary, bending energy, shear energy.  CPU tensors run the plain
-    version; CUDA tensors (float32) launch the kernel.
+    version; CUDA tensors (float32, contiguous) launch the kernel, with no
+    layout copy.
     """
     if not I.is_cuda:
         PLAIN_CALLS["beam_opt_step"] += 1
         return beam_opt_step_reference(
             I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1, bc2, E,
             A, G, alpha_m, alpha_s, clamp_min, grad_semi, refine)
-    B, nelem = I.shape
-    _check(I.device, I=(I, (B, nelem)), mu=(mu, (B, nelem)),
-           nu=(nu, (B, nelem)), Le=(Le, (B, nelem)),
-           free_mask=(free_mask, (B, nelem + 1, 3)),
-           point_loads=(point_loads, (B, nelem + 1)), udl=(udl, (B,)))
-    I_t, mu_t, nu_t, stats = launch_beam_opt_step(
-        _lanes_last(I), _lanes_last(mu), _lanes_last(nu), _lanes_last(Le),
-        _lanes_last(free_mask), _lanes_last(point_loads), udl.contiguous(),
-        lr_t, bc1, bc2, E, G, alpha_m, alpha_s, clamp_min, grad_semi, refine)
-    return (_lanes_first(I_t), _lanes_first(mu_t), _lanes_first(nu_t),
-            _lanes_first(stats))
+    return launch_beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl,
+                                lr_t, bc1, bc2, E, G, alpha_m, alpha_s,
+                                clamp_min, grad_semi, refine)

@@ -50,6 +50,7 @@ from openpystruct_tpu_torch.ops.beam_kernel import (
     _bsub_b2,
     _check,
     _check_launch,
+    _check_lanes_first,
     _factor_b2,
     _forces,
     _lanes_first,
@@ -181,25 +182,14 @@ def launch_beam_opt_step_dd(I, mu, nu, Le, free_mask, point_loads, udl,
                             lr_t, bc1, bc2, E, A, G, alpha_m=1e-2,
                             alpha_s=1e-2, clamp_min=1e-8):
     """Launch the float64 opt-step kernel on the optimizer's lanes-first
-    float32 tensors, as they are: I, mu, nu, Le (B, nelem), free_mask (B, n,
-    3), point_loads (B, n), udl (B,), contiguous on one card, nelem >= 1.
+    float32 tensors, as they are (``beam_kernel._check_lanes_first``).
     Returns I_new, mu_new, nu_new (B, nelem), stats (B, 4) and the pivot
     (B,)."""
+    _check_lanes_first("beam_opt_step_dd", I, mu, nu, Le, free_mask,
+                       point_loads, udl)
     B, nelem = I.shape
     n = nelem + 1
     dev = I.device
-    if nelem < 1:
-        raise ValueError("beam_opt_step_dd needs at least one element")
-    ins = dict(I=I, mu=mu, nu=nu, Le=Le, free_mask=free_mask,
-               point_loads=point_loads, udl=udl)
-    shapes = dict(I=(B, nelem), mu=(B, nelem), nu=(B, nelem),
-                  Le=(B, nelem), free_mask=(B, n, 3), point_loads=(B, n),
-                  udl=(B,))
-    _check(dev, **{k: (t, shapes[k]) for k, t in ins.items()})
-    for k, t in ins.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{k} is not contiguous: the kernel reads the "
-                             "lanes-first layout as it lies and copies none")
     lib = _opt_lib()
     I_o, mu_o, nu_o = (torch.empty_like(I) for _ in range(3))
     stats = torch.empty((B, 4), dtype=torch.float32, device=dev)

@@ -8,20 +8,15 @@
 // sweeps -> unscaling -> shear/moment recovery, plus the 3-DOF min Schur
 // pivot min_i a_i |det2(S_i)| with the axial chain a_i run in float32.
 //
-// beam_opt_step_kernel replaces openpystruct_tpu/ops/beam_kernel.py
-// _beam_opt_kernel_b2 (launcher pallas_beam_opt_step): the same solve, the
-// loss sum(I) + a_m sum M^2/(2EI+1e-6) + a_s sum V^2/(G 0.03 sqrt(I)), its
-// gradient (semi, or the exact adjoint: one more substitution pair and
-// `refine` sweeps on the saved factors), and Adam with clamp.
-//
 // beam_analysis_dd_kernel replaces openpystruct_tpu/ops/beam_kernel_dd.py
 // _beam_dd_kernel, the rescue's double-double analysis.  The H100 has
 // native FP64, so "dd" here means float64: the same stage functions,
 // instantiated for double (as the JAX dd module hands its float32 stages
 // hi/lo pairs), with float32 inputs and outputs.  No refinement stage and
 // no saved C, as in the dd kernel; the pivot's axial chain runs in float64
-// too.  The rescue's opt step (_beam_dd_opt_kernel) has a kernel of its own
-// in beam_opt_dd.cu.
+// too.  The two Adam-step kernels, the datagen's (_beam_opt_kernel_b2) and
+// the rescue's (_beam_dd_opt_kernel), have sources of their own:
+// beam_opt.cu and beam_opt_dd.cu.
 //
 // Design.  Each thread walks its lane's 101-node recurrence serially, as
 // one TPU vector lane did.  The per-lane scratch (~27 values per node) does
@@ -36,7 +31,7 @@
 // outputs once, about 1,109 floats (4.4 KB) per lane at n = 101, which at
 // B = 16384 is ~22 us at 3.35 TB/s; the arithmetic (a few hundred flops per
 // node) is below that at 67 TFLOP/s float32 and at 34 TFLOP/s float64, so
-// all four kernels are bound by bytes.  What this simple design leaves on
+// the kernels are bound by bytes.  What this simple design leaves on
 // the table:
 //  - occupancy: B = 16384 lanes is ~124 threads per SM, and the compaction
 //    stages go down to 256-512 lanes; each thread's chain of dependent
@@ -44,10 +39,10 @@
 //  - scratch traffic: the workspace (~190 MB at B = 16384, twice that in
 //    float64) streams through L2 and HBM several times per call instead of
 //    staying on chip.
-// beam_opt_dd.cu is the redesign of the rescue's opt step along these
-// lines: two fused sweeps over read-only lanes-first inputs, 7 doubles of
-// scratch per node written once and read once, no layout copies.  The
-// kernels here keep the simple design.
+// beam_opt.cu and beam_opt_dd.cu redesign the two opt steps along these
+// lines: fused sweeps over read-only lanes-first inputs, scratch written
+// once per sweep, no layout copies.  The kernels here keep the simple
+// design.
 //
 // Floating point: no --use_fast_math; IEEE division and square root.  The
 // compiler may contract a*b+c into an FMA anywhere except in the
@@ -76,8 +71,6 @@ enum : int {
 // the float32 analysis also saves C.
 enum : int { AX0 = NC_COMMON, AX1, NC_DD };
 enum : int { C00 = NC_DD, C01, C10, C11, NC_ANALYSIS };
-enum : int { GRAD = NC_COMMON, GV, GM, RTHJ, NC_OPT_ADJOINT };
-constexpr int NC_OPT_SEMI = GRAD + 1;
 
 template <typename T>
 struct Lane {
@@ -452,25 +445,6 @@ __device__ void write_solution(const Lane<T>& W, const In& Le, T w, int n,
   }
 }
 
-// Adam with torch's math in float32 (bias-corrected moments; lr_t, bc1, bc2
-// arrive computed in float32 from the epoch counter); the clamp applies to
-// I only, not to the moments.
-__device__ __forceinline__ void adam_f32(const In& I, const In& mu,
-                                         const In& nu, int j, float g,
-                                         float lr_t, float bc1, float bc2,
-                                         float clamp_min, float* I_out,
-                                         float* mu_out, float* nu_out) {
-  const float b1 = 0.9f, b2 = 0.999f, eps = 1e-8f;
-  const float omb1 = (float)(1.0 - 0.9), omb2 = (float)(1.0 - 0.999);
-  const size_t o = (size_t)j * I.B + I.b;
-  const float m = b1 * mu(j) + omb1 * g;
-  const float v = b2 * nu(j) + omb2 * g * g;
-  mu_out[o] = m;
-  nu_out[o] = v;
-  const float step = lr_t * (m * bc1) / (sqrtf(v * bc2) + eps);
-  I_out[o] = nan_max(I(j) - step, clamp_min);
-}
-
 __global__ void __launch_bounds__(kBlock)
 beam_analysis_kernel(const float* __restrict__ I_t,
                      const float* __restrict__ Le_t,
@@ -495,135 +469,6 @@ beam_analysis_kernel(const float* __restrict__ I_t,
   bsub_b2<float, true>(W, n, Y0, Y1);
   refine_b2<true>(W, n, refine, F0, F1, Y0, Y1, R0, R1);
   write_solution(W, Le, w, n, u_t, V_t, M_t);
-}
-
-__global__ void __launch_bounds__(kBlock)
-beam_opt_step_kernel(const float* __restrict__ I_t,
-                     const float* __restrict__ mu_t,
-                     const float* __restrict__ nu_t,
-                     const float* __restrict__ Le_t,
-                     const float* __restrict__ free_t,
-                     const float* __restrict__ loads_t,
-                     const float* __restrict__ udl, float* __restrict__ I_out,
-                     float* __restrict__ mu_out, float* __restrict__ nu_out,
-                     float* __restrict__ stats, float* __restrict__ ws, int B,
-                     int n, int refine, int grad_semi, float E, float Gs,
-                     float alpha_m, float alpha_s, float clamp_min,
-                     float lr_t, float bc1, float bc2) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t Bs = (size_t)B;
-  const Lane<float> W{ws, Bs, grad_semi ? NC_OPT_SEMI : NC_OPT_ADJOINT, b};
-  const In I{I_t, Bs, b}, Le{Le_t, Bs, b}, loads{loads_t, Bs, b};
-  const int nelem = n - 1;
-  const float w = udl[b];
-
-  // ---- solve at the current I (no C, no pivot: nothing reads them) ----
-  stiffness(W, I, Le, nelem, E, 0.0f);
-  assemble_b2<float, false>(W, Le, free_t, loads, w, n);
-  scale_b2(W, n);
-  factor_b2<float, false, false>(W, n);
-  bsub_b2<float, false>(W, n, Y0, Y1);
-  refine_b2<false>(W, n, refine, F0, F1, Y0, Y1, R0, R1);
-
-  // ---- forces, loss, explicit dL/dI per element ----
-  float tb = 0.0f, ts = 0.0f, ti = 0.0f;
-  float uy_i = W(0, Y0) * W(0, S0), th_i = W(0, Y1) * W(0, S1);
-  for (int j = 0; j < nelem; ++j) {
-    const float uy_j = W(j + 1, Y0) * W(j + 1, S0);
-    const float th_j = W(j + 1, Y1) * W(j + 1, S1);
-    const float k11 = W(j, KS1), k12 = W(j, KS2), k13 = W(j, KS3),
-                k2 = W(j, KS4), le = Le(j), Ij = I(j);
-    const float V =
-        k11 * uy_i + k12 * th_i - k11 * uy_j + k12 * th_j - w * le * 0.5f;
-    const float M = k12 * uy_i + k13 * th_i - k12 * uy_j + k2 * th_j -
-                    w * le * le / 12.0f;
-    const float den_b = 2.0f * E * Ij + 1e-6f;
-    const float den_s = Gs * (0.03f * sqrtf(Ij));
-    const float be = M * M / den_b;
-    const float se = V * V / den_s;
-    // explicit dL/dI (M, V held constant): the semi-gradient
-    float g = 1.0f - alpha_m * be * 2.0f * E / den_b -
-              alpha_s * 0.5f * se / Ij;
-    if (!grad_semi) {
-      // loss cotangents on the force fields, for the adjoint chain
-      const float gV = alpha_s * 2.0f * V / den_s;
-      const float gM = alpha_m * 2.0f * M / den_b;
-      // direct dV/dI, dM/dI at fixed u (V, M linear in I)
-      const float c1 = E / (le * le * le);
-      const float dV =
-          c1 * (12.0f * (uy_i - uy_j) + 6.0f * le * (th_i + th_j));
-      const float dM =
-          c1 * le * (6.0f * (uy_i - uy_j) + le * (4.0f * th_i + 2.0f * th_j));
-      g = g + gV * dV + gM * dM;
-      W(j, GV) = gV;
-      W(j, GM) = gM;
-    }
-    W(j, GRAD) = g;
-    tb = tb + be;
-    ts = ts + se;
-    ti = ti + Ij;
-    uy_i = uy_j;
-    th_i = th_j;
-  }
-  stats[0 * Bs + b] = ti + alpha_m * tb + alpha_s * ts;
-  stats[1 * Bs + b] = ti;
-  stats[2 * Bs + b] = alpha_m * tb;
-  stats[3 * Bs + b] = alpha_s * ts;
-
-  if (!grad_semi) {
-    // ---- adjoint: K lam = g_hat with the saved factors ----
-    const float* fr = free_t;
-    for (int i = 0; i < n; ++i) {
-      const int jp = i > 0 ? i - 1 : 0;
-      const int jn = i < nelem ? i : nelem - 1;
-      const float m_p = i > 0 ? 1.0f : 0.0f;
-      const float m_n = i < nelem ? 1.0f : 0.0f;
-      const float gV_p = W(jp, GV) * m_p, gM_p = W(jp, GM) * m_p;
-      const float gV_n = W(jn, GV) * m_n, gM_n = W(jn, GM) * m_n;
-      const float gy = gV_n * W(jn, KS1) + gM_n * W(jn, KS2) -
-                       gV_p * W(jp, KS1) - gM_p * W(jp, KS2);
-      const float gt = gV_n * W(jn, KS2) + gM_n * W(jn, KS3) +
-                       gV_p * W(jp, KS2) + gM_p * W(jp, KS4);
-      W(i, F0) = gy * fr[((size_t)i * 3 + 1) * Bs + b] * W(i, S0);
-      W(i, F1) = gt * fr[((size_t)i * 3 + 2) * Bs + b] * W(i, S1);
-    }
-    // gV/gM are consumed: stash the (dK_e/dI_e) u_e row products before
-    // the adjoint refinement reuses Y as its work vector
-    for (int j = 0; j < nelem; ++j) {
-      const float le = Le(j);
-      const float uy_a = W(j, Y0) * W(j, S0), th_a = W(j, Y1) * W(j, S1);
-      const float uy_b = W(j + 1, Y0) * W(j + 1, S0);
-      const float th_b = W(j + 1, Y1) * W(j + 1, S1);
-      const float c1 = E / (le * le * le);
-      W(j, GV) = c1 * (12.0f * (uy_a - uy_b) + 6.0f * le * (th_a + th_b));
-      W(j, GM) = c1 * le *
-                 (6.0f * (uy_a - uy_b) + le * (4.0f * th_a + 2.0f * th_b));
-      W(j, RTHJ) = c1 * le *
-                   (6.0f * (uy_a - uy_b) + le * (2.0f * th_a + 4.0f * th_b));
-    }
-    for (int i = 0; i < n; ++i) {
-      W(i, R0) = W(i, F0);
-      W(i, R1) = W(i, F1);
-    }
-    subst_b2<false>(W, n, R0, R1);
-    refine_b2<false>(W, n, refine, F0, F1, R0, R1, Y0, Y1);
-    // ---- banded products: gI += -lam^T (dK/dI_e) u ----
-    float ly_i = W(0, R0) * W(0, S0), lt_i = W(0, R1) * W(0, S1);
-    for (int j = 0; j < nelem; ++j) {
-      const float ly_j = W(j + 1, R0) * W(j + 1, S0);
-      const float lt_j = W(j + 1, R1) * W(j + 1, S1);
-      W(j, GRAD) = W(j, GRAD) - ((ly_i - ly_j) * W(j, GV) +
-                                 lt_i * W(j, GM) + lt_j * W(j, RTHJ));
-      ly_i = ly_j;
-      lt_i = lt_j;
-    }
-  }
-
-  const In mu{mu_t, Bs, b}, nu{nu_t, Bs, b};
-  for (int j = 0; j < nelem; ++j)
-    adam_f32(I, mu, nu, j, W(j, GRAD), lr_t, bc1, bc2, clamp_min, I_out,
-             mu_out, nu_out);
 }
 
 // The float64 solve of the rescue's analysis: stiffness -> assembly with
@@ -1004,14 +849,11 @@ beam_solve_kernel(const float* __restrict__ I_t,
 
 extern "C" {
 
-// Workspace values per node per lane: kind 0 analysis, 1 opt step (semi),
-// 2 opt step (adjoint), 4 explicit-RHS solve, all float32; kind 3 the
-// float64 analysis, float64.
+// Workspace values per node per lane: kind 0 analysis, 4 explicit-RHS
+// solve, both float32; kind 3 the float64 analysis, float64.
 int beam_ws_floats_per_node(int kind) {
   switch (kind) {
     case 0: return NC_ANALYSIS;
-    case 1: return NC_OPT_SEMI;
-    case 2: return NC_OPT_ADJOINT;
     case 4: return NC_SOLVE3;
     default: return NC_DD;
   }
@@ -1037,22 +879,6 @@ int beam_analysis_f32(const float* I_t, const float* Le_t, const float* free_t,
   beam_analysis_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       I_t, Le_t, free_t, loads_t, udl, u_t, V_t, M_t, piv, ws, B, n, refine,
       E, EA);
-  return (int)cudaGetLastError();
-}
-
-int beam_opt_step_f32(const float* I_t, const float* mu_t, const float* nu_t,
-                      const float* Le_t, const float* free_t,
-                      const float* loads_t, const float* udl, float* I_out,
-                      float* mu_out, float* nu_out, float* stats, float* ws,
-                      int B, int n, int refine, int grad_semi, float E,
-                      float G, float alpha_m, float alpha_s, float clamp_min,
-                      float lr_t, float bc1, float bc2, void* stream) {
-  if (B <= 0) return 0;
-  const int blocks = (B + kBlock - 1) / kBlock;
-  beam_opt_step_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      I_t, mu_t, nu_t, Le_t, free_t, loads_t, udl, I_out, mu_out, nu_out,
-      stats, ws, B, n, refine, grad_semi, E, G, alpha_m, alpha_s, clamp_min,
-      lr_t, bc1, bc2);
   return (int)cudaGetLastError();
 }
 

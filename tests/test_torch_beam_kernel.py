@@ -131,3 +131,43 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     assert tk.PLAIN_CALLS == {"beam_analysis": 1, "beam_opt_step": 1,
                               "beam_solve": 0}
     tk.reset_counts()
+
+
+def _opt_args(B=4, n=9):
+    """Lanes-first float32 opt-step inputs from numpy (values do not
+    matter: nothing launches)."""
+    rng = np.random.default_rng(n)
+    shapes = ((B, n - 1),) * 4 + ((B, n, 3), (B, n), (B,))
+    return [torch.from_numpy(rng.random(s, dtype=np.float32)) for s in shapes]
+
+
+@pytest.mark.parametrize("case", ["strided I", "strided free", "float64",
+                                  "short loads", "no element", "dd strided"])
+def test_opt_step_launchers_check_inputs_before_building(case):
+    """The opt-step kernels (#2, #8) read the optimizer's lanes-first
+    tensors as they lie: the launchers refuse a strided view, another dtype
+    or shape, or a beam without elements, before building or launching."""
+    from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
+
+    args = _opt_args(B=1 if case == "no element" else 4,
+                     n=1 if case == "no element" else 9)
+    if case in ("strided I", "dd strided"):
+        args[0] = args[0].t().contiguous().t()
+    if case == "strided free":
+        args[4] = args[4].movedim(0, -1).contiguous().movedim(-1, 0)
+    if case == "float64":
+        args[2] = args[2].double()
+    if case == "short loads":
+        args[5] = args[5][:, :-1]
+    tail = (0.009, 1.5, 400.0, E, A, G)
+    tk.reset_counts()
+    tkd.reset_counts()
+    with pytest.raises((ValueError, TypeError)) as err:
+        if case == "dd strided":
+            tkd.launch_beam_opt_step_dd(*args, *tail)
+        else:
+            tk.launch_beam_opt_step(*args, 0.009, 1.5, 400.0, E, G)
+    if case.endswith("strided") or case.startswith("strided"):
+        assert "contiguous" in str(err.value)
+    assert tk.LAUNCHES["beam_opt_step"] == 0
+    assert tkd.LAUNCHES["beam_opt_step_dd"] == 0

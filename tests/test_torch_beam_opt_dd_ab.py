@@ -1,9 +1,11 @@
 """The compare step of tools/beam_opt_dd_ab.py on small synthetic dumps.
 
 The tool's ``run`` needs a CUDA card; ``compare`` reads two dumps (a JSON
-of hashes and times beside an npz of #8's outputs) and decides whether two
-checkouts' kernels agree: I, mu, nu and the pivot bit for bit, stats to
-rounding, every other kernel's hash exactly.
+of hashes and times beside an npz of the kernel's outputs) and decides
+whether two checkouts' kernels agree.  For #8 (``--kernel opt_dd``): I, mu,
+nu and the pivot bit for bit, stats to rounding, every other kernel's hash
+exactly.  For #2 (``--kernel opt``): its outputs are reported in float32
+ulps, not held to bits; every other kernel's hash exactly.
 """
 
 import importlib.util
@@ -23,22 +25,32 @@ def _tool():
     return mod
 
 
-def _dump(prefix, arrays, hashes):
+def _dump(prefix, arrays, hashes, kernel):
     np.savez(prefix.with_suffix(".npz"), **arrays)
     prefix.with_suffix(".json").write_text(json.dumps(dict(
-        hashes=hashes, times={"n=101 B=256": dict(kernel=0.5, wrapper=0.6)})))
+        kernel=kernel, hashes=hashes,
+        times={"n=101 B=256": dict(kernel=0.5, wrapper=0.6)})))
 
 
-def _arrays(seed):
+def _arrays(seed, kernel):
+    """#8's fields per input set, or #2's per input set and mode (no
+    pivot)."""
     rng = np.random.default_rng(seed)
     out = {}
     for case, nelem in (("rb101", 6), ("fixed201", 9)):
-        out[f"{case}.I"] = rng.random((5, nelem), dtype=np.float32) + 0.1
-        out[f"{case}.mu"] = rng.standard_normal((5, nelem)).astype(np.float32)
-        out[f"{case}.nu"] = rng.random((5, nelem), dtype=np.float32)
-        out[f"{case}.stats"] = rng.random((5, 4), dtype=np.float32)
-        out[f"{case}.pivot"] = rng.random(5, dtype=np.float32)
-    out["rb101.pivot"][2] = np.nan      # a NaN lane stays NaN in both
+        for mode in ((None,) if kernel == "opt_dd" else ("semi", "adjoint")):
+            key = case if mode is None else f"{case}.{mode}"
+            out[f"{key}.I"] = rng.random((5, nelem), dtype=np.float32) + 0.1
+            out[f"{key}.mu"] = rng.standard_normal((5, nelem)).astype(
+                np.float32)
+            out[f"{key}.nu"] = rng.random((5, nelem), dtype=np.float32)
+            out[f"{key}.stats"] = rng.random((5, 4), dtype=np.float32)
+            if kernel == "opt_dd":
+                out[f"{key}.pivot"] = rng.random(5, dtype=np.float32)
+    if kernel == "opt_dd":
+        out["rb101.pivot"][2] = np.nan      # a NaN lane stays NaN in both
+    else:
+        out["rb101.semi.I"][2, 1] = np.nan
     return out
 
 
@@ -48,30 +60,41 @@ def _flip_last_bit(a, index):
     return b
 
 
-@pytest.mark.parametrize("change", ["none", "I", "pivot", "stats", "hash"])
+@pytest.mark.parametrize("change", ["none", "I", "pivot", "stats", "hash",
+                                    "opt:none", "opt:I", "opt:hash"])
 def test_compare(tmp_path, change):
-    """Equal dumps compare equal; one bit off in I or the pivot, or another
-    kernel's hash off, makes them differ; one bit off in stats does not."""
+    """Equal dumps compare equal.  #8: one bit off in I or the pivot, or
+    another kernel's hash off, makes them differ; one bit off in stats does
+    not.  #2: one bit off in I is reported as 1 ulp and does not make them
+    differ; another kernel's hash off does."""
     tool = _tool()
-    hashes = {"#8 rb101 I": "a", "#1 fixed101": "b", "#7 rb101": "c"}
-    a = _arrays(0)
+    kernel, _, change = change.rpartition(":")
+    kernel = kernel or "opt_dd"
+    own = "#8 rb101 I" if kernel == "opt_dd" else "#2 fixed101 semi"
+    other = "#7 rb101" if kernel == "opt_dd" else "#8 rb101 I"
+    hashes = {own: "a", "#1 fixed101": "b", other: "c"}
+    a = _arrays(0, kernel)
     b = {k: v.copy() for k, v in a.items()}
     hashes_b = dict(hashes)
+    prefix = "rb101" if kernel == "opt_dd" else "rb101.semi"
     if change in ("I", "pivot", "stats"):
-        key = f"rb101.{change}"
+        key = f"{prefix}.{change}"
         b[key] = _flip_last_bit(a[key], (1, 3) if change != "pivot" else 4)
     if change == "hash":
-        hashes_b["#7 rb101"] = "d"
-    _dump(tmp_path / "a", a, hashes)
-    _dump(tmp_path / "b", b, hashes_b)
+        hashes_b[other] = "d"
+    _dump(tmp_path / "a", a, hashes, kernel)
+    _dump(tmp_path / "b", b, hashes_b, kernel)
     r = tool.compare_dumps(tmp_path / "a", tmp_path / "b")
-    assert r["equal"] == (change in ("none", "stats"))
+    held = ("none", "stats") if kernel == "opt_dd" else ("none", "I")
+    assert r["equal"] == (change in held)
     assert tool.compare(tmp_path / "a", tmp_path / "b") == (
         0 if r["equal"] else 1)
     for key, row in r["outputs"].items():
-        off = change in ("I", "pivot", "stats") and key == f"rb101.{change}"
+        off = change in ("I", "pivot", "stats") and key == f"{prefix}.{change}"
         assert row["bitwise"] == (not off)
         assert row["max_ulps"] == (1 if off else 0)
         assert (row["max_abs"] > 0) == off
-    assert r["hashes"]["#7 rb101"] == (change != "hash")
-    assert "#8 rb101 I" not in r["hashes"]   # #8 is held by its arrays
+        assert row["exact"] == (kernel == "opt_dd"
+                                and not key.endswith(".stats"))
+    assert r["hashes"][other] == (change != "hash")
+    assert own not in r["hashes"]   # the kernel is held by its arrays

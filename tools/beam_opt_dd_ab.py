@@ -1,30 +1,38 @@
 #!/usr/bin/env python3
-"""A/B the rescue's float64 opt-step kernel (#8) of two checkouts on one
-CUDA card: are its outputs bitwise equal, and how long does a launch take?
+"""A/B an opt-step kernel of two checkouts on one CUDA card: the rescue's
+float64 #8 (``--kernel opt_dd``, the default) or the datagen's float32 #2
+(``--kernel opt``).  Are its outputs equal, and how long does a launch take?
 
     python tools/beam_opt_dd_ab.py run --tree DIR --out PREFIX [--layout L]
+                                       [--kernel K]
     python tools/beam_opt_dd_ab.py compare PREFIX_A PREFIX_B
 
 ``run`` imports the PyTorch port and ``chip_smoke.py`` of the checkout at
-DIR and runs its ``beam_opt_step_dd`` wrapper on chip_smoke.py phase 3b's
-inputs (16384 random-bridge lanes plus the four quasi-cantilever lanes, n =
-101) and phase 4c's (16384 fixed-bridge lanes, n = 201), seed 0.  It writes
-the outputs to PREFIX.npz and, to PREFIX.json, a SHA-256 of each and of the
-other rescue and datagen kernels' outputs on phases 3, 3b and 3c's inputs
-(#1 ``beam_analysis``, #2 ``beam_opt_step`` semi and adjoint, #3
-``beam_solve``, #7 ``beam_analysis_dd``), then CUDA-event medians of 20
-launches of #8's wrapper and of its kernel alone at B = 256, 2048, 8192 and
-16384, n = 101 and 201.  ``--layout`` names the checkout's launch contract:
-``lanes_first`` (the launcher takes the optimizer's tensors as they are)
-or ``lanes_last`` (the launcher takes lane-innermost copies, as before the
-redesign).
+DIR.  With ``opt_dd`` it runs the ``beam_opt_step_dd`` wrapper on
+chip_smoke.py phase 3b's inputs (16384 random-bridge lanes plus the four
+quasi-cantilever lanes, n = 101) and phase 4c's (16384 fixed-bridge lanes, n
+= 201), seed 0, and hashes the other beam kernels' outputs on phases 3, 3b
+and 3c's inputs (#1 ``beam_analysis``, #2 ``beam_opt_step`` semi and
+adjoint, #3 ``beam_solve``, #7 ``beam_analysis_dd``).  With ``opt`` it runs
+``beam_opt_step`` in semi and adjoint mode (refine 1) on phase 3's inputs
+(16384 fixed-bridge lanes, n = 101) and phase 4c's, and hashes #1, #3, #7
+and #8.  It writes the outputs to PREFIX.npz and, to PREFIX.json, a SHA-256
+of each and of the other kernels' outputs, then CUDA-event medians of 20
+launches of the kernel's wrapper and of its launcher alone at B = 256,
+2048, 8192 and 16384, n = 101 and 201 (for #2 in both modes, and the
+launcher at refine 0, 1 and 2 at B = 256 and 16384, n = 101).  ``--layout``
+names the checkout's launch contract: ``lanes_first`` (the launcher takes
+the optimizer's tensors as they are) or ``lanes_last`` (the launcher takes
+lane-innermost copies, as before the redesign).
 
-``compare`` reports, per input set, whether I, mu, nu and the pivot are
-bitwise equal (else their largest difference, absolute and in float32
-units in the last place) and the largest stats difference, whether the
-other kernels hashed the same, and the two runs' times side by side.  It
-exits 1 unless I, mu, nu, the pivot and every hash agree.  One process per
-checkout: both trees hold a package of the same name.
+``compare`` reports, per output, whether the two runs are bitwise equal
+(else their largest difference, absolute and in float32 units in the last
+place; for #2 also each run's per-lane error to the plain float64 version
+beside plain float32's), whether the other kernels hashed the same, and
+the two runs' times side by side.  For #8 it exits 1 unless I, mu, nu,
+the pivot and every hash agree; #2 is held to float32 rounding, not bits
+(its ulp distance is reported), so it exits 1 only when a hash differs.
+One process per checkout: both trees hold a package of the same name.
 """
 
 from __future__ import annotations
@@ -38,9 +46,11 @@ from pathlib import Path
 import numpy as np
 
 FIELDS = ("I", "mu", "nu", "stats", "pivot")
-EXACT = ("I", "mu", "nu", "pivot")     # held bitwise; stats sum in any order
+EXACT = ("I", "mu", "nu", "pivot")  # #8's, held bitwise; stats to rounding
 SWEEP_B = (256, 2048, 8192, 16384)
 SWEEP_N = (101, 201)
+MODES = ("semi", "adjoint")
+TAG = {"opt_dd": "#8", "opt": "#2"}
 
 
 def _sha(t) -> str:
@@ -48,8 +58,14 @@ def _sha(t) -> str:
                           .tobytes()).hexdigest()
 
 
-def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
-        B: int = 16384) -> None:
+def _sha_all(outs) -> str:
+    import torch
+
+    return _sha(torch.cat([t.reshape(len(t), -1) for t in outs], 1))
+
+
+def run(tree: Path, out: Path, layout: str = "lanes_first",
+        kernel: str = "opt_dd", seed: int = 0, B: int = 16384) -> None:
     sys.path.insert(0, str(tree.resolve()))
     import torch
 
@@ -81,6 +97,9 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
     ana_keys = ("I", "Le", "free", "loads", "udl")
 
     def inputs(case, lanes, with_qc=True):
+        if case == "fixed101":  # phase 3
+            return cs.make_inputs(torch, sample_scenarios, constraint_mask,
+                                  seed, lanes, dev)
         if case == "rb101":     # phase 3b
             x = cs.make_inputs(torch, sample_scenarios, constraint_mask,
                                seed + 3, lanes, dev, cfg=rb_cfg)
@@ -94,51 +113,94 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
                               seed + 5, lanes, dev,
                               cfg=ScenarioConfig(num_nodes=201))  # phase 4c
 
+    def opt_step(x, mode):
+        return tk.beam_opt_step(*(x[k] for k in opt_keys), *scalars, E, A, G,
+                                grad_semi=mode == "semi", refine=1)
+
     result = dict(tree=str(tree), card=torch.cuda.get_device_name(0),
-                  layout=layout, hashes={}, times={})
+                  layout=layout, kernel=kernel, hashes={}, times={})
     arrays = {}
+    hashes = result["hashes"]
     for case in ("rb101", "fixed201"):
         x = inputs(case, B)
         outs = tkd.beam_opt_step_dd(*(x[k] for k in opt_keys), *scalars,
                                     E, A, G)
         for f, t in zip(FIELDS, outs):
-            arrays[f"{case}.{f}"] = t.cpu().numpy()
-            result["hashes"][f"#8 {case} {f}"] = _sha(t)
+            if kernel == "opt_dd":
+                arrays[f"{case}.{f}"] = t.cpu().numpy()
+            hashes[f"#8 {case} {f}"] = _sha(t)
         if case == "rb101":
-            result["hashes"]["#7 rb101"] = _sha(torch.cat(
-                [t.reshape(len(t), -1) for t in tkd.beam_analysis_dd(
-                    *(x[k] for k in ana_keys), E, A)], 1))
-    # the other beam kernels, on phase 3's and 3c's inputs
-    x = cs.make_inputs(torch, sample_scenarios, constraint_mask, seed, B, dev)
-    result["hashes"]["#1 fixed101"] = _sha(torch.cat(
-        [t.reshape(len(t), -1) for t in tk.beam_analysis(
-            *(x[k] for k in ana_keys), E, A, 1)], 1))
-    for semi in (True, False):
-        result["hashes"][f"#2 fixed101 {'semi' if semi else 'adjoint'}"] = (
-            _sha(torch.cat([t.reshape(len(t), -1) for t in tk.beam_opt_step(
-                *(x[k] for k in opt_keys), *scalars, E, A, G, grad_semi=semi,
-                refine=1)], 1)))
+            hashes["#7 rb101"] = _sha_all(tkd.beam_analysis_dd(
+                *(x[k] for k in ana_keys), E, A))
+    # the float32 beam kernels, on phase 3's, 4c's and 3c's inputs
+    for case in ("fixed101", "fixed201"):
+        x = inputs(case, B)
+        if case == "fixed101":
+            hashes["#1 fixed101"] = _sha_all(tk.beam_analysis(
+                *(x[k] for k in ana_keys), E, A, 1))
+        for mode in MODES:
+            outs = opt_step(x, mode)
+            if kernel == "opt":
+                plain = [tk.beam_opt_step_reference(
+                    *(x[k].to(dt) for k in opt_keys), *scalars, E, A, G,
+                    grad_semi=mode == "semi", refine=1)
+                    for dt in (torch.float32, torch.float64)]
+                for j, (f, t) in enumerate(zip(FIELDS, outs)):
+                    arrays[f"{case}.{mode}.{f}"] = t.cpu().numpy()
+                    # per-lane error to float64, of the lane's scale: the
+                    # kernel's and plain float32's p50, p99
+                    errs = [cs.lane_errors(torch, y, plain[1][j])
+                            for y in (t, plain[0][j])]
+                    result.setdefault("errors", {})[f"{case}.{mode}.{f}"] = [
+                        e.quantile(q).item() for e in errs for q in (0.5, 0.99)]
+            if case == "fixed101":
+                hashes[f"#2 fixed101 {mode}"] = _sha_all(outs)
     s3 = cs.split_inputs(torch, sample_scenarios, constraint_mask,
                          assemble_beam_system, seed + 111, B, 101,
                          ScenarioConfig(), E, A, dev)
-    result["hashes"]["#3 fixed101"] = _sha(torch.cat(
-        [t.reshape(len(t), -1) for t in tk.beam_solve(
-            *(s3[k] for k in ("I", "Le", "free", "rhs")), E, A, 1)], 1))
+    hashes["#3 fixed101"] = _sha_all(tk.beam_solve(
+        *(s3[k] for k in ("I", "Le", "free", "rhs")), E, A, 1))
     del x, s3
+
+    def copies(opt):
+        return ([lanes_last(t) for t in opt[:-1]] + [opt[-1]]
+                if layout == "lanes_last" else opt)
 
     for n in SWEEP_N:
         for lanes in SWEEP_B:
-            x = inputs("rb101" if n == 101 else "fixed201", lanes, False)
+            if kernel == "opt_dd":
+                x = inputs("rb101" if n == 101 else "fixed201", lanes, False)
+                opt = [x[k] for k in opt_keys]
+                row = dict(wrapper=cs.time_ms(
+                    torch, lambda: tkd.beam_opt_step_dd(*opt, *scalars, E, A,
+                                                        G), 20))
+                opt = copies(opt)
+                row["kernel"] = cs.time_ms(
+                    torch, lambda: tkd.launch_beam_opt_step_dd(
+                        *opt, *scalars, E, A, G), 20)
+                result["times"][f"n={n} B={lanes}"] = row
+                continue
+            x = inputs("fixed101" if n == 101 else "fixed201", lanes)
             opt = [x[k] for k in opt_keys]
-            row = dict(wrapper=cs.time_ms(torch, lambda: tkd.beam_opt_step_dd(
-                *opt, *scalars, E, A, G), 20))
-            if layout == "lanes_last":
-                opt = [lanes_last(t) for t in opt[:-1]] + [opt[-1]]
-            row["kernel"] = cs.time_ms(
-                torch, lambda: tkd.launch_beam_opt_step_dd(
-                    *opt, *scalars, E, A, G), 20)
-            result["times"][f"n={n} B={lanes}"] = row
-            del x, opt
+            opt_t = copies(opt)
+            for mode in MODES:
+                kw = dict(grad_semi=mode == "semi", refine=1)
+                result["times"][f"n={n} B={lanes} {mode}"] = dict(
+                    wrapper=cs.time_ms(torch, lambda: tk.beam_opt_step(
+                        *opt, *scalars, E, A, G, **kw), 20),
+                    kernel=cs.time_ms(torch, lambda: tk.launch_beam_opt_step(
+                        *opt_t, *scalars, E, G, **kw), 20))
+            del x, opt, opt_t
+    if kernel == "opt":
+        # what a refinement (a forward and a back sweep) costs: the kernel
+        # alone at refine 0, 1, 2
+        for lanes in (256, 16384):
+            opt_t = copies([inputs("fixed101", lanes)[k] for k in opt_keys])
+            for mode in MODES:
+                result["times"][f"n=101 B={lanes} {mode} by refine"] = [
+                    cs.time_ms(torch, lambda: tk.launch_beam_opt_step(
+                        *opt_t, *scalars, E, G, grad_semi=mode == "semi",
+                        refine=r), 20) for r in (0, 1, 2)]
     torch.cuda.synchronize()
     np.savez(out.with_suffix(".npz"), **arrays)
     out.with_suffix(".json").write_text(json.dumps(result, indent=1))
@@ -159,10 +221,12 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> int:
 
 def compare_dumps(a: Path, b: Path) -> dict:
     """Per output: bitwise equality, largest |difference| and ULP distance;
-    per hash: equality.  ``equal`` is True when every exact output and
-    every hash agrees."""
+    per hash of another kernel: equality.  ``equal`` is True when every hash
+    agrees and, for #8, every exact output is bitwise equal."""
     ja, jb = (json.loads(p.with_suffix(".json").read_text()) for p in (a, b))
     na, nb = (np.load(p.with_suffix(".npz")) for p in (a, b))
+    kernel = ja.get("kernel", "opt_dd")
+    tag = TAG[kernel]
     rows = {}
     for key in sorted(na.files):
         x, y = na[key], nb[key]
@@ -175,31 +239,45 @@ def compare_dumps(a: Path, b: Path) -> dict:
                          max_rel=float(np.nanmax(diff) / scale)
                          if scale > 0 else 0.0,
                          max_ulps=_ulps(x, y),
-                         exact=key.split(".")[-1] in EXACT)
+                         exact=kernel == "opt_dd"
+                         and key.split(".")[-1] in EXACT)
     hashes = {k: v == jb["hashes"].get(k)
-              for k, v in ja["hashes"].items() if not k.startswith("#8")}
+              for k, v in ja["hashes"].items() if not k.startswith(tag)}
     equal = (all(r["bitwise"] for r in rows.values() if r["exact"])
              and all(hashes.values()) and set(na.files) == set(nb.files))
-    return dict(outputs=rows, hashes=hashes, equal=equal,
+    errors = {k: (v, jb.get("errors", {}).get(k, [float("nan")] * 4))
+              for k, v in ja.get("errors", {}).items()}
+    return dict(kernel=kernel, outputs=rows, hashes=hashes, equal=equal,
+                errors=errors,
                 times=(ja.get("times", {}), jb.get("times", {})))
 
 
 def compare(a: Path, b: Path) -> int:
     r = compare_dumps(a, b)
+    tag = TAG[r["kernel"]]
     for key, row in r["outputs"].items():
-        print(f"#8 {key}: " + ("bitwise equal" if row["bitwise"] else
-                               f"DIFFER max |a - b| {row['max_abs']:.3e} "
-                               f"({row['max_rel']:.3e} of scale, "
-                               f"{row['max_ulps']} ulp)")
+        print(f"{tag} {key}: " + ("bitwise equal" if row["bitwise"] else
+                                  f"DIFFER max |a - b| {row['max_abs']:.3e} "
+                                  f"({row['max_rel']:.3e} of scale, "
+                                  f"{row['max_ulps']} ulp)")
               + ("" if row["exact"] else " (held to rounding, not bits)"))
     for k, same in r["hashes"].items():
         print(f"{k}: {'equal' if same else 'DIFFER'}")
+    for key, (ea, eb) in r["errors"].items():
+        print(f"{tag} {key} per-lane error to float64, p50 / p99: a "
+              f"{ea[0]:.3e} / {ea[1]:.3e}, b {eb[0]:.3e} / {eb[1]:.3e}, "
+              f"plain float32 {ea[2]:.3e} / {ea[3]:.3e}")
     ta, tb = r["times"]
     for k in ta:
+        if k.endswith("by refine"):
+            print(f"{k} 0, 1, 2: " + " | ".join(
+                f"{a:.4f} / {b:.4f}" for a, b in zip(ta[k], tb.get(k, ()))))
+            continue
         print(f"{k}: " + " | ".join(
             f"{f} {ta[k][f]:.4f} / {tb.get(k, {}).get(f, float('nan')):.4f}"
             for f in ("kernel", "wrapper")) + " ms")
-    print("bitwise equal" if r["equal"] else "outputs differ")
+    print(("bitwise equal" if r["kernel"] == "opt_dd" else "hashes equal")
+          if r["equal"] else "outputs differ")
     return 0 if r["equal"] else 1
 
 
@@ -211,13 +289,14 @@ def main(argv=None) -> int:
     r.add_argument("--out", type=Path, required=True)
     r.add_argument("--layout", choices=("lanes_first", "lanes_last"),
                    default="lanes_first")
+    r.add_argument("--kernel", choices=tuple(TAG), default="opt_dd")
     c = sub.add_parser("compare")
     c.add_argument("a", type=Path)
     c.add_argument("b", type=Path)
     args = ap.parse_args(argv)
     if args.cmd == "run":
         args.out.parent.mkdir(parents=True, exist_ok=True)
-        run(args.tree, args.out, args.layout)
+        run(args.tree, args.out, args.layout, args.kernel)
         return 0
     return compare(args.a, args.b)
 
