@@ -55,7 +55,10 @@ Phases, each of which raises on failure (exit code not 0):
    fixed-bridge lanes in semi and in adjoint mode (n = 101: the streamed
    kernel #6) and on 16384 random-bridge lanes at n = 51 in semi mode
    (below the dispatch threshold: kernel #4), the solve launched forward
-   (and backward in adjoint mode) and no plain version;
+   (and backward in adjoint mode) and no plain version; after the n = 101
+   semi run, a window of PROFILE_EPOCHS epochs of its epoch body on the
+   16384 lanes and on PROFILE_BUCKET of them under torch.profiler (device
+   busy share, top device and host ops);
    then phase 5's rule on 512 lanes against the plain float32 and float64
    split paths (epochs cut to SPLIT_CHECK_EPOCHS for all three, to keep the
    host's plain runs short); then the gradient of ``beam_analysis`` (kernel
@@ -80,14 +83,17 @@ Phases, each of which raises on failure (exit code not 0):
    valid masks, equal epochs on the rescued lanes, I within 1e-3 relative
    (1e-7 absolute), deflections within 1e-3 of the lane's scale;
 6. times: CUDA events, median of 20 launches per kernel (wrapper, kernel
-   alone and, where the wrapper transposes, its layout copies; #2 and #8
-   read the optimizer's lanes-first tensors and copy none), beside the plain
+   alone and, where the wrapper transposes, its layout copies; #2, #6 and
+   #8 read lanes-first tensors and copy none), beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
    float64, H100 SXM); for #4, #5 and #6 also the dense float32
    ``torch.linalg.solve`` of the same systems, for #9 the dense float64 one
    (the library yardsticks); #4, #5 and #6 in turns at n = 51, 101, 301
-   and 1001, with the dispatch threshold that n = 101, 301 and 1001 imply;
+   and 1001, with the dispatch threshold that n = 101, 301 and 1001 imply,
+   and #6 at the compaction buckets (512, 2048 and 4096 lanes, n = 101:
+   4, 8 and 16 lanes per block on an H100), each output bitwise equal to
+   #4's on the same lanes;
    and solve_beam_checked's two escalation routes in turns on 16384
    fixed-span lanes at n = 201, 501, 1001 and 2001 (the float64 analysis
    wrapper, #7, against the float64 assembly, layout and #9), with the
@@ -121,7 +127,7 @@ SOURCE = {
     "beam_opt_step_dd": CSRC + "beam_opt_dd.cu",
     "beam_solve": CSRC + "beam_kernel.cu",
     "block_tridiag_solve": CSRC + "block_tridiag.cu",
-    "block_tridiag_solve_streamed": CSRC + "block_tridiag.cu",
+    "block_tridiag_solve_streamed": CSRC + "block_stream.cu",
     "block_tridiag_solve_bidi": CSRC + "block_tridiag.cu",
     "solve_dd_streamed": CSRC + "block_tridiag.cu",
 }
@@ -151,6 +157,9 @@ SPLIT_CHECK_EPOCHS = 30  # epoch cut of phase 4d's 512-lane check
 CHECKED_TOL = 1e-4     # solve_beam_checked's tolerance in phase 4e
 STREAM_NS = (101, 301, 1001)   # meshes that set the #4 vs #6 threshold
 BELOW_NS = (51,)               # and a mesh below it, timed beside them
+BUCKETS = (512, 2048, 4096)    # compaction buckets #6 is timed at
+PROFILE_EPOCHS = 8             # the profiled window of phase 4d's split path
+PROFILE_BUCKET = 2048          # and the lanes of its second, bucket-size one
 DD_ROUTE_NS = (201, 501, 1001, 2001)  # meshes that set DD_STREAM_FROM_N
 DD_ROUTE_DEFAULT = 788         # the JAX package's own escalation point
 DD_CHECK_N = 1001      # the span-scaled overhang lanes of phases 3d, 4e
@@ -773,40 +782,79 @@ def read_counts(*modules):
     return launches, plain
 
 
-def profile_batch(torch, run_batch, sample_scenarios, seed, B, beam, opt,
-                  refine):
-    """One batch program under torch.profiler: the device's busy share of
-    the wall time (the profiler's own host overhead makes the idle share
-    an upper bound) and the kernels that take the device time."""
-    from torch.autograd import DeviceType
+def profiled(torch, fn):
+    """Run ``fn`` under torch.profiler, from a synchronized card to one.
+    Returns the profiler and the wall time in s."""
     from torch.profiler import ProfilerActivity, profile
 
-    sc = sample_scenarios(torch.Generator().manual_seed(seed), B,
-                          device="cuda", dtype=torch.float32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        batch = run_batch(sc, beam, opt, refine)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def report_profile(prof, wall, label, top=6):
+    """The device's busy share of the wall time (the profiler's own host
+    overhead makes the idle share an upper bound), and the device ops and
+    host ops that take the most time."""
+    from torch.autograd import DeviceType
+
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) * 1e-6
-    epochs = int(batch.result.n_epochs.max())
-    log(f"  profiled batch ({B} lanes, {epochs} epochs): wall {wall:.2f} s "
-        "under the profiler, device busy "
-        + (f"{busy:.2f} s ({busy / wall:.1%})" if busy > 0
+    log(f"  {label}: wall {wall:.3f} s under the profiler, device busy "
+        + (f"{busy:.3f} s ({busy / wall:.1%})" if busy > 0
            else "not measured (no device events)"))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total * 1e-3:9.1f} ms  {e.count:6d}x  "
             f"{e.key[:70]}")
     cpu = sorted((e for e in prof.key_averages()
                   if e.device_type == DeviceType.CPU),
-                 key=lambda e: -e.self_cpu_time_total)[:6]
+                 key=lambda e: -e.self_cpu_time_total)[:top]
     for e in cpu:
         log(f"    host {e.self_cpu_time_total * 1e-3:9.1f} ms  {e.count:6d}x  "
             f"{e.key[:60]}")
+
+
+def profile_batch(torch, run_batch, sample_scenarios, seed, B, beam, opt,
+                  refine):
+    """One batch program under torch.profiler (``report_profile``)."""
+    sc = sample_scenarios(torch.Generator().manual_seed(seed), B,
+                          device="cuda", dtype=torch.float32)
+    out = {}
+    prof, wall = profiled(torch, lambda: out.setdefault(
+        "batch", run_batch(sc, beam, opt, refine)))
+    epochs = int(out["batch"].result.n_epochs.max())
+    report_profile(prof, wall, f"profiled batch ({B} lanes, {epochs} epochs)")
+
+
+def profile_split_window(torch, sc, beam, opt, refine):
+    """PROFILE_EPOCHS epochs of the split optimizer's epoch body (the
+    ``optimize_beam_compact(fused=False)`` loop's, host syncs included) on
+    all of ``sc``'s lanes under torch.profiler, after 4 epochs of warm-up
+    (``report_profile``)."""
+    from openpystruct_tpu_torch.opt.beam_opt import (
+        _default_I0,
+        _lane_state_init,
+        _make_freeze_body,
+        _make_kernel_step,
+        _run_epochs,
+    )
+
+    B, n = sc.node_x.shape
+    body = _make_freeze_body(_make_kernel_step(
+        sc, beam, opt, refine, False, torch.float32), opt)
+    state, epoch = _run_epochs(body, _lane_state_init(_default_I0(
+        sc, beam, (B, n - 1))), 0, 4, lambda st: True)
+    prof, wall = profiled(torch, lambda: _run_epochs(
+        body, state, epoch, epoch + PROFILE_EPOCHS, lambda st: True))
+    report_profile(prof, wall, f"profiled split-path window ({B} lanes, "
+                   f"n={n}, {opt.grad_mode}, epochs {epoch}-"
+                   f"{epoch + PROFILE_EPOCHS - 1})", top=8)
 
 
 def make_inputs(torch, sample_scenarios, constraint_mask, seed, B, device,
@@ -899,8 +947,8 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["beam_kernel", "block_tridiag", "beam_opt",
-                          "beam_opt_dd"])
+    built = _build.build(["beam_kernel", "block_tridiag", "block_stream",
+                          "beam_opt", "beam_opt_dd"])
     log(f"phase 2: built {len(built)} libraries in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for info in built.values():
@@ -1158,6 +1206,12 @@ def main(argv=None) -> int:
             f"{int(finite.all(-1).sum())}/{BATCH} lanes")
         for k, v in launches.items():
             path_split[k] = path_split.get(k, 0) + v
+        if mode == "semi" and cfg_d.num_nodes == 101:
+            profile_split_window(torch, split_sc, beam, opt_m, refine)
+            profile_split_window(torch, sample_scenarios(
+                torch.Generator().manual_seed(args.seed + 6), PROFILE_BUCKET,
+                cfg_d, device="cuda", dtype=torch.float32), beam, opt_m,
+                refine)
 
     cut = dataclasses.replace(DATAGEN_OPT, max_epochs=SPLIT_CHECK_EPOCHS)
     gen = torch.Generator().manual_seed(args.seed + 8)
@@ -1458,11 +1512,11 @@ def main(argv=None) -> int:
             layout=lambda: ([lanes_last(x) for x in sys32],
                             [lanes_first(sys_t[2])]),
             plain=lambda: tbt.thomas_reference(*sys32), kind="thomas"),
+        # #6 reads the lanes-first systems as they lie
         "block_tridiag_solve_streamed": dict(
             wrapper=lambda: tbs.block_tridiag_solve_streamed(*sys32),
-            kernel=lambda: tbs.launch_thomas_streamed(*sys_t),
-            layout=lambda: ([lanes_last(x) for x in sys32],
-                            [lanes_first(sys_t[2])]),
+            kernel=lambda: tbs.launch_thomas_streamed(*sys32),
+            layout=None,
             plain=lambda: tbt.thomas_backward_reference(
                 *tbt.thomas_forward_reference(*sys32)),
             kind="thomas"),
@@ -1584,10 +1638,12 @@ def main(argv=None) -> int:
                           assemble_beam_system, args.seed + 20 + n_t, B, n_t,
                           ScenarioConfig() if n_t >= 100 else rb_cfg, E, A,
                           dev)
-        st = [lanes_last(x) for x in xs["sys"]]
+        sf = xs["sys"]
+        st = [lanes_last(x) for x in sf]
         del xs
+        # #4 and #5 on lane-innermost copies, #6 on the systems as they lie
         fns = (lambda: tbt.launch_thomas(*st),
-               lambda: tbs.launch_thomas_streamed(*st),
+               lambda: tbs.launch_thomas_streamed(*sf),
                lambda: tbt.launch_thomas_bidi(*st))
         turns = [time_ms(torch, fns[j], 20) for j in (0, 1, 2, 2, 1, 0)]
         by_n[n_t] = tuple((turns[j] + turns[5 - j]) / 2 for j in range(3))
@@ -1596,7 +1652,25 @@ def main(argv=None) -> int:
             f"{turns[5 - j]:.3f})" for j, tag in enumerate(("#4", "#6",
                                                             "#5")))
             + f" | bound {1e3 * bound_ms(B, n_t, 0, 'thomas')[0]:.1f} us")
-        del st
+        if n_t == 101:
+            # #6 at the split path's compaction buckets, each held bitwise
+            # to #4 on the same lanes (the lanes per block it picks differ
+            # by bucket)
+            by_bucket = {}
+            for lanes in BUCKETS:
+                s_b = [x[:lanes] for x in sf]
+                x4 = lanes_first(tbt.launch_thomas(
+                    *(lanes_last(x) for x in s_b)))
+                if not torch.equal(tbs.launch_thomas_streamed(*s_b), x4):
+                    raise AssertionError(f"#6 differs from #4 at {lanes} "
+                                         "lanes, n=101")
+                by_bucket[lanes] = time_ms(
+                    torch, lambda: tbs.launch_thomas_streamed(*s_b), 20)
+                del s_b, x4
+            log("  n=101, #6 at the compaction buckets, bitwise #4's: "
+                + " | ".join(f"B={lanes} {ms:.4f} ms"
+                             for lanes, ms in by_bucket.items()))
+        del st, sf
     implied = min((k for k in STREAM_NS if by_n[k][1] <= by_n[k][0]),
                   default=None)
     log(f"  dispatch threshold this run implies: {implied}; "
@@ -1607,6 +1681,9 @@ def main(argv=None) -> int:
         if k["name"] in turn_names:
             j = turn_names.index(k["name"])
             k["kernel_ms_by_n"] = {str(n_t): v[j] for n_t, v in by_n.items()}
+        if k["name"] == "block_tridiag_solve_streamed":
+            k["kernel_ms_by_bucket"] = {str(lanes): v
+                                        for lanes, v in by_bucket.items()}
 
     # solve_beam_checked's escalation routes, each whole: the float64
     # analysis wrapper (#7) against the float64 assembly, layout and #9;

@@ -5,28 +5,31 @@
 kernels ``_fwd_kernel`` and ``_bwd_kernel``): the block-Thomas solve of
 ``ops/block_tridiag.py`` as two launches, a forward sweep that writes the
 back-substitution multipliers C (n, 3, 3) and the forward solution y (n, 3)
-of every lane to device memory, and a backward sweep that reads them back
-in reverse.  On the TPU this was the mesh-size regime past VMEM, streamed in
-64-node chunks; on the card each thread walks all rows, so the chunks have
-no counterpart, and ``block_tridiag_solve`` sends meshes here from its own
-threshold (``block_tridiag.STREAM_FROM_N``).
+of every lane to a workspace in device memory, and a backward sweep that
+reads them back in reverse.  On the TPU this was the mesh-size regime past
+VMEM, streamed in 64-node chunks; on the card each lane's thread walks all
+rows, and ``block_tridiag_solve`` sends meshes here from its own threshold
+(``block_tridiag.STREAM_FROM_N``).
 
 A CPU tensor runs the plain version, ``thomas_reference`` split at the same
 point (``thomas_forward_reference`` then ``thomas_backward_reference``); a
-CUDA float32 tensor launches the kernels (``csrc/block_tridiag.cu``), or
-raises.  ``LAUNCHES`` counts solves (one forward and one backward launch
-each) and ``PLAIN_CALLS`` the calls sent to the plain version.
+CUDA float32 tensor launches the kernels (``csrc/block_stream.cu``), which
+read the lanes-first systems as they lie and write x lanes-first: no layout
+copy.  There is no fallback: a failed build or launch raises.
+``LAUNCHES`` counts solves (one forward and one backward launch each) and
+``PLAIN_CALLS`` the calls sent to the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from openpystruct_tpu_torch.ops import _build
 from openpystruct_tpu_torch.ops.block_tridiag import (
-    _lib,
     check_system,
-    lanes_first,
-    lanes_last,
     thomas_backward_reference,
     thomas_forward_reference,
 )
@@ -41,20 +44,48 @@ def reset_counts() -> None:
             counts[k] = 0
 
 
-def launch_thomas_streamed(diag_t, upper_t, b_t):
-    """Launch the forward and backward sweeps (kernel #6) on lane-innermost
-    float32 systems (layouts of ``block_tridiag.launch_thomas``).  Returns
-    x_t (n, 3, B)."""
-    n, B = b_t.shape[0], b_t.shape[-1]
-    dev = b_t.device
-    c = torch.empty((n, 3, 3, B), dtype=torch.float32, device=dev)
-    y = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
-    x = torch.empty_like(y)
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The library of kernel #6 (``csrc/block_stream.cu``)."""
+    lib = _build.load("block_stream")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.thomas_streamed_f32.argtypes = [P] * 5 + [I] * 2 + [P]
+    lib.thomas_streamed_f32.restype = I
+    return lib
+
+
+def _check_lanes_first(diag, upper, b):
+    """Raise unless (diag, upper, b) are contiguous float32 (B, n, 3, 3),
+    (B, n-1, 3, 3), (B, n, 3) on one CUDA device: the kernels read them as
+    they lie and copy none.  Returns (B, n)."""
+    B, n = check_system(diag, upper, b)
+    for name, t in (("diag", diag), ("upper", upper), ("b", b)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous: the kernel reads the "
+                             "lanes-first layout as it lies and copies none")
+    if not diag.is_cuda:
+        raise ValueError(f"the kernel takes CUDA tensors, got {diag.device}")
+    return B, n
+
+
+def launch_thomas_streamed(diag, upper, b):
+    """Launch the forward and backward sweeps (kernel #6) on lanes-first
+    float32 systems as they lie: diag (B, n, 3, 3), upper (B, n-1, 3, 3),
+    b (B, n, 3), contiguous on one card (``_check_lanes_first``, before any
+    build).  The kernel picks its lanes per block from B and the card.
+    Returns x (B, n, 3)."""
+    B, n = _check_lanes_first(diag, upper, b)
+    dev = b.device
+    lib = _lib()
+    # C and y, (blocks, n, 12, lanes per block): lanes per block divide 32
+    ws = torch.empty(-(-B // 32) * 32 * n * 12, dtype=torch.float32,
+                     device=dev)
+    x = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().thomas_streamed_f32(
-            diag_t.data_ptr(), upper_t.data_ptr(), b_t.data_ptr(),
-            c.data_ptr(), y.data_ptr(), x.data_ptr(), B, n, stream)
+        rc = lib.thomas_streamed_f32(
+            diag.data_ptr(), upper.data_ptr(), b.data_ptr(), ws.data_ptr(),
+            x.data_ptr(), B, n, stream)
     if rc != 0:
         raise RuntimeError(f"block_tridiag_solve_streamed launch failed: "
                            f"CUDA error {rc}")
@@ -71,6 +102,5 @@ def block_tridiag_solve_streamed(diag, upper, b):
         PLAIN_CALLS["block_tridiag_solve_streamed"] += 1
         return thomas_backward_reference(
             *thomas_forward_reference(diag, upper, b))
-    check_system(diag, upper, b)
-    return lanes_first(launch_thomas_streamed(
-        lanes_last(diag), lanes_last(upper), lanes_last(b)))
+    return launch_thomas_streamed(diag.contiguous(), upper.contiguous(),
+                                  b.contiguous())

@@ -203,13 +203,12 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The library of kernels #4, #5, #6 and #9 (``csrc/block_tridiag.cu``)."""
+    """The library of kernels #4, #5 and #9 (``csrc/block_tridiag.cu``)."""
     lib = _build.load("block_tridiag")
     lib.thomas_f32.argtypes = [_P] * 5 + [_I] * 2 + [_P]
     lib.thomas_bidi_f32.argtypes = [_P] * 5 + [_I] * 2 + [_P]
-    lib.thomas_streamed_f32.argtypes = [_P] * 6 + [_I] * 2 + [_P]
     lib.thomas_streamed_dd_f64.argtypes = [_P] * 7 + [_I] * 2 + [_P]
-    for fn in (lib.thomas_f32, lib.thomas_bidi_f32, lib.thomas_streamed_f32,
+    for fn in (lib.thomas_f32, lib.thomas_bidi_f32,
                lib.thomas_streamed_dd_f64):
         fn.restype = _I
     return lib

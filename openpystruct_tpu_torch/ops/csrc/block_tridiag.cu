@@ -7,15 +7,14 @@
 // sweep y_i = S_i^-1 (b_i - U_{i-1}^T y_{i-1}), then the back sweep
 // x_i = y_i - C_i x_{i+1}.  The lower band is U^T (K symmetric).
 //
-// thomas_fwd_kernel and thomas_bwd_kernel replace
-// openpystruct_tpu/ops/block_stream.py _fwd_kernel and _bwd_kernel
-// (launcher pallas_block_tridiag_solve_streamed): the same recurrence split
-// into two launches, the forward one writing C and y to device memory and
-// the backward one reading them back in reverse.  The carries (C, y, U of
-// the previous row; x of the next) start at zero, so row 0 and row n-1 fall
-// out of the generic step as in the TPU kernels, with the same arithmetic
-// as thomas_kernel.  The TPU kernels' 64-node chunks existed to stream
-// through VMEM; here each thread walks all n rows, so there are no chunks.
+// thomas_fwd_kernel and thomas_bwd_kernel are the streamed pair: the same
+// recurrence split into two launches, the forward one writing C and y to
+// device memory and the backward one reading them back in reverse.  The
+// carries (C, y, U of the previous row; x of the next) start at zero, so
+// row 0 and row n-1 fall out of the generic step, with the same arithmetic
+// as thomas_kernel.  They serve the float64 solve below; kernel #6, the
+// float32 streamed solve, is block_stream.cu, which reads lanes-first
+// systems and carries its own copy of the row step.
 //
 // thomas_fwd_kernel<double, true> and thomas_bwd_kernel<double, float>
 // replace openpystruct_tpu/ops/block_stream_dd.py _fwd_kernel_dd and
@@ -58,9 +57,10 @@
 // 3.35 TB/s); ~190 flops per row are ~5 us at 67 TFLOP/s float32, so the
 // function is bound by bytes.  The float64 pair reads 21n - 9 doubles and
 // writes 3n + 1 floats per lane (~89 us at n = 101).  This simple design
-// also streams C (and, in the two-launch versions, y) through L2 and device
+// also streams C (and, in the two-launch pair, y) through L2 and device
 // memory, and each thread's chain of dependent row loads runs at memory
-// latency with ~124 threads per SM at B = 16384.
+// latency with ~124 threads per SM at B = 16384 (block_stream.cu stages
+// the rows ahead of the chain instead).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -413,20 +413,6 @@ int thomas_f32(const float* diag_t, const float* upper_t, const float* b_t,
   const int blocks = (B + kBlock - 1) / kBlock;
   thomas_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       diag_t, upper_t, b_t, x_t, c_ws, B, n);
-  return (int)cudaGetLastError();
-}
-
-int thomas_streamed_f32(const float* diag_t, const float* upper_t,
-                        const float* b_t, float* c_t, float* y_t, float* x_t,
-                        int B, int n, void* stream) {
-  if (B <= 0 || n <= 0) return 0;
-  const int blocks = (B + kBlock - 1) / kBlock;
-  thomas_fwd_kernel<float, false><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      diag_t, upper_t, b_t, c_t, y_t, nullptr, B, n);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  thomas_bwd_kernel<float, float><<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      c_t, y_t, x_t, B, n);
   return (int)cudaGetLastError();
 }
 

@@ -161,6 +161,42 @@ def test_streamed_matches_pallas():
     assert torch.equal(tbt.thomas_backward_reference(c, y), x)
 
 
+def _launcher_inputs(case):
+    """Float32 systems (B = 2, n = 5) made wrong in one way."""
+    d, u, b = (torch.from_numpy(a).float() for a in _spd(2, 5, 4))
+    if case == "strided diag":
+        d = d.movedim(0, 1).contiguous().movedim(1, 0)
+    elif case == "float64 b":
+        b = b.double()
+    elif case == "wrong upper shape":
+        u = u[:, 1:].contiguous()
+    elif case == "two devices":
+        b = torch.empty(b.shape, device="meta")
+    return d, u, b
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("strided diag", ValueError, "contiguous"),
+    ("float64 b", TypeError, "float32"),
+    ("wrong upper shape", ValueError, "upper has shape"),
+    ("two devices", ValueError, "b is on meta"),
+    ("cpu tensors", ValueError, "CUDA"),
+])
+def test_streamed_launcher_checks_before_building(monkeypatch, case, error,
+                                                  match):
+    """``launch_thomas_streamed`` reads lanes-first systems as they lie: it
+    raises on what the kernel does not take before it builds anything, and
+    counts no launch."""
+    def no_build():
+        raise AssertionError("the launcher built the kernel library")
+
+    monkeypatch.setattr(tbs, "_lib", no_build)
+    tbs.reset_counts()
+    with pytest.raises(error, match=match):
+        tbs.launch_thomas_streamed(*_launcher_inputs(case))
+    assert tbs.LAUNCHES == {"block_tridiag_solve_streamed": 0}
+
+
 @pytest.mark.parametrize("refine", [0, 2])
 @pytest.mark.parametrize("case", sorted(SYSTEMS))
 def test_solve_sym_forward_and_vjp_match_pallas(case, refine):

@@ -1,0 +1,66 @@
+"""The compare step of tools/block_tridiag_ab.py on small synthetic dumps.
+
+The tool's ``run`` needs a CUDA card; ``compare`` reads two dumps (a JSON
+of hashes and times beside an npz of kernel #6's outputs) and decides
+whether two checkouts' block-Thomas kernels agree: #4, #5 and #9 bit for
+bit, #6 reported as bitwise equal or by its gap in float32 ulps.
+"""
+
+import importlib.util
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+_TOOL = Path(__file__).resolve().parents[1] / "tools" / "block_tridiag_ab.py"
+
+
+def _tool():
+    spec = importlib.util.spec_from_file_location("block_tridiag_ab", _TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _dump(prefix, six, hashes):
+    np.savez(prefix.with_suffix(".npz"), **six)
+    prefix.with_suffix(".json").write_text(json.dumps(dict(
+        hashes=hashes, errors={"#6 fixed bridge, n=101": 1e-6},
+        times={"n=101 B=512": dict(kernel=0.02, wrapper=0.03,
+                                   device_us=dict(fwd=12.5, bwd=4.5))})))
+
+
+@pytest.mark.parametrize("change", ["none", "#4", "#5", "#9", "#6"])
+def test_compare(tmp_path, change, capsys):
+    """Equal dumps compare equal.  A #4, #5 or #9 hash off makes them
+    differ; #6 one bit off is reported as 1 ulp and does not."""
+    tool = _tool()
+    rng = np.random.default_rng(0)
+    six = {k: rng.standard_normal((4, 7, 3)).astype(np.float32)
+           for k in ("fixed bridge, n=101", "random bridge, n=201")}
+    six["random bridge, n=201"][2] = np.nan   # a NaN lane stays NaN in both
+    hashes = {"#4 fixed bridge, n=101": "a", "#5 fixed bridge, n=101": "b",
+              "#6 fixed bridge, n=101": "c", "#9 overhang, n=1001 x": "d",
+              "#4 card test systems, seed 7": "e"}
+    six_b = {k: v.copy() for k, v in six.items()}
+    hashes_b = dict(hashes)
+    if change in ("#4", "#5", "#9"):
+        key = next(k for k in hashes if k.startswith(change))
+        hashes_b[key] = "x"
+    if change == "#6":
+        six_b["fixed bridge, n=101"].view(np.uint32)[1, 3, 2] ^= 1
+        hashes_b["#6 fixed bridge, n=101"] = "y"
+    _dump(tmp_path / "a", six, hashes)
+    _dump(tmp_path / "b", six_b, hashes_b)
+    r = tool.compare_dumps(tmp_path / "a", tmp_path / "b")
+    assert r["equal"] == (change in ("none", "#6"))
+    assert tool.compare(tmp_path / "a", tmp_path / "b") == (
+        0 if r["equal"] else 1)
+    for key, row in r["six"].items():
+        off = change == "#6" and key == "fixed bridge, n=101"
+        assert row["bitwise"] == (not off)
+        assert row["max_ulps"] == (1 if off else 0)
+    out = capsys.readouterr().out
+    assert ("differs by up to 1 ulp" in out) == (change == "#6")
+    assert "device us fwd 12.5 / 12.5 | bwd 4.5 / 4.5" in out

@@ -574,6 +574,61 @@ def test_bidi_kernel(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 64, 65, 101, 1001])
+@pytest.mark.parametrize("B", [1, 33, 300, 2048, 4096, 16384])
+def test_streamed_kernel_shapes(cuda, B, n):
+    """Kernel #6 on lanes-first random SPD systems at the edges of its
+    8-row tiles and rings (n = 1, 2, 3, 64, 65, 101, 1001), one lane, ragged
+    blocks (33, 300) and each lane count per block the kernel picks on an
+    H100 (132 SMs): 4 lanes up to 1056 lanes (B = 1, 33, 300), 8 up to
+    2112 (2048), 16 up to 4224 (4096), 32 above (16384).  Against the
+    plain float32 and float64 versions by _hold's rule, and bitwise equal to
+    the one-launch kernel #4, whose row step it repeats."""
+    x32 = _spd_systems(B, n, 1000 * n + B, cuda)
+    kern4 = tbt.lanes_first(tbt.launch_thomas(
+        *(tbt.lanes_last(t) for t in x32)))
+    before = tbs.LAUNCHES["block_tridiag_solve_streamed"]
+    kern = tbs.launch_thomas_streamed(*x32)
+    assert tbs.LAUNCHES["block_tridiag_solve_streamed"] == before + 1
+    torch.cuda.synchronize()
+    assert kern.shape == (B, n, 3) and kern.is_contiguous()
+    _hold([kern], [tbt.thomas_reference(*(t.double() for t in x32))],
+          [tbt.thomas_reference(*x32)])
+    assert torch.equal(kern, kern4)
+
+
+@pytest.mark.cuda
+def test_streamed_kernel_keeps_nan_lanes(cuda):
+    """A lane with a NaN diagonal block stays NaN from that row on; every
+    other lane is bitwise what a clean run gives (lanes are independent)."""
+    x32 = list(_systems(300, 17, cuda, torch.float32))
+    clean = tbs.block_tridiag_solve_streamed(*x32)
+    x32[0] = x32[0].clone()
+    x32[0][40, 60] = float("nan")
+    kern = tbs.block_tridiag_solve_streamed(*x32)
+    torch.cuda.synchronize()
+    assert torch.isnan(kern[40]).any()
+    assert torch.isfinite(clean).all()
+    keep = torch.arange(300, device=cuda) != 40
+    assert torch.equal(kern[keep], clean[keep])
+
+
+@pytest.mark.cuda
+def test_streamed_kernel_rejects_a_strided_input(cuda):
+    """The kernel reads the lanes-first systems as they lie: a transposed
+    view raises instead of being copied, and nothing launches."""
+    x32 = _spd_systems(40, 101, 4, cuda)
+    before = tbs.LAUNCHES["block_tridiag_solve_streamed"]
+    for i in range(3):
+        bad = list(x32)
+        bad[i] = x32[i].movedim(0, 1).contiguous().movedim(1, 0)
+        assert not bad[i].is_contiguous() and torch.equal(bad[i], x32[i])
+        with pytest.raises(ValueError, match="contiguous"):
+            tbs.launch_thomas_streamed(*bad)
+    assert tbs.LAUNCHES["block_tridiag_solve_streamed"] == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 300])
 def test_streamed_dd_kernel(cuda, B):
     """Kernel #9 against its plain version on the same float64 systems

@@ -1,22 +1,39 @@
 #!/usr/bin/env python3
-"""A/B the float32 block-Thomas kernels (#4 and #6) of two checkouts on one
-CUDA card: are their outputs bitwise equal?
+"""A/B the float32 block-Thomas kernels (#4, #5, #6) and the streamed
+float64 solve (#9) of two checkouts on one CUDA card: are their outputs
+equal, and how long does #6 take?
 
-    python tools/block_tridiag_ab.py run --tree DIR --out FILE.json
-    python tools/block_tridiag_ab.py compare A.json B.json
+    python tools/block_tridiag_ab.py run --tree DIR --out PREFIX
+                                         [--layout lanes_first|lanes_last]
+    python tools/block_tridiag_ab.py compare PREFIX_A PREFIX_B
 
 ``run`` imports the PyTorch port and ``chip_smoke.py`` of the checkout at
-DIR, builds its ``ops/csrc/block_tridiag.cu``, and solves chip_smoke.py
-phase 3c's systems (fixed and random bridge at n = 101 and 201, 16384 lanes,
-seed 0) with kernel #4 (``launch_thomas``) and kernel #6
-(``block_tridiag_solve_streamed``).  It writes a SHA-256 of each output's
-bytes, and each kernel's largest per-lane difference to the plain float32
-version (``thomas_reference``) relative to the lane's largest |x|; the same
-for #4 on the 300-lane systems of the checkout's
-``tests/test_torch_cuda.py`` (``_systems`` with seeds 7 and 8, the bar of
-its ``test_block_tridiag_kernels_unchanged_by_templating``).  ``compare``
-exits 1 unless the two runs hashed the same outputs.  One process per
-checkout: both trees hold a package of the same name.
+DIR and builds its kernels.  On chip_smoke.py phase 3c's systems (fixed and
+random bridge at n = 101 and 201, 16384 lanes, seed 0) it solves with #4
+(``launch_thomas``), #5 (``launch_thomas_bidi``) and #6
+(``block_tridiag_solve_streamed``); on phase 3d's float64 systems (phase
+3b's 16384 random-bridge lanes plus the four quasi-cantilever lanes at n =
+101, and 16384 span-scaled overhang lanes at n = 1001) with #9
+(``solve_dd_streamed``, x and pivot); and on the 300-lane systems of the
+checkout's ``tests/test_torch_cuda.py`` (``_systems``, seeds 7 and 8) with
+#4.  It writes a SHA-256 of each output and each float32 kernel's largest
+per-lane difference to the plain float32 version (``thomas_reference``)
+relative to the lane's largest |x| to PREFIX.json, and #6's outputs to
+PREFIX.npz.  Then CUDA-event medians of 20 launches of #6 at B = 512,
+2048, 8192 and 16384 lanes and n = 101, 201 and 1001: the wrapper
+(``block_tridiag_solve_streamed`` on the lanes-first systems) and the
+launcher alone (``launch_thomas_streamed``); and the device time of each of
+its two kernels (forward and backward sweep), the mean of 20 launches under
+torch.profiler.  ``--layout`` names the launcher's contract:
+``lanes_first`` (it takes the systems as they are) or ``lanes_last`` (it
+takes lane-innermost copies, as before the redesign; they are made outside
+the timing).
+
+``compare`` prints each hash's verdict, #6's verdict (bitwise equal, or its
+largest gap in float32 units in the last place) and the two runs' times
+side by side.  It exits 1 unless #4, #5 and #9 hash equal: #6 is reported,
+not held to bits.  One process per checkout: both trees hold a package of
+the same name.
 """
 
 from __future__ import annotations
@@ -27,8 +44,44 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 
-def run(tree: Path, out: Path, seed: int = 0, B: int = 16384) -> None:
+SWEEP_B = (512, 2048, 8192, 16384)
+SWEEP_N = (101, 201, 1001)
+HELD = ("#4", "#5", "#9")       # held to bits; #6 is reported
+
+
+def _sha(t) -> str:
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _device_us(torch, fn, reps=20) -> dict:
+    """Mean device time in us per call of each sweep ``fn`` launches, under
+    torch.profiler: the forward (``fwd`` in the kernel's name) and the
+    backward (``bwd``) sweep."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for sweep in ("fwd", "bwd"):
+                if sweep in e.key:
+                    out[sweep] = (out.get(sweep, 0.0)
+                                  + e.self_device_time_total / reps)
+    return out
+
+
+def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
+        B: int = 16384) -> None:
     sys.path.insert(0, str(tree.resolve()))
     sys.path.insert(0, str(tree.resolve() / "tests"))
     import torch
@@ -37,67 +90,156 @@ def run(tree: Path, out: Path, seed: int = 0, B: int = 16384) -> None:
     from openpystruct_tpu_torch.config import BeamConfig, ScenarioConfig
     from openpystruct_tpu_torch.datagen import sample_scenarios
     from openpystruct_tpu_torch.fem.beam import (
+        BeamScenario,
         assemble_beam_system,
         constraint_mask,
     )
     from openpystruct_tpu_torch.ops import block_stream as tbs
+    from openpystruct_tpu_torch.ops import block_stream_dd as tsd
     from openpystruct_tpu_torch.ops import block_tridiag as tbt
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     beam = BeamConfig(udl=-1000.0)
+    E, A = beam.E, beam.A
     dev = torch.device("cuda")
-    result = {"tree": str(tree), "card": torch.cuda.get_device_name(0)}
+    result = dict(tree=str(tree), card=torch.cuda.get_device_name(0),
+                  layout=layout, hashes={}, errors={}, times={})
+    hashes, arrays = result["hashes"], {}
+    rb_cfg = ScenarioConfig(random_bridge=True)
     for n in (101, 201):
         for label, cfg in (("fixed bridge", ScenarioConfig()),
-                           ("random bridge",
-                            ScenarioConfig(random_bridge=True))):
+                           ("random bridge", rb_cfg)):
             # phase 3c's inputs: its seed rule and its generator
             x = cs.split_inputs(torch, sample_scenarios, constraint_mask,
                                 assemble_beam_system, seed + 10 + n, B, n,
-                                cfg, beam.E, beam.A, dev)
+                                cfg, E, A, dev)
             sys32 = x["sys"]
-            outs = {
-                "#4": tbt.lanes_first(tbt.launch_thomas(
-                    *(tbt.lanes_last(t) for t in sys32))),
-                "#6": tbs.block_tridiag_solve_streamed(*sys32),
-            }
-            plain = tbt.thomas_reference(*sys32)
+            sys_t = [tbt.lanes_last(t) for t in sys32]
+            outs = {"#4": tbt.lanes_first(tbt.launch_thomas(*sys_t)),
+                    "#5": tbt.lanes_first(tbt.launch_thomas_bidi(*sys_t)),
+                    "#6": tbs.block_tridiag_solve_streamed(*sys32)}
+            plain = tbt.thomas_reference(*sys32).double()
             torch.cuda.synchronize()
+            key = f"{label}, n={n}"
             for tag, k in outs.items():
-                diff = cs.lane_errors(torch, k, plain.double())
-                result[f"{label}, n={n}, {tag}"] = dict(
-                    sha256=hashlib.sha256(
-                        k.cpu().numpy().tobytes()).hexdigest(),
-                    max_rel_vs_plain32=diff.max().item())
-            del x, sys32, outs, plain
-    from test_torch_cuda import _lane_err, _systems
+                hashes[f"{tag} {key}"] = _sha(k)
+                result["errors"][f"{tag} {key}"] = cs.lane_errors(
+                    torch, k, plain).max().item()
+            arrays[key] = outs["#6"].cpu().numpy()
+            del x, sys32, sys_t, outs, plain
+    # phase 3d's inputs: 3b's random-bridge lanes and the quasi-cantilever
+    # ones at n = 101, the span-scaled overhang at n = 1001
+    ana_keys = ("I", "Le", "free", "loads", "udl")
+    rb = cs.make_inputs(torch, sample_scenarios, constraint_mask, seed + 3,
+                        B, dev, cfg=rb_cfg)
+    qc = cs.quasi_cantilever(torch, BeamScenario, constraint_mask,
+                             torch.Generator().manual_seed(seed + 4), dev)
+    I_o, sc_o = cs.overhang(torch, BeamScenario, cs.DD_CHECK_N, B, seed + 12,
+                            dev)
+    for key, args in (
+            ("random bridge + quasi-cantilever, n=101",
+             [torch.cat([rb[k], qc[k]]) for k in ana_keys]),
+            (f"overhang, n={cs.DD_CHECK_N}",
+             cs.beam_args(torch, constraint_mask, I_o, sc_o))):
+        x_dd, piv = tsd.solve_dd_streamed(
+            *tsd.assemble_beam_system_dd(*args, E, A)[:3])
+        hashes[f"#9 {key} x"] = _sha(x_dd)
+        hashes[f"#9 {key} pivot"] = _sha(piv)
+    del rb, qc, I_o, sc_o
+    from test_torch_cuda import _systems
 
-    for test_seed, cfg in ((7, ScenarioConfig()),
-                           (8, ScenarioConfig(random_bridge=True))):
+    for test_seed, cfg in ((7, ScenarioConfig()), (8, rb_cfg)):
         x32 = _systems(300, test_seed, dev, torch.float32, cfg)
         k = tbt.lanes_first(tbt.launch_thomas(
             *(tbt.lanes_last(t) for t in x32)))
-        plain = tbt.thomas_reference(*x32)
-        torch.cuda.synchronize()
-        result[f"card test systems, seed {test_seed}, #4"] = dict(
-            sha256=hashlib.sha256(k.cpu().numpy().tobytes()).hexdigest(),
-            max_rel_vs_plain32=_lane_err(k, plain))
-    out.write_text(json.dumps(result, indent=1))
+        hashes[f"#4 card test systems, seed {test_seed}"] = _sha(k)
+
+    def kernel_args(s):
+        return ([tbt.lanes_last(t) for t in s] if layout == "lanes_last"
+                else s)
+
+    for n in SWEEP_N:
+        full = cs.split_inputs(torch, sample_scenarios, constraint_mask,
+                               assemble_beam_system, seed + 20 + n,
+                               max(SWEEP_B), n, ScenarioConfig(), E, A,
+                               dev)["sys"]
+        for lanes in SWEEP_B:
+            s = [t[:lanes] for t in full]
+            k_args = kernel_args(s)
+            row = dict(
+                wrapper=cs.time_ms(
+                    torch, lambda: tbs.block_tridiag_solve_streamed(*s), 20),
+                kernel=cs.time_ms(
+                    torch, lambda: tbs.launch_thomas_streamed(*k_args), 20),
+                device_us=_device_us(
+                    torch, lambda: tbs.launch_thomas_streamed(*k_args)))
+            result["times"][f"n={n} B={lanes}"] = row
+            del s, k_args
+        del full
+    torch.cuda.synchronize()
+    np.savez(out.with_suffix(".npz"), **arrays)
+    out.with_suffix(".json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
 
 
+def _ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """Largest distance in float32 units in the last place (NaN against
+    NaN counts as equal)."""
+    ia = a.astype(np.float32).view(np.int32).astype(np.int64)
+    ib = b.astype(np.float32).view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, np.int64(-2**31) - ia, ia)
+    ib = np.where(ib < 0, np.int64(-2**31) - ib, ib)
+    d = np.abs(ia - ib)
+    d[np.isnan(a) & np.isnan(b)] = 0
+    return int(d.max()) if d.size else 0
+
+
+def compare_dumps(a: Path, b: Path) -> dict:
+    """Per hash: equality; per #6 output: bitwise equality and ulp gap.
+    ``equal`` is True when every #4, #5 and #9 hash agrees."""
+    ja, jb = (json.loads(p.with_suffix(".json").read_text()) for p in (a, b))
+    na, nb = (np.load(p.with_suffix(".npz")) for p in (a, b))
+    hashes = {k: v == jb["hashes"].get(k) for k, v in ja["hashes"].items()}
+    held = [same for k, same in hashes.items() if k.startswith(HELD)]
+    six = {}
+    for key in sorted(na.files):
+        x, y = na[key], nb[key]
+        same = x.shape == y.shape and x.tobytes() == y.tobytes()
+        six[key] = dict(bitwise=same, max_ulps=0 if same else _ulps(x, y))
+    return dict(hashes=hashes, six=six,
+                equal=bool(held) and all(held)
+                and set(na.files) == set(nb.files),
+                errors=(ja.get("errors", {}), jb.get("errors", {})),
+                times=(ja.get("times", {}), jb.get("times", {})))
+
+
 def compare(a: Path, b: Path) -> int:
-    ra, rb = (json.loads(p.read_text()) for p in (a, b))
-    keys = [k for k in ra if isinstance(ra[k], dict)]
-    same = all(ra[k]["sha256"] == rb.get(k, {}).get("sha256") for k in keys)
-    for k in keys:
-        print(f"{k}: {'equal' if ra[k]['sha256'] == rb[k]['sha256'] else 'DIFFER'}"
-              f" | max per-lane diff to plain float32: "
-              f"{ra[k]['max_rel_vs_plain32']:.3e} / "
-              f"{rb[k]['max_rel_vs_plain32']:.3e}")
-    print("bitwise equal" if same else "outputs differ")
-    return 0 if same else 1
+    r = compare_dumps(a, b)
+    for k, same in r["hashes"].items():
+        if not k.startswith("#6"):
+            print(f"{k}: {'equal' if same else 'DIFFER'}")
+    for key, row in r["six"].items():
+        print(f"#6 {key}: " + ("bitwise equal" if row["bitwise"] else
+                               f"differs by up to {row['max_ulps']} ulp"))
+    ea, eb = r["errors"]
+    for k in ea:
+        print(f"{k}: max per-lane diff to plain float32 {ea[k]:.3e} / "
+              f"{eb.get(k, float('nan')):.3e}")
+    ta, tb = r["times"]
+    for k in ta:
+        print(f"{k}: " + " | ".join(
+            f"{f} {ta[k][f]:.4f} / {tb.get(k, {}).get(f, float('nan')):.4f}"
+            for f in ("kernel", "wrapper")) + " ms")
+        da, db = (t.get(k, {}).get("device_us", {}) for t in (ta, tb))
+        if da or db:
+            print("  device us " + " | ".join(
+                f"{f} {da.get(f, float('nan')):.1f} / "
+                f"{db.get(f, float('nan')):.1f}" for f in ("fwd", "bwd")))
+    six = all(row["bitwise"] for row in r["six"].values())
+    print("#6 " + ("bitwise equal" if six else "differs in ulps (reported)"))
+    print("#4, #5, #9 hashes equal" if r["equal"] else "outputs differ")
+    return 0 if r["equal"] else 1
 
 
 def main(argv=None) -> int:
@@ -106,12 +248,15 @@ def main(argv=None) -> int:
     r = sub.add_parser("run")
     r.add_argument("--tree", type=Path, required=True)
     r.add_argument("--out", type=Path, required=True)
+    r.add_argument("--layout", choices=("lanes_first", "lanes_last"),
+                   default="lanes_first")
     c = sub.add_parser("compare")
     c.add_argument("a", type=Path)
     c.add_argument("b", type=Path)
     args = ap.parse_args(argv)
     if args.cmd == "run":
-        run(args.tree, args.out)
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        run(args.tree, args.out, args.layout)
         return 0
     return compare(args.a, args.b)
 
