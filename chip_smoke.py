@@ -23,16 +23,18 @@ Phases, each of which raises on failure (exit code not 0):
    1e-5 of the lane's scale, pivots within a relative 1e-3; the float32
    kernel's error on the quasi-cantilever lanes is printed beside them;
 3c. the split-path kernels against their plain versions at B = 16384, n =
-   101 and 201, on fixed-bridge and random-bridge systems: the explicit-RHS
-   beam solve (#3, x and pivot), the block-Thomas solve (#4), the
-   bidirectional one (#5, against its own plain version) and the streamed
-   one (#6).  On the fixed bridge at n = 101 by phase 3's rule.
-   Elsewhere float32 keeps about no digits (plain float32's own error is
-   ~1 of the lane's scale), so the forward errors are printed, not held;
-   on all four cases each kernel's backward error (the residual of the
-   system in float64, relative to |K| |x| + |b| per lane) must be no more
-   than twice the plain float32 version's, or 1e-6, at the median, the
-   99th percentile and the worst lane, with no more non-finite lanes;
+   101 and 201 on fixed-bridge and random-bridge systems, and n = 51 on
+   random-bridge ones: the explicit-RHS beam solve (#3, x and pivot; n =
+   101 and 201 only), the one-launch block-Thomas solve (#4, its x bitwise
+   equal to #6's), the bidirectional one (#5, against its own plain
+   version) and the streamed one (#6).  On the fixed bridge at n = 101 by
+   phase 3's rule.  Elsewhere float32 keeps about no digits (plain
+   float32's own error is ~1 of the lane's scale), so the forward errors
+   are printed, not held; on all five cases each kernel's backward error
+   (the residual of the system in float64, relative to |K| |x| + |b| per
+   lane) must be no more than twice the plain float32 version's, or 1e-6,
+   at the median, the 99th percentile and the worst lane, with no more
+   non-finite lanes;
 3d. the streamed float64 solve (#9) against its plain version on the
    float64-assembled systems of phase 3b's 16384 random-bridge lanes plus
    the four quasi-cantilever lanes (n = 101) and of 16384 span-scaled
@@ -52,10 +54,11 @@ Phases, each of which raises on failure (exit code not 0):
    phases 3 and 3b, except that the float32 kernels' validity mask may be
    off float64's on up to twice as many lanes as plain float32's;
 4d. the split path: ``optimize_beam_compact(fused=False)`` on 16384
-   fixed-bridge lanes in semi and in adjoint mode (n = 101: the streamed
-   kernel #6) and on 16384 random-bridge lanes at n = 51 in semi mode
-   (below the dispatch threshold: kernel #4), the solve launched forward
-   (and backward in adjoint mode) and no plain version; after the n = 101
+   fixed-bridge lanes in semi and in adjoint mode (n = 101) and on 16384
+   random-bridge lanes at n = 51 in semi mode, the solve launched forward
+   (and backward in adjoint mode) and no plain version, each solve on the
+   kernel ``block_tridiag.uses_streamed`` names for its lane count (#4 or
+   #6; the launches by lane count printed); after the n = 101
    semi run, a window of PROFILE_EPOCHS epochs of its epoch body on the
    16384 lanes and on PROFILE_BUCKET of them under torch.profiler (device
    busy share, top device and host ops);
@@ -83,17 +86,18 @@ Phases, each of which raises on failure (exit code not 0):
    valid masks, equal epochs on the rescued lanes, I within 1e-3 relative
    (1e-7 absolute), deflections within 1e-3 of the lane's scale;
 6. times: CUDA events, median of 20 launches per kernel (wrapper, kernel
-   alone and, where the wrapper transposes, its layout copies; #2, #6 and
-   #8 read lanes-first tensors and copy none), beside the plain
+   alone and, where the wrapper transposes, its layout copies; #2, #4, #6
+   and #8 read lanes-first tensors and copy none), beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
    float64, H100 SXM); for #4, #5 and #6 also the dense float32
    ``torch.linalg.solve`` of the same systems, for #9 the dense float64 one
-   (the library yardsticks); #4, #5 and #6 in turns at n = 51, 101, 301
-   and 1001, with the dispatch threshold that n = 101, 301 and 1001 imply,
-   and #6 at the compaction buckets (512, 2048 and 4096 lanes, n = 101:
-   4, 8 and 16 lanes per block on an H100), each output bitwise equal to
-   #4's on the same lanes;
+   (the library yardsticks); #4 and #6 in turns at n = 51, 101, 201, 301
+   and 1001 and at 512, 2048, 4096, 8192 and 16384 lanes (the compaction
+   buckets and the full batch), launcher and wrapper, each output bitwise
+   equal to the other's, #4 only where one lane's C and y fit a block,
+   with the kernel each case's times imply beside the one
+   ``block_tridiag.uses_streamed`` picks;
    and solve_beam_checked's two escalation routes in turns on 16384
    fixed-span lanes at n = 201, 501, 1001 and 2001 (the float64 analysis
    wrapper, #7, against the float64 assembly, layout and #9), with the
@@ -126,7 +130,7 @@ SOURCE = {
     "beam_analysis_dd": CSRC + "beam_kernel.cu",
     "beam_opt_step_dd": CSRC + "beam_opt_dd.cu",
     "beam_solve": CSRC + "beam_kernel.cu",
-    "block_tridiag_solve": CSRC + "block_tridiag.cu",
+    "block_tridiag_solve": CSRC + "block_resident.cu",
     "block_tridiag_solve_streamed": CSRC + "block_stream.cu",
     "block_tridiag_solve_bidi": CSRC + "block_tridiag.cu",
     "solve_dd_streamed": CSRC + "block_tridiag.cu",
@@ -154,10 +158,13 @@ CHECK_BATCH = 512      # lanes of the whole-optimizer check (phase 5)
 RESCUE_CHECK = 256     # rejected lanes of the dd vs f64 check (phase 5b)
 DD_TOL = 1e-5          # float64 kernel vs plain, of the lane's scale
 SPLIT_CHECK_EPOCHS = 30  # epoch cut of phase 4d's 512-lane check
+SPLIT_NS = (51, 101, 201)      # meshes of phase 3c (51: random bridge only)
 CHECKED_TOL = 1e-4     # solve_beam_checked's tolerance in phase 4e
-STREAM_NS = (101, 301, 1001)   # meshes that set the #4 vs #6 threshold
-BELOW_NS = (51,)               # and a mesh below it, timed beside them
-BUCKETS = (512, 2048, 4096)    # compaction buckets #6 is timed at
+# meshes and lane counts at which phase 6 times #4 against #6: the
+# dispatch (block_tridiag.uses_streamed) follows n = 51-301; the lane counts
+# are the compaction buckets and the full batch
+TURN_NS = (51, 101, 201, 301, 1001)
+TURN_LANES = (512, 2048, 4096, 8192, 16384)
 PROFILE_EPOCHS = 8             # the profiled window of phase 4d's split path
 PROFILE_BUCKET = 2048          # and the lanes of its second, bucket-size one
 DD_ROUTE_NS = (201, 501, 1001, 2001)  # meshes that set DD_STREAM_FROM_N
@@ -551,21 +558,24 @@ def split_inputs(torch, sample_scenarios, constraint_mask,
 
 
 def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
-                        x, E, A, refine, label, gate):
+                        x, E, A, refine, label, gate, solve3=True):
     """#3, #4, #5 and #6 against their plain versions in float32 and
     float64 on the same float32 inputs: forward errors by phase 3's rule
-    (held if ``gate``, else printed), backward errors always held; #5's
-    plain float32 version is the two-chain one.  Returns per kernel the
+    (held if ``gate``, else printed), backward errors always held, #4's x
+    bitwise equal to #6's; #5's plain float32 version is the two-chain one;
+    #3 only with ``solve3``.  Returns per kernel the
     forward errors against float64 (``hold``) and the backward error's 99th
     percentile."""
     errs = {}
     sys32 = x["sys"]
     sys64 = [t.double() for t in sys32]
     sys_t = [tbt.lanes_last(t) for t in sys32]
-    kern4 = tbt.lanes_first(tbt.launch_thomas(*sys_t))
+    kern4 = tbt.launch_thomas(*sys32)
     kern5 = tbt.lanes_first(tbt.launch_thomas_bidi(*sys_t))
     kern6 = tbs.block_tridiag_solve_streamed(*sys32)
     del sys_t
+    if not torch.equal(kern4, kern6):
+        raise AssertionError(f"#4 and #6 differ ({label})")
     p32 = tbt.thomas_reference(*sys32)
     p32_bidi = tbt.thomas_bidi_reference(*sys32)
     p64 = tbt.thomas_reference(*sys64)
@@ -582,6 +592,8 @@ def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
             torch, f"{tag} x", backward_errors(torch, matvec, *sys32, kern),
             bw_plain)
     del p32, p32_bidi, p64, sys64, kern4, kern5, kern6
+    if not solve3:
+        return errs
     args32 = [x[k] for k in ("I", "Le", "free", "rhs")]
     args64 = [t.double() for t in args32]
     kern = tk.beam_solve(*args32, E, A, refine)
@@ -782,6 +794,29 @@ def read_counts(*modules):
     return launches, plain
 
 
+@contextlib.contextmanager
+def launches_by_lanes(tbt, tbs):
+    """Count the launches of #4 and #6 by lane count while the block runs,
+    as {("#4" or "#6", lanes): launches}: the launchers are wrapped, their
+    own counters left as they are."""
+    counts = {}
+    orig = tbt.launch_thomas, tbs.launch_thomas_streamed
+
+    def counted(tag, fn):
+        def launch(diag, upper, b):
+            key = (tag, diag.shape[0])
+            counts[key] = counts.get(key, 0) + 1
+            return fn(diag, upper, b)
+        return launch
+
+    tbt.launch_thomas = counted("#4", orig[0])
+    tbs.launch_thomas_streamed = counted("#6", orig[1])
+    try:
+        yield counts
+    finally:
+        tbt.launch_thomas, tbs.launch_thomas_streamed = orig
+
+
 def profiled(torch, fn):
     """Run ``fn`` under torch.profiler, from a synchronized card to one.
     Returns the profiler and the wall time in s."""
@@ -947,8 +982,8 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["beam_kernel", "block_tridiag", "block_stream",
-                          "beam_opt", "beam_opt_dd"])
+    built = _build.build(["beam_kernel", "block_tridiag", "block_resident",
+                          "block_stream", "beam_opt", "beam_opt_dd"])
     log(f"phase 2: built {len(built)} libraries in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for info in built.values():
@@ -981,16 +1016,20 @@ def main(argv=None) -> int:
 
     # ---- phase 3c: the split-path kernels against their plain versions ----
     errs_split = {}
-    for n_s in (101, 201):
+    for n_s in SPLIT_NS:
+        # the fixed bridge's roller tags need n >= 100
         for label, cfg_s in (("fixed bridge", ScenarioConfig()),
-                             ("random bridge", rb_cfg)):
+                             ("random bridge", rb_cfg))[n_s < 100:]:
             x = split_inputs(torch, sample_scenarios, constraint_mask,
                              assemble_beam_system, args.seed + 10 + n_s, B,
                              n_s, cfg_s, E, A, dev)
             gate = n_s == 101 and label == "fixed bridge"
+            # #3 at the datagen meshes only (at n = 51 its worst lane's
+            # backward error is 4x plain float32's, PERF.md, #3)
             e = check_split_kernels(torch, tk, tbt, tbs, block_tridiag_matvec,
                                     assemble_beam_system, x, E, A, refine,
-                                    f"{label}, B={B}, n={n_s}", gate)
+                                    f"{label}, B={B}, n={n_s}", gate,
+                                    solve3=n_s >= 100)
             errs_split[(n_s, label)] = e
             if gate:
                 split101 = x
@@ -1165,10 +1204,11 @@ def main(argv=None) -> int:
                              "< 0.99")
 
     # ---- phase 4d: the split path on the card ----------------------------
-    # fixed bridge at n = 101 in both modes (the dispatcher sends it to the
-    # streamed kernel #6), then a 51-node random-bridge mesh, below
-    # block_tridiag.STREAM_FROM_N, where the one-launch kernel #4 runs
-    path_split = {}
+    # fixed bridge at n = 101 in both modes, then a 51-node random-bridge
+    # mesh; each solve goes to the kernel block_tridiag.uses_streamed names
+    # for its lane count (#4 or #6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    path_split, split_by_lanes = {}, {}
     for mode, cfg_d in (("semi", ScenarioConfig()),
                         ("adjoint", ScenarioConfig()),
                         ("semi", dataclasses.replace(rb_cfg, num_nodes=51))):
@@ -1183,17 +1223,30 @@ def main(argv=None) -> int:
         reset_counts(*mods)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = optimize_beam_compact(split_sc, beam, opt_m, refine=refine,
-                                    fused=False)
-        torch.cuda.synchronize()
+        with launches_by_lanes(tbt, tbs) as by_lanes:
+            res = optimize_beam_compact(split_sc, beam, opt_m, refine=refine,
+                                        fused=False)
+            torch.cuda.synchronize()
         wall_split = time.perf_counter() - t0
         launches, plain = read_counts(*mods)
         solves = (launches["block_tridiag_solve"]
                   + launches["block_tridiag_solve_streamed"])
         log(f"  launches {launches} plain calls {plain}")
+        log("  solves by lane count: " + ", ".join(
+            f"{tag} {k} at {lanes}" for (tag, lanes), k in
+            sorted(by_lanes.items(), key=lambda kv: (-kv[0][1], kv[0][0]))))
         if solves == 0 or any(v != 0 for v in plain.values()):
             raise AssertionError(f"the split path did not run the kernels "
                                  f"only: {launches} {plain}")
+        wrong = [(tag, lanes) for tag, lanes in by_lanes
+                 if (tag == "#6") != tbt.uses_streamed(cfg_d.num_nodes,
+                                                       lanes, sms)]
+        if wrong or sum(by_lanes.values()) != solves:
+            raise AssertionError(f"solves not sent where uses_streamed "
+                                 f"says: {wrong} of {by_lanes}")
+        for (tag, lanes), k in by_lanes.items():
+            key = f"{tag} n={cfg_d.num_nodes} B={lanes}"
+            split_by_lanes[key] = split_by_lanes.get(key, 0) + k
         finite = torch.isfinite(res.I)
         if not (res.I[finite] >= DATAGEN_OPT.clamp_min).all():
             raise AssertionError("unclamped I on the split path")
@@ -1505,14 +1558,14 @@ def main(argv=None) -> int:
                             [lanes_first(sv_t[3])]),
             plain=lambda: tk.beam_solve_reference(*sv, E, A, refine),
             kind="solve3"),
+        # #4 and #6 read the lanes-first systems as they lie; #4's wrapper
+        # is the call block_tridiag_solve makes when it dispatches to #4
         "block_tridiag_solve": dict(
-            wrapper=lambda: lanes_first(tbt.launch_thomas(
-                *(lanes_last(x) for x in sys32))),
-            kernel=lambda: tbt.launch_thomas(*sys_t),
-            layout=lambda: ([lanes_last(x) for x in sys32],
-                            [lanes_first(sys_t[2])]),
+            wrapper=lambda: tbt.launch_thomas(
+                *(x.contiguous() for x in sys32)),
+            kernel=lambda: tbt.launch_thomas(*sys32),
+            layout=None,
             plain=lambda: tbt.thomas_reference(*sys32), kind="thomas"),
-        # #6 reads the lanes-first systems as they lie
         "block_tridiag_solve_streamed": dict(
             wrapper=lambda: tbs.block_tridiag_solve_streamed(*sys32),
             kernel=lambda: tbs.launch_thomas_streamed(*sys32),
@@ -1615,7 +1668,7 @@ def main(argv=None) -> int:
         if name in SPLIT_KERNELS:
             kernels[-1]["backward_err_p99"] = {
                 f"{lb}, n={n_s}": e[name]["backward_p99"]
-                for (n_s, lb), e in errs_split.items()}
+                for (n_s, lb), e in errs_split.items() if name in e}
     kernels[1]["adjoint_kernel_only_ms"] = adjoint_ms
     kernels[1]["adjoint_bound_ms"] = bound_ms(B, n, refine, "adjoint")[0]
     log(f"  beam_opt_step adjoint: kernel {adjoint_ms:.3f} ms | bound "
@@ -1626,64 +1679,81 @@ def main(argv=None) -> int:
             k["rel_err_p99_n1001"] = errs_fine_dd["rel_p99"]
     del sys_dd, sys_dd_t, x_dd_t
 
-    # #4, #6 and #5, kernels alone, in turns #4, #6, #5, #5, #6, #4
-    log(f"phase 6: block-Thomas #4 vs streamed #6 vs bidirectional #5 at "
-        f"B={B}, n in {BELOW_NS + STREAM_NS} (kernel ms, mean of two "
-        "medians of 20)")
-    by_n = {}
-    for n_t in BELOW_NS + STREAM_NS:
+    # #4 against #6 in turns #4, #6, #6, #4 by mesh and lane count: the
+    # launchers and the wrappers block_tridiag_solve reaches, each x
+    # bitwise equal to the other's; #4 only where its resident set fits
+    log(f"phase 6: one-launch #4 vs streamed #6, n in {TURN_NS}, lanes in "
+        f"{TURN_LANES} (kernel and wrapper ms, mean of two medians of 20)")
+    turns46 = {}
+    for n_t in TURN_NS:
         # the fixed bridge's roller tags need n >= 100: the 51-node mesh
         # is phase 4d's random bridge (the kernels' work is data-blind)
-        xs = split_inputs(torch, sample_scenarios, constraint_mask,
-                          assemble_beam_system, args.seed + 20 + n_t, B, n_t,
+        sf = split_inputs(torch, sample_scenarios, constraint_mask,
+                          assemble_beam_system, args.seed + 20 + n_t,
+                          max(TURN_LANES), n_t,
                           ScenarioConfig() if n_t >= 100 else rb_cfg, E, A,
-                          dev)
-        sf = xs["sys"]
-        st = [lanes_last(x) for x in sf]
-        del xs
-        # #4 and #5 on lane-innermost copies, #6 on the systems as they lie
-        fns = (lambda: tbt.launch_thomas(*st),
-               lambda: tbs.launch_thomas_streamed(*sf),
-               lambda: tbt.launch_thomas_bidi(*st))
-        turns = [time_ms(torch, fns[j], 20) for j in (0, 1, 2, 2, 1, 0)]
-        by_n[n_t] = tuple((turns[j] + turns[5 - j]) / 2 for j in range(3))
-        log(f"  n={n_t}: " + " | ".join(
-            f"{tag} {by_n[n_t][j]:.3f} ms ({turns[j]:.3f}, "
-            f"{turns[5 - j]:.3f})" for j, tag in enumerate(("#4", "#6",
-                                                            "#5")))
-            + f" | bound {1e3 * bound_ms(B, n_t, 0, 'thomas')[0]:.1f} us")
-        if n_t == 101:
-            # #6 at the split path's compaction buckets, each held bitwise
-            # to #4 on the same lanes (the lanes per block it picks differ
-            # by bucket)
-            by_bucket = {}
-            for lanes in BUCKETS:
-                s_b = [x[:lanes] for x in sf]
-                x4 = lanes_first(tbt.launch_thomas(
-                    *(lanes_last(x) for x in s_b)))
-                if not torch.equal(tbs.launch_thomas_streamed(*s_b), x4):
-                    raise AssertionError(f"#6 differs from #4 at {lanes} "
-                                         "lanes, n=101")
-                by_bucket[lanes] = time_ms(
-                    torch, lambda: tbs.launch_thomas_streamed(*s_b), 20)
-                del s_b, x4
-            log("  n=101, #6 at the compaction buckets, bitwise #4's: "
-                + " | ".join(f"B={lanes} {ms:.4f} ms"
-                             for lanes, ms in by_bucket.items()))
-        del st, sf
-    implied = min((k for k in STREAM_NS if by_n[k][1] <= by_n[k][0]),
-                  default=None)
-    log(f"  dispatch threshold this run implies: {implied}; "
-        f"block_tridiag.STREAM_FROM_N = {tbt.STREAM_FROM_N}")
-    turn_names = ("block_tridiag_solve", "block_tridiag_solve_streamed",
-                  "block_tridiag_solve_bidi")
+                          dev)["sys"]
+        if n_t == min(TURN_NS):
+            # #4's library yardstick at the split path's smallest mesh
+            K, rhs_d = dense_system(torch, *sf)
+            lib_small = time_ms(torch, lambda: torch.linalg.solve(K, rhs_d),
+                                3, warmup=1)
+            log(f"  library at n={n_t}: torch.linalg.solve on the dense "
+                f"{tuple(K.shape)} float32 systems {lib_small:.3f} ms")
+            del K, rhs_d
+            torch.cuda.empty_cache()
+        for lanes in TURN_LANES:
+            s_l = [x[:lanes] for x in sf]
+            fits = tbt.resident_lanes(lanes, n_t) > 0
+            x6 = tbs.launch_thomas_streamed(*s_l)
+            if fits and not torch.equal(tbt.launch_thomas(*s_l), x6):
+                raise AssertionError(f"#4 differs from #6 at {lanes} lanes, "
+                                     f"n={n_t}")
+            kern = (lambda: tbt.launch_thomas(*s_l),
+                    lambda: tbs.launch_thomas_streamed(*s_l))
+            wrap = (lambda: tbt.launch_thomas(*(x.contiguous()
+                                                 for x in s_l)),
+                    lambda: tbs.block_tridiag_solve_streamed(*s_l))
+            row = {}
+            for what, fns in (("kernel", kern), ("wrapper", wrap)):
+                t = [time_ms(torch, fns[j], 20) if fits or j else None
+                     for j in (0, 1, 1, 0)]
+                row[what] = ((t[0] + t[3]) / 2 if fits else None,
+                             (t[1] + t[2]) / 2)
+            row["bound"] = bound_ms(lanes, n_t, 0, "thomas")[0]
+            row["implied"] = ("#4" if fits and row["kernel"][0]
+                              <= row["kernel"][1] else "#6")
+            row["rule"] = "#6" if tbt.uses_streamed(n_t, lanes, sms) else "#4"
+            row["lanes_per_block"] = tbt.resident_lanes(lanes, n_t)
+            turns46[(n_t, lanes)] = row
+            k4, k6 = row["kernel"]
+            w4, w6 = row["wrapper"]
+            log(f"  n={n_t} B={lanes}: #4 " + (
+                f"{k4:.4f} ms (wrapper {w4:.4f}, {row['lanes_per_block']} "
+                "lanes a block)" if fits else "does not fit")
+                + f" | #6 {k6:.4f} ms (wrapper {w6:.4f}) | bound "
+                f"{1e3 * row['bound']:.1f} us | this run implies "
+                f"{row['implied']}, uses_streamed sends to {row['rule']}"
+                + ("" if row["implied"] == row["rule"] else "  <- differs"))
+            del s_l, x6
+        del sf
+    differ = [k for k, r in turns46.items() if r["implied"] != r["rule"]]
+    log(f"  dispatch: {len(turns46) - len(differ)} of {len(turns46)} cases "
+        f"as uses_streamed rules; differs at (n, B) {differ}")
+    turn_names = ("block_tridiag_solve", "block_tridiag_solve_streamed")
     for k in kernels:
         if k["name"] in turn_names:
             j = turn_names.index(k["name"])
-            k["kernel_ms_by_n"] = {str(n_t): v[j] for n_t, v in by_n.items()}
-        if k["name"] == "block_tridiag_solve_streamed":
-            k["kernel_ms_by_bucket"] = {str(lanes): v
-                                        for lanes, v in by_bucket.items()}
+            k["kernel_ms_by_n_and_lanes"] = {
+                f"n={n_t} B={lanes}": r["kernel"][j]
+                for (n_t, lanes), r in turns46.items()}
+            k["wrapper_ms_by_n_and_lanes"] = {
+                f"n={n_t} B={lanes}": r["wrapper"][j]
+                for (n_t, lanes), r in turns46.items()}
+            k["launches_by_lanes"] = {
+                key[3:]: v for key, v in split_by_lanes.items()
+                if key.startswith(("#4", "#6")[j])}
+            k[f"library_ms_n{min(TURN_NS)}"] = lib_small
 
     # solve_beam_checked's escalation routes, each whole: the float64
     # analysis wrapper (#7) against the float64 assembly, layout and #9;

@@ -62,12 +62,12 @@ _SINGULAR_PIVOT = 1e-12
 
 # Meshes of this many nodes or more escalate through the streamed float64
 # solve (kernel #9), smaller ones through the fused float64 analysis (#7).
-# The rule that set block_tridiag.STREAM_FROM_N: the smallest of n = 201,
-# 501, 1001, 2001 at which #9's whole route (float64 assembly, layout,
-# kernel) is no slower than #7's on 16384 lanes (chip_smoke.py phase 6,
-# PERF.md), or, slower at all four, the n from which the JAX package
-# escalates through its streamed dd kernel: pick_sub(n, 52) is None from
-# n = 788.
+# Set as block_tridiag.uses_streamed is, by measured turns: the smallest of
+# n = 201, 501, 1001, 2001 at which #9's whole route (float64 assembly,
+# layout, kernel) is no slower than #7's on 16384 lanes (chip_smoke.py
+# phase 6, PERF.md), or, slower at all four, the n from which the JAX
+# package escalates through its streamed dd kernel: pick_sub(n, 52) is None
+# from n = 788.
 DD_STREAM_FROM_N = 788
 
 

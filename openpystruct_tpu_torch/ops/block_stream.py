@@ -8,8 +8,8 @@ back-substitution multipliers C (n, 3, 3) and the forward solution y (n, 3)
 of every lane to a workspace in device memory, and a backward sweep that
 reads them back in reverse.  On the TPU this was the mesh-size regime past
 VMEM, streamed in 64-node chunks; on the card each lane's thread walks all
-rows, and ``block_tridiag_solve`` sends meshes here from its own threshold
-(``block_tridiag.STREAM_FROM_N``).
+rows, and ``block_tridiag_solve`` sends systems here by its own dispatch
+(``block_tridiag.uses_streamed``).
 
 A CPU tensor runs the plain version, ``thomas_reference`` split at the same
 point (``thomas_forward_reference`` then ``thomas_backward_reference``); a
@@ -29,7 +29,7 @@ import torch
 
 from openpystruct_tpu_torch.ops import _build
 from openpystruct_tpu_torch.ops.block_tridiag import (
-    check_system,
+    check_lanes_first,
     thomas_backward_reference,
     thomas_forward_reference,
 )
@@ -54,27 +54,13 @@ def _lib():
     return lib
 
 
-def _check_lanes_first(diag, upper, b):
-    """Raise unless (diag, upper, b) are contiguous float32 (B, n, 3, 3),
-    (B, n-1, 3, 3), (B, n, 3) on one CUDA device: the kernels read them as
-    they lie and copy none.  Returns (B, n)."""
-    B, n = check_system(diag, upper, b)
-    for name, t in (("diag", diag), ("upper", upper), ("b", b)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous: the kernel reads the "
-                             "lanes-first layout as it lies and copies none")
-    if not diag.is_cuda:
-        raise ValueError(f"the kernel takes CUDA tensors, got {diag.device}")
-    return B, n
-
-
 def launch_thomas_streamed(diag, upper, b):
     """Launch the forward and backward sweeps (kernel #6) on lanes-first
     float32 systems as they lie: diag (B, n, 3, 3), upper (B, n-1, 3, 3),
-    b (B, n, 3), contiguous on one card (``_check_lanes_first``, before any
-    build).  The kernel picks its lanes per block from B and the card.
-    Returns x (B, n, 3)."""
-    B, n = _check_lanes_first(diag, upper, b)
+    b (B, n, 3), contiguous on one card (``block_tridiag.check_lanes_first``,
+    before any build).  The kernel picks its lanes per block from B and the
+    card.  Returns x (B, n, 3)."""
+    B, n = check_lanes_first(diag, upper, b)
     dev = b.device
     lib = _lib()
     # C and y, (blocks, n, 12, lanes per block): lanes per block divide 32

@@ -134,9 +134,9 @@ def thomas_dd_reference(diag, upper, b):
 
 def launch_thomas_streamed_dd(diag_t, upper_t, b_t):
     """Launch the float64 forward and backward sweeps (kernel #9) on
-    lane-innermost float64 systems (layouts of
-    ``block_tridiag.launch_thomas``).  Returns x_t (n, 3, B) and the pivot
-    (B,), float32."""
+    lane-innermost float64 systems, contiguous on one card: diag_t (n, 3,
+    3, B), upper_t (n-1, 3, 3, B), b_t (n, 3, B).  Returns x_t (n, 3, B) and
+    the pivot (B,), float32."""
     n, B = b_t.shape[0], b_t.shape[-1]
     dev = b_t.device
     c = torch.empty((n, 3, 3, B), dtype=torch.float64, device=dev)

@@ -3,9 +3,11 @@
 
 - ``block_tridiag_solve`` (``pallas_block_tridiag_solve``, kernel
   ``_thomas_kernel``): block-Thomas factorization fused with the forward
-  sweep, then the back sweep, one launch per solve.  Meshes of
-  ``STREAM_FROM_N`` nodes or more go to the two-launch streamed kernel of
-  ``ops/block_stream.py`` instead, the port's own dispatch threshold.
+  sweep, then the back sweep, one launch per solve, C and y resident in the
+  block's shared memory as the TPU kernel kept them in VMEM.  Where
+  ``uses_streamed`` says so, the solve goes to the two-launch streamed
+  kernel of ``ops/block_stream.py`` instead, the port's own dispatch; both
+  give bitwise equal x.
 - ``block_tridiag_solve(..., bidi=True)`` (kernel ``_thomas_kernel_bidi``):
   the bidirectional experiment, two elimination chains from the ends that
   meet at row n // 2, at every n >= 3 (the kernel has no mesh ceiling).
@@ -16,12 +18,15 @@
 
 ``block_tridiag_solve`` sends a CPU tensor to the plain version
 (``thomas_reference``, or ``thomas_bidi_reference`` with ``bidi``) and
-launches the CUDA kernel (``csrc/block_tridiag.cu``) on a CUDA float32
-tensor, or raises; there is no fallback.  ``LAUNCHES`` counts kernel
-launches and ``PLAIN_CALLS`` the calls sent to the plain version.  The plain
-versions repeat the kernels' arithmetic in their order (the cofactor
-inverse times 1/det, 3x3 products summed over k = 0, 1, 2) and take any
-leading batch dimensions; the kernels take (B, n, 3, 3) systems.
+launches a CUDA kernel on a CUDA float32 tensor, or raises; there is no
+fallback.  The one-launch kernel (``csrc/block_resident.cu``) reads the
+lanes-first systems as they lie; the bidirectional one
+(``csrc/block_tridiag.cu``) takes lane-innermost copies.  ``LAUNCHES``
+counts kernel launches and ``PLAIN_CALLS`` the calls sent to the plain
+version.  The plain versions repeat the kernels' arithmetic in their order
+(the cofactor inverse times 1/det, 3x3 products summed over k = 0, 1, 2)
+and take any leading batch dimensions; the kernels take (B, n, 3, 3)
+systems.
 """
 
 from __future__ import annotations
@@ -39,11 +44,20 @@ from openpystruct_tpu_torch.ops import _build
 LAUNCHES = {"block_tridiag_solve": 0, "block_tridiag_solve_bidi": 0}
 PLAIN_CALLS = {"block_tridiag_solve": 0, "block_tridiag_solve_bidi": 0}
 
-# Meshes of this many nodes or more take the streamed kernel: the smallest
-# of n = 101, 301, 1001 at which it is no slower than the one-launch kernel
-# on 16384 lanes (chip_smoke.py phase 6, PERF.md).  The one-launch kernel
-# serves meshes below 101; phase 6 also times both kernels at n = 51.
-STREAM_FROM_N = 101
+
+def uses_streamed(n: int, B: int, sm_count: int) -> bool:
+    """Whether ``block_tridiag_solve`` sends B lanes of n rows to the
+    streamed kernel #6 rather than the one-launch kernel #4 on a card of
+    ``sm_count`` SMs: #4 wherever it was no slower (chip_smoke.py phase 6,
+    PERF.md, #4).  That is where every lane fits the card in one round of
+    #4's blocks, 32 lanes an SM up to n = 101 and 16 up to n = 201: there
+    both run the same chain in about the same device time, and #4 saves a
+    launch and the workspace, host time that the compaction's small buckets
+    pay.  Past one round, and from n = 301 on, #6 keeps more lanes in flight
+    than #4's shared memory holds and takes less device time, which the
+    device-bound full batch pays."""
+    per_sm = 32 if n <= 101 else 16 if n <= 201 else 0
+    return B > per_sm * sm_count
 
 
 def reset_counts() -> None:
@@ -203,13 +217,22 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The library of kernels #4, #5 and #9 (``csrc/block_tridiag.cu``)."""
+    """The library of kernels #5 and #9 (``csrc/block_tridiag.cu``)."""
     lib = _build.load("block_tridiag")
-    lib.thomas_f32.argtypes = [_P] * 5 + [_I] * 2 + [_P]
     lib.thomas_bidi_f32.argtypes = [_P] * 5 + [_I] * 2 + [_P]
     lib.thomas_streamed_dd_f64.argtypes = [_P] * 7 + [_I] * 2 + [_P]
-    for fn in (lib.thomas_f32, lib.thomas_bidi_f32,
-               lib.thomas_streamed_dd_f64):
+    for fn in (lib.thomas_bidi_f32, lib.thomas_streamed_dd_f64):
+        fn.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_lib():
+    """The library of kernel #4 (``csrc/block_resident.cu``)."""
+    lib = _build.load("block_resident")
+    lib.thomas_resident_f32.argtypes = [_P] * 4 + [_I] * 2 + [_P]
+    lib.thomas_resident_lanes.argtypes = [_I] * 2
+    for fn in (lib.thomas_resident_f32, lib.thomas_resident_lanes):
         fn.restype = _I
     return lib
 
@@ -235,6 +258,20 @@ def check_system(diag, upper, b, dtype=torch.float32):
     return B, n
 
 
+def check_lanes_first(diag, upper, b):
+    """Raise unless (diag, upper, b) are contiguous float32 (B, n, 3, 3),
+    (B, n-1, 3, 3), (B, n, 3) on one CUDA device: kernels #4 and #6 read
+    them as they lie and copy none.  Returns (B, n)."""
+    B, n = check_system(diag, upper, b)
+    for name, t in (("diag", diag), ("upper", upper), ("b", b)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous: the kernel reads the "
+                             "lanes-first layout as it lies and copies none")
+    if not diag.is_cuda:
+        raise ValueError(f"the kernel takes CUDA tensors, got {diag.device}")
+    return B, n
+
+
 def lanes_last(t):
     """(B, ...) -> contiguous (..., B): neighbouring threads (lanes) read
     neighbouring addresses."""
@@ -245,20 +282,32 @@ def lanes_first(t):
     return t.movedim(-1, 0).contiguous()
 
 
-def launch_thomas(diag_t, upper_t, b_t):
-    """Launch kernel #4 on lane-innermost float32 systems: diag_t (n, 3, 3,
-    B), upper_t (n-1, 3, 3, B), b_t (n, 3, B), contiguous on one card.
-    Returns x_t (n, 3, B)."""
-    n, B = b_t.shape[0], b_t.shape[-1]
-    dev = b_t.device
-    x = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
-    ws = torch.empty((max(n - 1, 1), 3, 3, B), dtype=torch.float32,
-                     device=dev)
+def resident_lanes(B: int, n: int, device=None) -> int:
+    """Lanes per block kernel #4 takes for B lanes of n rows on ``device``
+    (the current CUDA device by default); 0 where one lane's C and y do not
+    fit a block's shared memory, and the launch would raise."""
+    with torch.cuda.device(device):
+        lanes = _resident_lib().thomas_resident_lanes(B, n)
+    if lanes < 0:
+        raise RuntimeError(f"thomas_resident_lanes failed: CUDA error "
+                           f"{-lanes}")
+    return lanes
+
+
+def launch_thomas(diag, upper, b):
+    """Launch kernel #4 on lanes-first float32 systems as they lie: diag
+    (B, n, 3, 3), upper (B, n-1, 3, 3), b (B, n, 3), contiguous on one card
+    (``check_lanes_first``, before any build).  The kernel picks its lanes
+    per block from B, n and the card, and raises where one lane does not
+    fit a block (``resident_lanes``).  Returns x (B, n, 3)."""
+    B, n = check_lanes_first(diag, upper, b)
+    dev = b.device
+    lib = _resident_lib()
+    x = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().thomas_f32(diag_t.data_ptr(), upper_t.data_ptr(),
-                               b_t.data_ptr(), x.data_ptr(), ws.data_ptr(),
-                               B, n, stream)
+        rc = lib.thomas_resident_f32(diag.data_ptr(), upper.data_ptr(),
+                                     b.data_ptr(), x.data_ptr(), B, n, stream)
     if rc != 0:
         raise RuntimeError(f"block_tridiag_solve launch failed: CUDA error "
                            f"{rc}")
@@ -267,8 +316,9 @@ def launch_thomas(diag_t, upper_t, b_t):
 
 
 def launch_thomas_bidi(diag_t, upper_t, b_t):
-    """Launch kernel #5 on lane-innermost float32 systems (layouts of
-    ``launch_thomas``), n >= 3.  Returns x_t (n, 3, B)."""
+    """Launch kernel #5 on lane-innermost float32 systems: diag_t (n, 3, 3,
+    B), upper_t (n-1, 3, 3, B), b_t (n, 3, B), contiguous on one card, n >=
+    3.  Returns x_t (n, 3, B)."""
     n, B = b_t.shape[0], b_t.shape[-1]
     dev = b_t.device
     x = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
@@ -289,9 +339,10 @@ def block_tridiag_solve(diag, upper, b, bidi=False):
     """Solve K x = b for a batch of symmetric block-tridiagonal systems
     (``pallas_block_tridiag_solve``): diag (B, n, 3, 3), upper (B, n-1, 3,
     3) with lower = upper^T, b (B, n, 3) -> x (B, n, 3).  CPU tensors run
-    the plain version; CUDA tensors (float32) launch the kernel, the
-    streamed one from ``STREAM_FROM_N`` nodes.  ``bidi=True`` takes the
-    bidirectional kernel at every n >= 3 and raises ``ValueError`` below."""
+    the plain version; CUDA tensors (float32) launch the one-launch kernel
+    #4, or the streamed #6 where ``uses_streamed`` says so.  ``bidi=True``
+    takes the bidirectional kernel at every n >= 3 and raises
+    ``ValueError`` below."""
     if bidi:
         n = diag.shape[-3]
         if n < 3:
@@ -306,14 +357,15 @@ def block_tridiag_solve(diag, upper, b, bidi=False):
         PLAIN_CALLS["block_tridiag_solve"] += 1
         return thomas_reference(diag, upper, b)
     B, n = check_system(diag, upper, b)
-    if n >= STREAM_FROM_N:
+    sms = torch.cuda.get_device_properties(diag.device).multi_processor_count
+    if uses_streamed(n, B, sms):
         from openpystruct_tpu_torch.ops.block_stream import (
             block_tridiag_solve_streamed,
         )
 
         return block_tridiag_solve_streamed(diag, upper, b)
-    return lanes_first(launch_thomas(lanes_last(diag), lanes_last(upper),
-                                     lanes_last(b)))
+    return launch_thomas(diag.contiguous(), upper.contiguous(),
+                         b.contiguous())
 
 
 # ---------------------------------------------------------------------------

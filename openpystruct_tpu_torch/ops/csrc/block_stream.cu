@@ -17,7 +17,7 @@
 // inverse times an IEEE 1/det (block_tridiag.py _inv3_det), 3x3 products
 // summed over k = 0, 1, 2, the compiler free to contract a*b+c into an FMA
 // within a row as it is there.  No --use_fast_math.  x comes out bitwise
-// equal to block_tridiag.cu's thomas_kernel.  Each lane is one thread's
+// equal to block_resident.cu's one-launch solve.  Each lane is one thread's
 // chain, so a NaN lane stays NaN and touches no other lane.
 //
 // Bound on an H100 SXM: a solve must read diag (B, n, 3, 3), upper (B, n-1,

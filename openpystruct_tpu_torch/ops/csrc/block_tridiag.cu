@@ -1,20 +1,17 @@
 // Symmetric 3x3 block-tridiagonal Thomas solves for Hopper (sm_90a), one
-// thread per system (lane).
-//
-// thomas_kernel replaces openpystruct_tpu/ops/block_tridiag.py
-// _thomas_kernel (launcher pallas_block_tridiag_solve): factorization
+// thread per system (lane): the block-Thomas factorization
 // S_i = D_i - U_{i-1}^T C_{i-1}, C_i = S_i^-1 U_i, fused with the forward
 // sweep y_i = S_i^-1 (b_i - U_{i-1}^T y_{i-1}), then the back sweep
-// x_i = y_i - C_i x_{i+1}.  The lower band is U^T (K symmetric).
+// x_i = y_i - C_i x_{i+1}.  The lower band is U^T (K symmetric).  The
+// float32 one-launch solve (#4) is block_resident.cu and the float32
+// streamed one (#6) block_stream.cu; both read lanes-first systems and
+// carry their own copy of the row step below.
 //
-// thomas_fwd_kernel and thomas_bwd_kernel are the streamed pair: the same
+// thomas_fwd_kernel and thomas_bwd_kernel are the streamed pair: the
 // recurrence split into two launches, the forward one writing C and y to
 // device memory and the backward one reading them back in reverse.  The
 // carries (C, y, U of the previous row; x of the next) start at zero, so
-// row 0 and row n-1 fall out of the generic step, with the same arithmetic
-// as thomas_kernel.  They serve the float64 solve below; kernel #6, the
-// float32 streamed solve, is block_stream.cu, which reads lanes-first
-// systems and carries its own copy of the row step.
+// row 0 and row n-1 fall out of the generic step.
 //
 // thomas_fwd_kernel<double, true> and thomas_bwd_kernel<double, float>
 // replace openpystruct_tpu/ops/block_stream_dd.py _fwd_kernel_dd and
@@ -33,7 +30,7 @@
 // m = n / 2, meet at row m and back-substitute outward.  One thread runs
 // both chains in one loop, so two independent dependency chains are in
 // flight together: the experiment asks whether that hides the latency of
-// the dependent row loads that bounds thomas_kernel on this card.
+// the dependent row loads that bounds one chain per thread on this card.
 // Right chain: S'_k = D_k - U_k C'_{k+1}, C'_k = S'_k^-1 U_{k-1}^T,
 // y'_k = S'_k^-1 (b_k - U_k y'_{k+1}); meeting row:
 // S_m = D_m - U_{m-1}^T C_{m-1} - (U_m S'_{m+1}^-1) U_m^T,
@@ -57,10 +54,10 @@
 // 3.35 TB/s); ~190 flops per row are ~5 us at 67 TFLOP/s float32, so the
 // function is bound by bytes.  The float64 pair reads 21n - 9 doubles and
 // writes 3n + 1 floats per lane (~89 us at n = 101).  This simple design
-// also streams C (and, in the two-launch pair, y) through L2 and device
-// memory, and each thread's chain of dependent row loads runs at memory
-// latency with ~124 threads per SM at B = 16384 (block_stream.cu stages
-// the rows ahead of the chain instead).
+// also streams C and y through L2 and device memory, and each thread's
+// chain of dependent row loads runs at memory latency with ~124 threads per
+// SM at B = 16384 (block_stream.cu stages the rows ahead of the chain
+// instead).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -286,30 +283,6 @@ __device__ __forceinline__ Carry<T> zero_carry() {
   return k;
 }
 
-// One launch: y goes into x, C into the (n-1, 3, 3, B) workspace, then the
-// back sweep overwrites x in place.
-__global__ void __launch_bounds__(kBlock)
-thomas_kernel(const float* __restrict__ diag_t,
-              const float* __restrict__ upper_t,
-              const float* __restrict__ b_t, float* __restrict__ x_t,
-              float* __restrict__ c_ws, int B, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t Bs = (size_t)B;
-  Carry<float> k = zero_carry<float>();
-  float det;
-  for (int i = 0; i < n; ++i) {
-    fwd_row(diag_t, upper_t, b_t, i, n, Bs, b, k, det);
-    if (i < n - 1) store_m(c_ws, i, Bs, b, k.c);
-    store_v(x_t, i, Bs, b, k.y);
-  }
-  V3<float> x = k.y;  // x_{n-1} = y_{n-1}
-  for (int i = n - 2; i >= 0; --i) {
-    x = bwd_row(load_m(c_ws, i, Bs, b), load_v(x_t, i, Bs, b), x);
-    store_v(x_t, i, Bs, b, x);
-  }
-}
-
 // Streamed forward sweep: C (n, 3, 3, B) and y (n, 3, B) to device memory;
 // with kPivot, the running min |det S_i| of the lane to piv (NaN once any
 // det is NaN, as jnp.minimum and torch.minimum propagate it).
@@ -406,15 +379,6 @@ thomas_bidi_kernel(const float* __restrict__ diag_t,
 }  // namespace
 
 extern "C" {
-
-int thomas_f32(const float* diag_t, const float* upper_t, const float* b_t,
-               float* x_t, float* c_ws, int B, int n, void* stream) {
-  if (B <= 0 || n <= 0) return 0;
-  const int blocks = (B + kBlock - 1) / kBlock;
-  thomas_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      diag_t, upper_t, b_t, x_t, c_ws, B, n);
-  return (int)cudaGetLastError();
-}
 
 // Float64 systems (lane-innermost), float64 workspace C (n, 3, 3, B) and
 // y (n, 3, B); x (n, 3, B) and pivot (B,) out in float32.

@@ -1,5 +1,6 @@
 """Port: the block-Thomas solves (kernels #4, #5 and #6 of PERF.md's table)
-and the differentiable refined solve against the JAX Pallas kernels.
+and the differentiable refined solve against the JAX Pallas kernels; the
+launchers' checks and the #4/#6 dispatch.
 
 Both sides run in float64 on the CPU on the same numpy-seeded systems:
 ``pallas_block_tridiag_solve`` (with and without ``bidi``),
@@ -195,6 +196,47 @@ def test_streamed_launcher_checks_before_building(monkeypatch, case, error,
     with pytest.raises(error, match=match):
         tbs.launch_thomas_streamed(*_launcher_inputs(case))
     assert tbs.LAUNCHES == {"block_tridiag_solve_streamed": 0}
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("strided diag", ValueError, "contiguous"),
+    ("float64 b", TypeError, "float32"),
+    ("wrong upper shape", ValueError, "upper has shape"),
+    ("two devices", ValueError, "b is on meta"),
+    ("cpu tensors", ValueError, "CUDA"),
+])
+def test_resident_launcher_checks_before_building(monkeypatch, case, error,
+                                                  match):
+    """``launch_thomas`` (kernel #4) reads lanes-first systems as they lie:
+    it raises on what the kernel does not take before it builds anything,
+    and counts no launch."""
+    def no_build(*_):
+        raise AssertionError("the launcher built the kernel library")
+
+    monkeypatch.setattr(tbt, "_resident_lib", no_build)
+    monkeypatch.setattr(tbt._build, "load", no_build)
+    tbt.reset_counts()
+    with pytest.raises(error, match=match):
+        tbt.launch_thomas(*_launcher_inputs(case))
+    assert tbt.LAUNCHES == {"block_tridiag_solve": 0,
+                            "block_tridiag_solve_bidi": 0}
+
+
+# (n, B, kernel) where chip_smoke.py phase 6 timed #4 against #6 on an
+# H100 (132 SMs; PERF.md, #4): #4 where every lane fits one round of its
+# blocks up to n = 201
+DISPATCH = [(51, 512, "#4"), (51, 2048, "#4"), (51, 4096, "#4"),
+            (51, 8192, "#6"), (51, 16384, "#6"),
+            (101, 512, "#4"), (101, 2048, "#4"), (101, 4096, "#4"),
+            (101, 8192, "#6"), (101, 16384, "#6"),
+            (201, 512, "#4"), (201, 2048, "#4"), (201, 4096, "#6"),
+            (201, 8192, "#6"), (201, 16384, "#6"),
+            (301, 512, "#6"), (301, 16384, "#6"), (1001, 512, "#6")]
+
+
+@pytest.mark.parametrize("n,B,kernel", DISPATCH)
+def test_dispatch_follows_the_measured_turns(n, B, kernel):
+    assert tbt.uses_streamed(n, B, 132) == (kernel == "#6")
 
 
 @pytest.mark.parametrize("refine", [0, 2])

@@ -1,9 +1,10 @@
 """The compare step of tools/block_tridiag_ab.py on small synthetic dumps.
 
 The tool's ``run`` needs a CUDA card; ``compare`` reads two dumps (a JSON
-of hashes and times beside an npz of kernel #6's outputs) and decides
-whether two checkouts' block-Thomas kernels agree: #4, #5 and #9 bit for
-bit, #6 reported as bitwise equal or by its gap in float32 ulps.
+of hashes and times beside an npz of kernels #4's and #6's outputs) and
+decides whether two checkouts' block-Thomas kernels agree: #4, #5 and #9
+bit for bit, #4 and #6 reported as bitwise equal or by their gaps in
+float32 ulps.
 """
 
 import importlib.util
@@ -64,3 +65,45 @@ def test_compare(tmp_path, change, capsys):
     out = capsys.readouterr().out
     assert ("differs by up to 1 ulp" in out) == (change == "#6")
     assert "device us fwd 12.5 / 12.5 | bwd 4.5 / 4.5" in out
+
+
+@pytest.mark.parametrize("case", ["equal", "differs", "lanes_last parent"])
+def test_compare_four(tmp_path, case, capsys):
+    """#4's outputs beside #6's in the npz ("#4 " keys): bitwise equal
+    outputs compare equal whatever layout the parent's launcher took; one
+    bit off (its hash off too) makes the trees differ, with the gap in
+    ulps; #4's times print with their device us."""
+    tool = _tool()
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((4, 7, 3)).astype(np.float32)
+    arrays = {"fixed bridge, n=101": x, "#4 fixed bridge, n=101": x}
+    hashes = {"#4 fixed bridge, n=101": "a", "#5 fixed bridge, n=101": "b",
+              "#9 overhang, n=1001 x": "d"}
+    arrays_b = {k: v.copy() for k, v in arrays.items()}
+    hashes_b = dict(hashes)
+    if case == "differs":
+        arrays_b["#4 fixed bridge, n=101"].view(np.uint32)[0, 0, 0] ^= 1
+        hashes_b["#4 fixed bridge, n=101"] = "z"
+    times = {"#4 n=51 B=512": dict(kernel=0.03, wrapper=0.04,
+                                   device_us=dict(kernel=15.25))}
+    for prefix, arr, hs, layout in (
+            (tmp_path / "a", arrays, hashes,
+             "lanes_last" if case == "lanes_last parent" else "lanes_first"),
+            (tmp_path / "b", arrays_b, hashes_b, "lanes_first")):
+        np.savez(prefix.with_suffix(".npz"), **arr)
+        prefix.with_suffix(".json").write_text(json.dumps(dict(
+            layout=layout, hashes=hs, errors={}, times=times)))
+    r = tool.compare_dumps(tmp_path / "a", tmp_path / "b")
+    assert set(r["four"]) == {"fixed bridge, n=101"}
+    assert set(r["six"]) == {"fixed bridge, n=101"}
+    assert r["equal"] == (case != "differs")
+    assert r["four"]["fixed bridge, n=101"] == dict(
+        bitwise=case != "differs", max_ulps=int(case == "differs"))
+    assert tool.compare(tmp_path / "a", tmp_path / "b") == (
+        1 if case == "differs" else 0)
+    out = capsys.readouterr().out
+    assert ("#4 fixed bridge, n=101: differs by up to 1 ulp" in out) == (
+        case == "differs")
+    assert ("lane-innermost copies of the / the lanes-first" in out) == (
+        case == "lanes_last parent")
+    assert "device us kernel 15.2 / 15.2" in out

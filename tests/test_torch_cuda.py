@@ -413,9 +413,7 @@ def test_block_tridiag_kernels(cuda, streamed):
                      else (tbt, "block_tridiag_solve"))
         before = mod.LAUNCHES[name]
         kern = (tbs.block_tridiag_solve_streamed(*x32) if streamed
-                else tbt.launch_thomas(*(tbt.lanes_last(t) for t in x32)))
-        if not streamed:
-            kern = tbt.lanes_first(kern)
+                else tbt.launch_thomas(*x32))
         assert mod.LAUNCHES[name] == before + 1
         torch.cuda.synchronize()
         _hold([kern], [tbt.thomas_reference(*x64)],
@@ -437,6 +435,19 @@ def test_beam_solve_kernel(cuda):
     f32 = tk.beam_solve_reference(*args32, E, A, 1)
     torch.cuda.synchronize()
     _hold(kern, f64, f32)
+
+
+def _solves(cuda, n, B):
+    """Launches of the block-Thomas kernel ``block_tridiag.uses_streamed``
+    names for B lanes of n rows, after checking the other launched none."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    four = tbt.LAUNCHES["block_tridiag_solve"]
+    six = tbs.LAUNCHES["block_tridiag_solve_streamed"]
+    if tbt.uses_streamed(n, B, sms):
+        assert four == 0
+        return six
+    assert six == 0
+    return four
 
 
 @pytest.mark.cuda
@@ -461,8 +472,8 @@ def test_solve_sym_backward_and_split_path_on_the_card(cuda):
                                    + (sol.deflections**2).sum() * 1e3, I)
         outs[name] = [sol.deflections.detach().cpu(), g.cpu()]
         if name == "kernel":
-            # n = 101 is past STREAM_FROM_N: the streamed kernel
-            assert tbs.LAUNCHES["block_tridiag_solve_streamed"] == 4
+            # every solve on the kernel uses_streamed names for 64 lanes
+            assert _solves(cuda, 101, 64) == 4
             assert tbt.PLAIN_CALLS["block_tridiag_solve"] == 0
     tbt.reset_counts()
     _hold(outs["kernel"], outs["plain64"], outs["plain32"])
@@ -478,8 +489,8 @@ def test_split_optimizer_launches_kernels_only(cuda, mode):
     for m in (tk, tbt, tbs):
         m.reset_counts()
     res = beam_opt.optimize_beam_batched(sc, BEAM, opt, refine=1, fused=False)
-    # n = 101 is past STREAM_FROM_N: the streamed kernel
-    assert tbs.LAUNCHES["block_tridiag_solve_streamed"] > 0
+    # every solve on the kernel uses_streamed names for 128 lanes
+    assert _solves(cuda, 101, 128) > 0
     assert tbs.PLAIN_CALLS["block_tridiag_solve_streamed"] == 0
     assert tbt.PLAIN_CALLS["block_tridiag_solve"] == 0
     assert tk.LAUNCHES["beam_opt_step"] == 0
@@ -533,8 +544,7 @@ def test_block_tridiag_kernels_unchanged_by_templating(cuda):
     for seed, cfg in ((7, ScenarioConfig()),
                       (8, ScenarioConfig(random_bridge=True))):
         x32 = _systems(300, seed, cuda, torch.float32, cfg)
-        kern4 = tbt.lanes_first(tbt.launch_thomas(
-            *(tbt.lanes_last(t) for t in x32)))
+        kern4 = tbt.launch_thomas(*x32)
         kern6 = tbs.block_tridiag_solve_streamed(*x32)
         plain = tbt.thomas_reference(*x32)
         torch.cuda.synchronize()
@@ -585,8 +595,7 @@ def test_streamed_kernel_shapes(cuda, B, n):
     plain float32 and float64 versions by _hold's rule, and bitwise equal to
     the one-launch kernel #4, whose row step it repeats."""
     x32 = _spd_systems(B, n, 1000 * n + B, cuda)
-    kern4 = tbt.lanes_first(tbt.launch_thomas(
-        *(tbt.lanes_last(t) for t in x32)))
+    kern4 = tbt.launch_thomas(*x32)
     before = tbs.LAUNCHES["block_tridiag_solve_streamed"]
     kern = tbs.launch_thomas_streamed(*x32)
     assert tbs.LAUNCHES["block_tridiag_solve_streamed"] == before + 1
@@ -626,6 +635,71 @@ def test_streamed_kernel_rejects_a_strided_input(cuda):
         with pytest.raises(ValueError, match="contiguous"):
             tbs.launch_thomas_streamed(*bad)
     assert tbs.LAUNCHES["block_tridiag_solve_streamed"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 51, 101, 201])
+@pytest.mark.parametrize("B", [1, 33, 300, 2048, 4096, 16384])
+def test_resident_kernel_shapes(cuda, B, n):
+    """Kernel #4 on lanes-first random SPD systems at the edges of its
+    8-row tiles (n = 1, 2, 3) and at the split path's meshes (51, 101,
+    201), one lane, ragged blocks (33, 300) and the lane counts at which the
+    launcher picks each kind of block on an H100 (132 SMs): one block per SM
+    of ceil(B / 132) lanes up to 16 (B = 1 to 2048), else the fewest rounds
+    of blocks of at most 16 lanes, one round (4096 up to n = 101) or more
+    (16384).  Against the plain float32 and float64 versions by _hold's
+    rule, and bitwise equal to the streamed kernel #6, whose row step it
+    repeats."""
+    x32 = _spd_systems(B, n, 1000 * n + B + 7, cuda)
+    lanes = tbt.resident_lanes(B, n)
+    assert 1 <= lanes <= 16
+    before = tbt.LAUNCHES["block_tridiag_solve"]
+    kern = tbt.launch_thomas(*x32)
+    assert tbt.LAUNCHES["block_tridiag_solve"] == before + 1
+    kern6 = tbs.launch_thomas_streamed(*x32)
+    torch.cuda.synchronize()
+    assert kern.shape == (B, n, 3) and kern.is_contiguous()
+    _hold([kern], [tbt.thomas_reference(*(t.double() for t in x32))],
+          [tbt.thomas_reference(*x32)])
+    assert torch.equal(kern, kern6)
+
+
+@pytest.mark.cuda
+def test_resident_kernel_keeps_nan_lanes(cuda):
+    """A lane with a NaN diagonal block stays NaN from that row on; every
+    other lane, in its block and in others, is bitwise what a clean run
+    gives."""
+    x32 = list(_systems(300, 17, cuda, torch.float32))
+    clean = tbt.launch_thomas(*x32)
+    x32[0] = x32[0].clone()
+    x32[0][40, 60] = float("nan")
+    kern = tbt.launch_thomas(*x32)
+    torch.cuda.synchronize()
+    assert torch.isnan(kern[40]).any()
+    assert torch.isfinite(clean).all()
+    keep = torch.arange(300, device=cuda) != 40
+    assert torch.equal(kern[keep], clean[keep])
+
+
+@pytest.mark.cuda
+def test_resident_kernel_rejects_what_it_does_not_take(cuda):
+    """The kernel reads the lanes-first systems as they lie: a transposed
+    view raises instead of being copied; a mesh whose one lane of C and y
+    does not fit a block's shared memory raises at launch.  Nothing is
+    counted."""
+    x32 = _spd_systems(40, 101, 4, cuda)
+    before = tbt.LAUNCHES["block_tridiag_solve"]
+    for i in range(3):
+        bad = list(x32)
+        bad[i] = x32[i].movedim(0, 1).contiguous().movedim(1, 0)
+        assert not bad[i].is_contiguous() and torch.equal(bad[i], x32[i])
+        with pytest.raises(ValueError, match="contiguous"):
+            tbt.launch_thomas(*bad)
+    long = _spd_systems(1, 5000, 5, cuda)
+    assert tbt.resident_lanes(1, 5000) == 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tbt.launch_thomas(*long)
+    assert tbt.LAUNCHES["block_tridiag_solve"] == before
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B the float32 block-Thomas kernels (#4, #5, #6) and the streamed
 float64 solve (#9) of two checkouts on one CUDA card: are their outputs
-equal, and how long does #6 take?
+equal, and how long do #4 and #6 take?
 
     python tools/block_tridiag_ab.py run --tree DIR --out PREFIX
                                          [--layout lanes_first|lanes_last]
@@ -18,22 +18,25 @@ random bridge at n = 101 and 201, 16384 lanes, seed 0) it solves with #4
 checkout's ``tests/test_torch_cuda.py`` (``_systems``, seeds 7 and 8) with
 #4.  It writes a SHA-256 of each output and each float32 kernel's largest
 per-lane difference to the plain float32 version (``thomas_reference``)
-relative to the lane's largest |x| to PREFIX.json, and #6's outputs to
-PREFIX.npz.  Then CUDA-event medians of 20 launches of #6 at B = 512,
-2048, 8192 and 16384 lanes and n = 101, 201 and 1001: the wrapper
-(``block_tridiag_solve_streamed`` on the lanes-first systems) and the
-launcher alone (``launch_thomas_streamed``); and the device time of each of
-its two kernels (forward and backward sweep), the mean of 20 launches under
-torch.profiler.  ``--layout`` names the launcher's contract:
+relative to the lane's largest |x| to PREFIX.json, and #4's and #6's
+outputs to PREFIX.npz.  Then CUDA-event medians of 20 launches of #4 and
+of #6 at B = 512, 2048, 8192 and 16384 lanes and n = 51 (random bridge),
+101, 201 and 1001 (fixed bridge): the wrapper (for #6
+``block_tridiag_solve_streamed``, for #4 the call ``block_tridiag_solve``
+makes when it dispatches to #4) and the launcher alone
+(``launch_thomas_streamed``, ``launch_thomas``); and the device time per
+launch, the mean of 20 under torch.profiler (#6 by sweep, forward and
+backward; #4 its one kernel).  ``--layout`` names #4's launcher contract:
 ``lanes_first`` (it takes the systems as they are) or ``lanes_last`` (it
-takes lane-innermost copies, as before the redesign; they are made outside
-the timing).
+takes lane-innermost copies, as before its redesign; they are made outside
+the launcher's timing, inside the wrapper's).  #6 is taken lanes-first, so
+the tree is one from after #6's redesign.
 
-``compare`` prints each hash's verdict, #6's verdict (bitwise equal, or its
-largest gap in float32 units in the last place) and the two runs' times
-side by side.  It exits 1 unless #4, #5 and #9 hash equal: #6 is reported,
-not held to bits.  One process per checkout: both trees hold a package of
-the same name.
+``compare`` prints each hash's verdict, #4's and #6's verdicts (bitwise
+equal, or the largest gap in float32 units in the last place), #4's
+layouts and the two runs' times side by side.  It exits 1 unless #4, #5
+and #9 hash equal: #6 is reported, not held to bits.  One process per
+checkout: both trees hold a package of the same name.
 """
 
 from __future__ import annotations
@@ -47,8 +50,9 @@ from pathlib import Path
 import numpy as np
 
 SWEEP_B = (512, 2048, 8192, 16384)
-SWEEP_N = (101, 201, 1001)
+SWEEP_N = (51, 101, 201, 1001)
 HELD = ("#4", "#5", "#9")       # held to bits; #6 is reported
+DEVICE_US = ("fwd", "bwd", "kernel")   # device us fields, in print order
 
 
 def _sha(t) -> str:
@@ -56,10 +60,10 @@ def _sha(t) -> str:
                           .tobytes()).hexdigest()
 
 
-def _device_us(torch, fn, reps=20) -> dict:
+def _device_us(torch, fn, sweeps=("fwd", "bwd"), reps=20) -> dict:
     """Mean device time in us per call of each sweep ``fn`` launches, under
-    torch.profiler: the forward (``fwd`` in the kernel's name) and the
-    backward (``bwd``) sweep."""
+    torch.profiler, by a part of the kernel's name (``fwd``, ``bwd``); with
+    no ``sweeps``, of all its kernels together (``kernel``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -73,8 +77,8 @@ def _device_us(torch, fn, reps=20) -> dict:
     out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            for sweep in ("fwd", "bwd"):
-                if sweep in e.key:
+            for sweep in sweeps or ("kernel",):
+                if not sweeps or sweep in e.key:
                     out[sweep] = (out.get(sweep, 0.0)
                                   + e.self_device_time_total / reps)
     return out
@@ -107,6 +111,14 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
                   layout=layout, hashes={}, errors={}, times={})
     hashes, arrays = result["hashes"], {}
     rb_cfg = ScenarioConfig(random_bridge=True)
+
+    def four(s):
+        """#4 on lanes-first systems, through the tree's launcher."""
+        if layout == "lanes_last":
+            return tbt.lanes_first(tbt.launch_thomas(
+                *(tbt.lanes_last(t) for t in s)))
+        return tbt.launch_thomas(*s)
+
     for n in (101, 201):
         for label, cfg in (("fixed bridge", ScenarioConfig()),
                            ("random bridge", rb_cfg)):
@@ -116,7 +128,7 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
                                 cfg, E, A, dev)
             sys32 = x["sys"]
             sys_t = [tbt.lanes_last(t) for t in sys32]
-            outs = {"#4": tbt.lanes_first(tbt.launch_thomas(*sys_t)),
+            outs = {"#4": four(sys32),
                     "#5": tbt.lanes_first(tbt.launch_thomas_bidi(*sys_t)),
                     "#6": tbs.block_tridiag_solve_streamed(*sys32)}
             plain = tbt.thomas_reference(*sys32).double()
@@ -127,6 +139,7 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
                 result["errors"][f"{tag} {key}"] = cs.lane_errors(
                     torch, k, plain).max().item()
             arrays[key] = outs["#6"].cpu().numpy()
+            arrays[f"#4 {key}"] = outs["#4"].cpu().numpy()
             del x, sys32, sys_t, outs, plain
     # phase 3d's inputs: 3b's random-bridge lanes and the quasi-cantilever
     # ones at n = 101, the span-scaled overhang at n = 1001
@@ -151,31 +164,33 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
 
     for test_seed, cfg in ((7, ScenarioConfig()), (8, rb_cfg)):
         x32 = _systems(300, test_seed, dev, torch.float32, cfg)
-        k = tbt.lanes_first(tbt.launch_thomas(
-            *(tbt.lanes_last(t) for t in x32)))
-        hashes[f"#4 card test systems, seed {test_seed}"] = _sha(k)
-
-    def kernel_args(s):
-        return ([tbt.lanes_last(t) for t in s] if layout == "lanes_last"
-                else s)
+        hashes[f"#4 card test systems, seed {test_seed}"] = _sha(four(x32))
 
     for n in SWEEP_N:
+        # the fixed bridge's roller tags need n >= 100
         full = cs.split_inputs(torch, sample_scenarios, constraint_mask,
                                assemble_beam_system, seed + 20 + n,
-                               max(SWEEP_B), n, ScenarioConfig(), E, A,
-                               dev)["sys"]
+                               max(SWEEP_B), n,
+                               ScenarioConfig() if n >= 100 else rb_cfg, E,
+                               A, dev)["sys"]
         for lanes in SWEEP_B:
             s = [t[:lanes] for t in full]
-            k_args = kernel_args(s)
-            row = dict(
+            s4 = ([tbt.lanes_last(t) for t in s] if layout == "lanes_last"
+                  else s)
+            result["times"][f"n={n} B={lanes}"] = dict(
                 wrapper=cs.time_ms(
                     torch, lambda: tbs.block_tridiag_solve_streamed(*s), 20),
                 kernel=cs.time_ms(
-                    torch, lambda: tbs.launch_thomas_streamed(*k_args), 20),
+                    torch, lambda: tbs.launch_thomas_streamed(*s), 20),
                 device_us=_device_us(
-                    torch, lambda: tbs.launch_thomas_streamed(*k_args)))
-            result["times"][f"n={n} B={lanes}"] = row
-            del s, k_args
+                    torch, lambda: tbs.launch_thomas_streamed(*s)))
+            result["times"][f"#4 n={n} B={lanes}"] = dict(
+                wrapper=cs.time_ms(torch, lambda: four(s), 20),
+                kernel=cs.time_ms(
+                    torch, lambda: tbt.launch_thomas(*s4), 20),
+                device_us=_device_us(
+                    torch, lambda: tbt.launch_thomas(*s4), sweeps=()))
+            del s, s4
         del full
     torch.cuda.synchronize()
     np.savez(out.with_suffix(".npz"), **arrays)
@@ -196,20 +211,26 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> int:
 
 
 def compare_dumps(a: Path, b: Path) -> dict:
-    """Per hash: equality; per #6 output: bitwise equality and ulp gap.
-    ``equal`` is True when every #4, #5 and #9 hash agrees."""
+    """Per hash: equality; per #4 and #6 output (npz keys "#4 ..." and the
+    rest): bitwise equality and ulp gap.  ``equal`` is True when every #4,
+    #5 and #9 hash agrees."""
     ja, jb = (json.loads(p.with_suffix(".json").read_text()) for p in (a, b))
     na, nb = (np.load(p.with_suffix(".npz")) for p in (a, b))
     hashes = {k: v == jb["hashes"].get(k) for k, v in ja["hashes"].items()}
     held = [same for k, same in hashes.items() if k.startswith(HELD)]
-    six = {}
+    four, six = {}, {}
     for key in sorted(na.files):
         x, y = na[key], nb[key]
         same = x.shape == y.shape and x.tobytes() == y.tobytes()
-        six[key] = dict(bitwise=same, max_ulps=0 if same else _ulps(x, y))
-    return dict(hashes=hashes, six=six,
+        row = dict(bitwise=same, max_ulps=0 if same else _ulps(x, y))
+        if key.startswith("#4 "):
+            four[key[3:]] = row
+        else:
+            six[key] = row
+    return dict(hashes=hashes, four=four, six=six,
                 equal=bool(held) and all(held)
                 and set(na.files) == set(nb.files),
+                layouts=(ja.get("layout"), jb.get("layout")),
                 errors=(ja.get("errors", {}), jb.get("errors", {})),
                 times=(ja.get("times", {}), jb.get("times", {})))
 
@@ -219,9 +240,14 @@ def compare(a: Path, b: Path) -> int:
     for k, same in r["hashes"].items():
         if not k.startswith("#6"):
             print(f"{k}: {'equal' if same else 'DIFFER'}")
-    for key, row in r["six"].items():
-        print(f"#6 {key}: " + ("bitwise equal" if row["bitwise"] else
-                               f"differs by up to {row['max_ulps']} ulp"))
+    for tag in ("four", "six"):
+        for key, row in r[tag].items():
+            print(f"#{4 if tag == 'four' else 6} {key}: " + (
+                "bitwise equal" if row["bitwise"] else
+                f"differs by up to {row['max_ulps']} ulp"))
+    print("#4 launcher takes {} / {} systems".format(*(
+        {"lanes_last": "lane-innermost copies of the"}.get(
+            lay, "the lanes-first") for lay in r["layouts"])))
     ea, eb = r["errors"]
     for k in ea:
         print(f"{k}: max per-lane diff to plain float32 {ea[k]:.3e} / "
@@ -235,9 +261,12 @@ def compare(a: Path, b: Path) -> int:
         if da or db:
             print("  device us " + " | ".join(
                 f"{f} {da.get(f, float('nan')):.1f} / "
-                f"{db.get(f, float('nan')):.1f}" for f in ("fwd", "bwd")))
+                f"{db.get(f, float('nan')):.1f}" for f in DEVICE_US
+                if f in da or f in db))
     six = all(row["bitwise"] for row in r["six"].values())
     print("#6 " + ("bitwise equal" if six else "differs in ulps (reported)"))
+    if not all(row["bitwise"] for row in r["four"].values()):
+        print("#4 differs")
     print("#4, #5, #9 hashes equal" if r["equal"] else "outputs differ")
     return 0 if r["equal"] else 1
 
