@@ -24,8 +24,8 @@ Phases, each of which raises on failure (exit code not 0):
    kernel's error on the quasi-cantilever lanes is printed beside them;
 3c. the split-path kernels against their plain versions at B = 16384, n =
    101 and 201 on fixed-bridge and random-bridge systems, and n = 51 on
-   random-bridge ones: the explicit-RHS beam solve (#3, x and pivot; n =
-   101 and 201 only), the one-launch block-Thomas solve (#4, its x bitwise
+   random-bridge ones: the explicit-RHS beam solve (#3, x and pivot), the
+   one-launch block-Thomas solve (#4, its x bitwise
    equal to #6's), the bidirectional one (#5, against its own plain
    version) and the streamed one (#6).  On the fixed bridge at n = 101 by
    phase 3's rule.  Elsewhere float32 keeps about no digits (plain
@@ -33,8 +33,11 @@ Phases, each of which raises on failure (exit code not 0):
    are printed, not held; on all five cases each kernel's backward error
    (the residual of the system in float64, relative to |K| |x| + |b| per
    lane) must be no more than twice the plain float32 version's, or 1e-6,
-   at the median, the 99th percentile and the worst lane, with no more
-   non-finite lanes;
+   at the median, the 99th percentile and the worst lane (#3 at n = 51:
+   the median and the 99th percentile, phase 3's rule; its worst lane is
+   printed), with no more non-finite lanes; then, under torch.profiler,
+   one call of each wrapper that copies no layout (#1, #2, #4, #6, #7,
+   #8) launches its kernel and no copy;
 3d. the streamed float64 solve (#9) against its plain version on the
    float64-assembled systems of phase 3b's 16384 random-bridge lanes plus
    the four quasi-cantilever lanes (n = 101) and of 16384 span-scaled
@@ -86,8 +89,8 @@ Phases, each of which raises on failure (exit code not 0):
    valid masks, equal epochs on the rescued lanes, I within 1e-3 relative
    (1e-7 absolute), deflections within 1e-3 of the lane's scale;
 6. times: CUDA events, median of 20 launches per kernel (wrapper, kernel
-   alone and, where the wrapper transposes, its layout copies; #2, #4, #6
-   and #8 read lanes-first tensors and copy none), beside the plain
+   alone and, where the wrapper transposes, its layout copies; #1, #2, #4,
+   #6, #7 and #8 read lanes-first tensors and copy none), beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
    float64, H100 SXM); for #4, #5 and #6 also the dense float32
@@ -125,9 +128,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 CSRC = "openpystruct_tpu_torch/ops/csrc/"
 SOURCE = {
-    "beam_analysis": CSRC + "beam_kernel.cu",
+    "beam_analysis": CSRC + "beam_opt.cu",
     "beam_opt_step": CSRC + "beam_opt.cu",
-    "beam_analysis_dd": CSRC + "beam_kernel.cu",
+    "beam_analysis_dd": CSRC + "beam_opt_dd.cu",
     "beam_opt_step_dd": CSRC + "beam_opt_dd.cu",
     "beam_solve": CSRC + "beam_kernel.cu",
     "block_tridiag_solve": CSRC + "block_resident.cu",
@@ -183,14 +186,8 @@ def log(*a):
 
 # ---------------------------------------------------------------------------
 # Bounds.  Bytes: every input read once, every output written once.  Flops
-# per node and lane (an FMA counts 2), for the analysis counted from
-# csrc/beam_kernel.cu:
-#   stiffness 10, assembly 32 (+7 axial chain), scaling 20,
-#   factor+forward sweep 45 without C (+12 saving C, +13 axial pivot),
-#   back sweep 14 without C / 8 with C, substitution = 14 + back sweep,
-#   refinement sweep = residual 138 + substitution + 2,
-#   force recovery 23;
-# for the opt step (kinds "semi", "adjoint") from csrc/beam_opt.cu:
+# per node and lane (an FMA counts 2), counted from csrc/beam_opt.cu for
+# the opt step (kinds "semi", "adjoint") and the analysis:
 #   first forward sweep 108 (stiffness 10, assembly 30, scaling 14, scaled
 #   U 8, factor 32, forward substitution 14), back sweep 14, each
 #   refinement a residual 134, a forward substitution 14 and a back sweep
@@ -198,11 +195,17 @@ def log(*a):
 #   loss 16, gradient 7, Adam 15); in adjoint mode that sweep does 110
 #   (no Adam; cotangents, rows and g_hat 53), then the adjoint solve's
 #   forward substitution 14, its back and refinement sweeps as the
-#   primal's, banded products 8 and Adam 15.
-# The float64 kernels (kinds "analysis_dd", "opt_dd") run stiffness,
-# assembly with the axial chain, scaling, the factor without C with the
-# axial pivot, the back sweep without C and force recovery, no refinement;
-# the opt step adds loss and Adam, all counted at the float64 rate.
+#   primal's, banded products 8 and Adam 15; the analysis adds the axial
+#   chain and pivot 20 to the first sweep, its back sweeps read C (8, 10
+#   in a refinement) and its last one does stiffness 9, unscaling 4 and
+#   forces 25;
+# and from csrc/beam_opt_dd.cu for the float64 kernels (kinds
+# "analysis_dd", "opt_dd"): the forward sweep 129 (stiffness 11, assembly
+# with the axial terms 42, scaling 12, scaled U 8, factor 31, forward
+# substitution 14, axial chain and pivot 11), the backward sweep 61
+# (stiffness and U again 22, back substitution 14, unscaling 2, forces
+# 23), no refinement; the opt step adds loss 23 and Adam 15, all counted
+# at the float64 rate.
 # ---------------------------------------------------------------------------
 
 
@@ -221,16 +224,14 @@ def flops_per_lane(n, refine, kind):
     if kind == "solve3":
         return (313 + 354 * refine) * n
     if kind in ("analysis_dd", "opt_dd"):
-        per_node = 10 + 32 + 7 + 20 + 45 + 13 + 14 + 23
-        return (per_node + (23 + 15 if kind == "opt_dd" else 0)) * n
+        return (129 + 61 + (23 + 15 if kind == "opt_dd" else 0)) * n
     if kind in ("semi", "adjoint"):
         sweeps = 14 + refine * (134 + 14 + 16)
         if kind == "semi":
             return (108 + sweeps + 72) * n
         return (108 + sweeps + 110 + 14 + sweeps + 8 + 15) * n
     # the analysis (#1): C saved, axial pivot, no loss
-    sweep = 138 + (14 + 8) + 2
-    return (10 + 32 + 20 + 45 + 8 + refine * sweep + 23 + 7 + 12 + 13) * n
+    return (108 + 20 + 8 + refine * (134 + 14 + 10) + 38) * n
 
 
 def bytes_per_lane(n, kind):
@@ -339,18 +340,20 @@ def backward_errors(torch, matvec, diag, upper, b, x):
     return torch.where(torch.isfinite(err), err, torch.inf)
 
 
-def hold_backward(torch, name, ek, ep, versus="plain f32"):
+def hold_backward(torch, name, ek, ep, versus="plain f32",
+                  held=(0.5, 0.99, 1.0)):
     """Phase 3c's rule on backward errors: the kernel's no more than twice
     the plain float32 version's (or ``versus``'s), or BACKWARD_FLOOR, at
-    the median, the 99th percentile and the worst lane, and no more
-    non-finite lanes.  Returns the kernel's 99th percentile."""
+    the median, the 99th percentile and the worst lane (the quantiles in
+    ``held``; the others are printed), and no more non-finite lanes.
+    Returns the kernel's 99th percentile."""
     ks, ps = ek.sort().values, ep.sort().values
     row = []
     for q in (0.5, 0.99, 1.0):
         i = round(q * (len(ks) - 1))
         k, p = ks[i].item(), ps[i].item()
         row.append((k, p))
-        if not k <= max(2.0 * p, BACKWARD_FLOOR):
+        if q in held and not k <= max(2.0 * p, BACKWARD_FLOOR):
             raise AssertionError(f"{name}: backward error {k:.3e} at q={q} "
                                  f"exceeds twice {versus}'s {p:.3e}")
     bad_k, bad_p = (int((~torch.isfinite(e)).sum()) for e in (ek, ep))
@@ -359,7 +362,9 @@ def hold_backward(torch, name, ek, ep, versus="plain f32"):
                              f"{bad_p}")
     log(f"  {name:>14}: backward err p50 / p99 / max: kernel "
         + " / ".join(f"{k:.2e}" for k, _ in row) + f" | {versus} "
-        + " / ".join(f"{p:.2e}" for _, p in row))
+        + " / ".join(f"{p:.2e}" for _, p in row)
+        + ("" if len(held) == 3 else " (held at q in "
+           + (", ".join(map(str, held)) or "none") + ")"))
     return row[1][0]
 
 
@@ -558,13 +563,13 @@ def split_inputs(torch, sample_scenarios, constraint_mask,
 
 
 def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
-                        x, E, A, refine, label, gate, solve3=True):
+                        x, E, A, refine, label, gate, held3=(0.5, 0.99, 1.0)):
     """#3, #4, #5 and #6 against their plain versions in float32 and
     float64 on the same float32 inputs: forward errors by phase 3's rule
-    (held if ``gate``, else printed), backward errors always held, #4's x
-    bitwise equal to #6's; #5's plain float32 version is the two-chain one;
-    #3 only with ``solve3``.  Returns per kernel the
-    forward errors against float64 (``hold``) and the backward error's 99th
+    (held if ``gate``, else printed), backward errors held (#3's at the
+    quantiles in ``held3``), #4's x bitwise equal to #6's; #5's plain
+    float32 version is the two-chain one.  Returns per kernel the forward
+    errors against float64 (``hold``) and the backward error's 99th
     percentile."""
     errs = {}
     sys32 = x["sys"]
@@ -592,8 +597,6 @@ def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
             torch, f"{tag} x", backward_errors(torch, matvec, *sys32, kern),
             bw_plain)
     del p32, p32_bidi, p64, sys64, kern4, kern5, kern6
-    if not solve3:
-        return errs
     args32 = [x[k] for k in ("I", "Le", "free", "rhs")]
     args64 = [t.double() for t in args32]
     kern = tk.beam_solve(*args32, E, A, refine)
@@ -612,7 +615,7 @@ def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
     b64 = args64[3] * args64[2]
     errs["beam_solve"]["backward_p99"] = hold_backward(
         torch, "#3 x", backward_errors(torch, matvec, d64, u64, b64, kern[0]),
-        backward_errors(torch, matvec, d64, u64, b64, p32[0]))
+        backward_errors(torch, matvec, d64, u64, b64, p32[0]), held=held3)
     return errs
 
 
@@ -832,6 +835,21 @@ def profiled(torch, fn):
     return prof, wall
 
 
+def device_kernels(torch, fn):
+    """The device kernels one call of ``fn`` launches, as {name: count},
+    from torch.profiler tracing the card alone (after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
 def report_profile(prof, wall, label, top=6):
     """The device's busy share of the wall time (the profiler's own host
     overhead makes the idle share an upper bound), and the device ops and
@@ -1024,20 +1042,126 @@ def main(argv=None) -> int:
                              assemble_beam_system, args.seed + 10 + n_s, B,
                              n_s, cfg_s, E, A, dev)
             gate = n_s == 101 and label == "fixed bridge"
-            # #3 at the datagen meshes only (at n = 51 its worst lane's
-            # backward error is 4x plain float32's, PERF.md, #3)
             e = check_split_kernels(torch, tk, tbt, tbs, block_tridiag_matvec,
                                     assemble_beam_system, x, E, A, refine,
                                     f"{label}, B={B}, n={n_s}", gate,
-                                    solve3=n_s >= 100)
+                                    held3=(0.5, 0.99) if n_s < 100 else (
+                                        0.5, 0.99, 1.0))
             errs_split[(n_s, label)] = e
             if gate:
                 split101 = x
             del x
     errs.update(errs_split[(101, "fixed bridge")])
 
-    # ---- phase 3d: the streamed float64 solve against its plain version --
+    # the wrappers phase 6 times and the calls they are held against:
+    # phase 3's inputs for #1-#2, phase 3b's random-bridge lanes for #7-#8
+    # and #9, phase 3c's fixed-bridge n = 101 systems for #3-#6
     ana_keys = ("I", "Le", "free", "loads", "udl")
+    ana = [inputs[k] for k in ana_keys]
+    opt = [inputs[k] for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
+    rb_ana = [rb_inputs[k] for k in ana_keys]
+    rb_opt = [rb_inputs[k]
+              for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
+    sys32 = split101["sys"]
+    lanes_last, lanes_first = tbt.lanes_last, tbt.lanes_first
+    opt_kw = dict(grad_semi=True, refine=refine)
+    # #1, #2, #7 and #8: no layout, the kernels read the callers' tensors
+    # as they lie
+    cases = {
+        "beam_analysis": dict(
+            wrapper=lambda: tk.beam_analysis(*ana, E, A, refine),
+            kernel=lambda: tk.launch_beam_analysis(*ana, E, A, refine),
+            layout=None,
+            plain=lambda: tk.beam_analysis_reference(*ana, E, A, refine),
+            kind="analysis"),
+        "beam_opt_step": dict(
+            wrapper=lambda: tk.beam_opt_step(*opt, *scalars, E, A, G,
+                                             **opt_kw),
+            kernel=lambda: tk.launch_beam_opt_step(*opt, *scalars, E, G,
+                                                   **opt_kw),
+            layout=None,
+            plain=lambda: tk.beam_opt_step_reference(*opt, *scalars, E, A,
+                                                     G, **opt_kw),
+            kind="semi"),
+        # the rescue's kernels on random-bridge lanes (phase 3b's inputs)
+        "beam_analysis_dd": dict(
+            wrapper=lambda: tkd.beam_analysis_dd(*rb_ana, E, A),
+            kernel=lambda: tkd.launch_beam_analysis_dd(*rb_ana, E, A),
+            layout=None,
+            plain=lambda: tkd.beam_analysis_dd_reference(*rb_ana, E, A),
+            kind="analysis_dd"),
+        "beam_opt_step_dd": dict(
+            wrapper=lambda: tkd.beam_opt_step_dd(*rb_opt, *scalars, E, A, G),
+            kernel=lambda: tkd.launch_beam_opt_step_dd(*rb_opt, *scalars, E,
+                                                       A, G),
+            layout=None,
+            plain=lambda: tkd.beam_opt_step_dd_reference(*rb_opt, *scalars,
+                                                         E, A, G),
+            kind="opt_dd"),
+    }
+    # the split-path kernels on phase 3c's fixed-bridge n = 101 inputs
+    sys_t = [lanes_last(x) for x in sys32]
+    sv = [split101[k] for k in ("I", "Le", "free", "rhs")]
+    sv_t = [lanes_last(x) for x in sv]
+    cases.update({
+        "beam_solve": dict(
+            wrapper=lambda: tk.beam_solve(*sv, E, A, refine),
+            kernel=lambda: tk.launch_beam_solve(*sv_t, E, A, refine),
+            layout=lambda: ([lanes_last(x) for x in sv],
+                            [lanes_first(sv_t[3])]),
+            plain=lambda: tk.beam_solve_reference(*sv, E, A, refine),
+            kind="solve3"),
+        # #4 and #6 read the lanes-first systems as they lie; #4's wrapper
+        # is the call block_tridiag_solve makes when it dispatches to #4
+        "block_tridiag_solve": dict(
+            wrapper=lambda: tbt.launch_thomas(
+                *(x.contiguous() for x in sys32)),
+            kernel=lambda: tbt.launch_thomas(*sys32),
+            layout=None,
+            plain=lambda: tbt.thomas_reference(*sys32), kind="thomas"),
+        "block_tridiag_solve_streamed": dict(
+            wrapper=lambda: tbs.block_tridiag_solve_streamed(*sys32),
+            kernel=lambda: tbs.launch_thomas_streamed(*sys32),
+            layout=None,
+            plain=lambda: tbt.thomas_backward_reference(
+                *tbt.thomas_forward_reference(*sys32)),
+            kind="thomas"),
+        "block_tridiag_solve_bidi": dict(
+            wrapper=lambda: tbt.block_tridiag_solve(*sys32, bidi=True),
+            kernel=lambda: tbt.launch_thomas_bidi(*sys_t),
+            layout=lambda: ([lanes_last(x) for x in sys32],
+                            [lanes_first(sys_t[2])]),
+            plain=lambda: tbt.thomas_bidi_reference(*sys32), kind="thomas"),
+    })
+    # #9 on the float64 systems of phase 3b's random-bridge lanes
+    sys_dd = tsd.assemble_beam_system_dd(*(rb_inputs[k] for k in ana_keys),
+                                         E, A)[:3]
+    sys_dd_t = [lanes_last(x) for x in sys_dd]
+    x_dd_t = torch.empty_like(sys_dd_t[2], dtype=torch.float32)
+    cases["solve_dd_streamed"] = dict(
+        wrapper=lambda: tsd.solve_dd_streamed(*sys_dd),
+        kernel=lambda: tsd.launch_thomas_streamed_dd(*sys_dd_t),
+        layout=lambda: ([lanes_last(x) for x in sys_dd],
+                        [lanes_first(x_dd_t)]),
+        plain=lambda: tsd.thomas_dd_reference(*sys_dd), kind="thomas_dd")
+
+    # ---- phase 3c: what one call of each wrapper that copies no layout
+    # launches: its kernel alone.  Traced before any longer profile (a
+    # trace after phase 4's windows has shown no kernel at all).
+    launched = {}
+    for name, c in cases.items():
+        if c["layout"] is not None:
+            continue
+        launched[name] = device_kernels(torch, c["wrapper"])
+        copies = [k for k in launched[name] if "at::" in k or "Copy" in k
+                  or "Memcpy" in k or "Memset" in k]
+        log(f"phase 3c: one {name} call launches "
+            + ", ".join(f"{k[:60]} x{v}" for k, v in launched[name].items()))
+        if copies or not launched[name]:
+            raise AssertionError(f"{name}'s wrapper launched "
+                                 f"{copies or 'nothing the profiler saw'}")
+
+    # ---- phase 3d: the streamed float64 solve against its plain version --
     qc_piv = tkd.beam_analysis_dd(*(qc[k] for k in ana_keys), E, A)[3]
     rb_qc = [torch.cat([rb_inputs[k], qc[k]]) for k in ana_keys]
     errs["solve_dd_streamed"] = check_dd_streamed(
@@ -1497,100 +1621,7 @@ def main(argv=None) -> int:
 
     # ---- phase 6: times -----------------------------------------------------
     log(f"phase 6: times at B={B}, n={n} (CUDA events, median)")
-    lanes_last, lanes_first = tbt.lanes_last, tbt.lanes_first
-    ana = [inputs[k] for k in ("I", "Le", "free", "loads", "udl")]
-    opt = [inputs[k] for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
-    ana_t = [lanes_last(x) for x in ana[:-1]] + [ana[-1]]
-    opt_kw = dict(grad_semi=True, refine=refine)
-    rb_ana = [rb_inputs[k] for k in ("I", "Le", "free", "loads", "udl")]
-    rb_opt = [rb_inputs[k]
-              for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
-    rb_ana_t = [lanes_last(x) for x in rb_ana[:-1]] + [rb_ana[-1]]
     counts_before = read_counts(*mods)[0]
-    cases = {
-        "beam_analysis": dict(
-            wrapper=lambda: tk.beam_analysis(*ana, E, A, refine),
-            kernel=lambda: tk.launch_beam_analysis(*ana_t, E, A, refine),
-            layout=lambda: ([lanes_last(x) for x in ana[:-1]],
-                            [lanes_first(x) for x in (
-                                ana_t[2], ana_t[0], ana_t[0])]),
-            plain=lambda: tk.beam_analysis_reference(*ana, E, A, refine),
-            kind="analysis"),
-        # #2 and #8: no layout, the kernels read the optimizer's tensors
-        # as they lie
-        "beam_opt_step": dict(
-            wrapper=lambda: tk.beam_opt_step(*opt, *scalars, E, A, G,
-                                             **opt_kw),
-            kernel=lambda: tk.launch_beam_opt_step(*opt, *scalars, E, G,
-                                                   **opt_kw),
-            layout=None,
-            plain=lambda: tk.beam_opt_step_reference(*opt, *scalars, E, A,
-                                                     G, **opt_kw),
-            kind="semi"),
-        # the rescue's kernels on random-bridge lanes (phase 3b's inputs)
-        "beam_analysis_dd": dict(
-            wrapper=lambda: tkd.beam_analysis_dd(*rb_ana, E, A),
-            kernel=lambda: tkd.launch_beam_analysis_dd(*rb_ana_t, E, A),
-            layout=lambda: ([lanes_last(x) for x in rb_ana[:-1]],
-                            [lanes_first(x) for x in (
-                                rb_ana_t[2], rb_ana_t[0], rb_ana_t[0])]),
-            plain=lambda: tkd.beam_analysis_dd_reference(*rb_ana, E, A),
-            kind="analysis_dd"),
-        "beam_opt_step_dd": dict(
-            wrapper=lambda: tkd.beam_opt_step_dd(*rb_opt, *scalars, E, A, G),
-            kernel=lambda: tkd.launch_beam_opt_step_dd(*rb_opt, *scalars, E,
-                                                       A, G),
-            layout=None,
-            plain=lambda: tkd.beam_opt_step_dd_reference(*rb_opt, *scalars,
-                                                         E, A, G),
-            kind="opt_dd"),
-    }
-    # the split-path kernels on phase 3c's fixed-bridge n = 101 inputs
-    sys32 = split101["sys"]
-    sys_t = [lanes_last(x) for x in sys32]
-    sv = [split101[k] for k in ("I", "Le", "free", "rhs")]
-    sv_t = [lanes_last(x) for x in sv]
-    cases.update({
-        "beam_solve": dict(
-            wrapper=lambda: tk.beam_solve(*sv, E, A, refine),
-            kernel=lambda: tk.launch_beam_solve(*sv_t, E, A, refine),
-            layout=lambda: ([lanes_last(x) for x in sv],
-                            [lanes_first(sv_t[3])]),
-            plain=lambda: tk.beam_solve_reference(*sv, E, A, refine),
-            kind="solve3"),
-        # #4 and #6 read the lanes-first systems as they lie; #4's wrapper
-        # is the call block_tridiag_solve makes when it dispatches to #4
-        "block_tridiag_solve": dict(
-            wrapper=lambda: tbt.launch_thomas(
-                *(x.contiguous() for x in sys32)),
-            kernel=lambda: tbt.launch_thomas(*sys32),
-            layout=None,
-            plain=lambda: tbt.thomas_reference(*sys32), kind="thomas"),
-        "block_tridiag_solve_streamed": dict(
-            wrapper=lambda: tbs.block_tridiag_solve_streamed(*sys32),
-            kernel=lambda: tbs.launch_thomas_streamed(*sys32),
-            layout=None,
-            plain=lambda: tbt.thomas_backward_reference(
-                *tbt.thomas_forward_reference(*sys32)),
-            kind="thomas"),
-        "block_tridiag_solve_bidi": dict(
-            wrapper=lambda: tbt.block_tridiag_solve(*sys32, bidi=True),
-            kernel=lambda: tbt.launch_thomas_bidi(*sys_t),
-            layout=lambda: ([lanes_last(x) for x in sys32],
-                            [lanes_first(sys_t[2])]),
-            plain=lambda: tbt.thomas_bidi_reference(*sys32), kind="thomas"),
-    })
-    # #9 on the float64 systems of phase 3b's random-bridge lanes
-    sys_dd = tsd.assemble_beam_system_dd(*(rb_inputs[k] for k in ana_keys),
-                                         E, A)[:3]
-    sys_dd_t = [lanes_last(x) for x in sys_dd]
-    x_dd_t = torch.empty_like(sys_dd_t[2], dtype=torch.float32)
-    cases["solve_dd_streamed"] = dict(
-        wrapper=lambda: tsd.solve_dd_streamed(*sys_dd),
-        kernel=lambda: tsd.launch_thomas_streamed_dd(*sys_dd_t),
-        layout=lambda: ([lanes_last(x) for x in sys_dd],
-                        [lanes_first(x_dd_t)]),
-        plain=lambda: tsd.thomas_dd_reference(*sys_dd), kind="thomas_dd")
     # launches on each kernel's main path: the fixed bridge (phase 4) for
     # #1-#2, the random bridge (phase 4b) for #7-#8, the gradient of the
     # analysis (4d) for #3, the split path (4d) and the autopilot (4e) for
@@ -1657,6 +1688,7 @@ def main(argv=None) -> int:
             max_abs_err=errs[name]["abs"], ms=t_wrap, plain_ms=t_plain,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             kernel_only_ms=t_kern, layout_ms=t_layout,
+            wrapper_device_kernels=launched.get(name),
             # per-lane errors against float64, of the lane's scale, p99
             rel_err_p99=errs[name]["rel_p99"],
             plain32_rel_err_p99=errs[name]["plain32_rel_p99"],

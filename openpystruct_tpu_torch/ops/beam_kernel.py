@@ -15,14 +15,17 @@ Three public wrappers keep the JAX launchers' argument order and shapes:
   ``_beam_opt_kernel_b2``): the same solve, the combined loss, its
   gradient (semi, or the exact adjoint: one more substitution pair and
   ``refine`` sweeps on the saved factors), and the Adam update with clamp.
-  Its kernel (``csrc/beam_opt.cu``) walks each lane in fused sweeps and
-  reads and writes the optimizer's lanes-first tensors directly: the wrapper
-  copies no layout, and takes only contiguous tensors.
 - ``beam_solve`` (``pallas_beam_solve``, kernel ``_beam_kernel`` with an
   explicit right-hand side): the 3-DOF assembly of K(I) with full 3x3
   blocks (an arbitrary RHS may load the axial chain), masking, Jacobi
   scaling, block-Thomas with saved Sinv and C, ``refine`` compensated
   sweeps; the pivot is min_i |det3(S_i)|, without the axial-chain product.
+
+The first two kernels live in ``csrc/beam_opt.cu``: one set of fused sweeps
+per lane, with the analysis a last-sweep mode of the opt step's.  They read
+and write the callers' lanes-first tensors directly: the wrappers copy no
+layout, and take only contiguous tensors.  The explicit-RHS solve's kernel
+(``csrc/beam_kernel.cu``) takes lane-innermost copies.
 
 ``beam_analysis`` is differentiable in I, the point loads and the UDL, as
 ``pallas_beam_analysis`` is through its ``custom_vjp``: the backward pass is
@@ -36,7 +39,7 @@ exactly 0 and the 2x2 bending chain carries the whole solution.
 Each wrapper sends a CPU tensor to the plain PyTorch version beside it
 (``beam_analysis_reference``, ``beam_opt_step_reference``,
 ``beam_solve_reference``), and launches the CUDA kernel
-(``csrc/beam_kernel.cu``, ``csrc/beam_opt.cu``) on a CUDA tensor, or
+(``csrc/beam_opt.cu``, ``csrc/beam_kernel.cu``) on a CUDA tensor, or
 raises.  There is no fallback from the kernel to the plain version.
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the calls the
 wrappers sent to the plain versions.
@@ -513,34 +516,33 @@ def beam_solve_reference(I, Le, free_mask, rhs, E, A, refine=1):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_D = ctypes.c_double
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The library of the analysis, float64 analysis and explicit-RHS solve
-    kernels (``csrc/beam_kernel.cu``), with the argument types of its C
-    entry points."""
+    """The library of the explicit-RHS solve kernel
+    (``csrc/beam_kernel.cu``), with the argument types of its C entry
+    points."""
     lib = _build.load("beam_kernel")
-    lib.beam_analysis_f32.argtypes = [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P]
-    lib.beam_analysis_dd_f32io.argtypes = ([_P] * 10 + [_I] * 2 + [_D] * 2
-                                           + [_P])
     lib.beam_solve_f32.argtypes = [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P]
-    lib.beam_ws_floats_per_node.argtypes = [_I]
-    for fn in (lib.beam_analysis_f32, lib.beam_analysis_dd_f32io,
-               lib.beam_solve_f32, lib.beam_ws_floats_per_node):
+    lib.beam_solve_ws_per_node.argtypes = []
+    for fn in (lib.beam_solve_f32, lib.beam_solve_ws_per_node):
         fn.restype = _I
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _opt_lib():
-    """The library of the opt-step kernel (``csrc/beam_opt.cu``)."""
+    """The library of the fused-sweep kernels, the opt step and the
+    analysis (``csrc/beam_opt.cu``)."""
     lib = _build.load("beam_opt")
     lib.beam_opt_step_f32.argtypes = ([_P] * 12 + [_I] * 4 + [_F] * 8
                                       + [_P])
     lib.beam_opt_scratch_per_node.argtypes = [_I]
-    for fn in (lib.beam_opt_step_f32, lib.beam_opt_scratch_per_node):
+    lib.beam_analysis_f32.argtypes = [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P]
+    lib.beam_analysis_scratch_per_node.argtypes = []
+    for fn in (lib.beam_opt_step_f32, lib.beam_opt_scratch_per_node,
+               lib.beam_analysis_f32, lib.beam_analysis_scratch_per_node):
         fn.restype = _I
     return lib
 
@@ -559,11 +561,12 @@ def _check(device, **tensors):
 
 
 def _check_launch(dev, nelem, B, **tensors):
-    """Raise unless every lane-innermost launch input (named as in the
-    launchers) is contiguous float32 on ``dev`` with its shape."""
+    """Raise unless every lane-innermost launch input of the explicit-RHS
+    solve (named as in its launcher) is contiguous float32 on ``dev`` with
+    its shape."""
     n = nelem + 1
     shapes = dict(I_t=(nelem, B), Le_t=(nelem, B), free_t=(n, 3, B),
-                  loads_t=(n, B), udl=(B,), rhs_t=(n, 3, B))
+                  rhs_t=(n, 3, B))
     for t in tensors.values():
         if not t.is_contiguous():
             raise ValueError("launch inputs must be contiguous")
@@ -576,45 +579,20 @@ def _run(rc, name, launches=LAUNCHES):
     launches[name] += 1
 
 
-def launch_beam_analysis(I_t, Le_t, free_t, loads_t, udl, E, A, refine=1):
-    """Launch the analysis kernel on lane-innermost inputs: I_t, Le_t
-    (nelem, B), free_t (n, 3, B), loads_t (n, B), udl (B,), all contiguous
-    float32 on one card.  Returns u_t (n, 3, B), V_t, M_t (nelem, B),
-    pivot (B,)."""
-    nelem, B = I_t.shape
-    n = nelem + 1
-    dev = I_t.device
-    _check_launch(dev, nelem, B, I_t=I_t, Le_t=Le_t, free_t=free_t,
-                  loads_t=loads_t, udl=udl)
-    lib = _lib()
-    u = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
-    V = torch.empty((nelem, B), dtype=torch.float32, device=dev)
-    M = torch.empty_like(V)
-    piv = torch.empty((B,), dtype=torch.float32, device=dev)
-    ws = torch.empty((n, lib.beam_ws_floats_per_node(0), B),
-                     dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.beam_analysis_f32(
-            I_t.data_ptr(), Le_t.data_ptr(), free_t.data_ptr(),
-            loads_t.data_ptr(), udl.data_ptr(), u.data_ptr(), V.data_ptr(),
-            M.data_ptr(), piv.data_ptr(), ws.data_ptr(),
-            B, n, int(refine), float(E), float(E * A), stream)
-    _run(rc, "beam_analysis")
-    return u, V, M, piv
-
-
-def _check_lanes_first(name, I, mu, nu, Le, free_mask, point_loads, udl):
-    """Raise unless the opt-step inputs are the optimizer's lanes-first
-    float32 tensors, contiguous on one device: I, mu, nu, Le (B, nelem),
-    free_mask (B, n, 3), point_loads (B, n), udl (B,), nelem >= 1.  The
-    opt-step kernels read them as they lie and copy none."""
+def _check_lanes_first(name, I, Le, free_mask, point_loads, udl, mu=None,
+                       nu=None):
+    """Raise unless the inputs are the callers' lanes-first float32
+    tensors, contiguous on one CUDA device: I, Le (and the opt step's mu,
+    nu) (B, nelem), free_mask (B, n, 3), point_loads (B, n), udl (B,),
+    nelem >= 1.  The fused-sweep kernels read them as they lie and copy
+    none."""
     B, nelem = I.shape
     n = nelem + 1
     if nelem < 1:
         raise ValueError(f"{name} needs at least one element")
     ins = dict(I=I, mu=mu, nu=nu, Le=Le, free_mask=free_mask,
                point_loads=point_loads, udl=udl)
+    ins = {k: t for k, t in ins.items() if t is not None}
     shapes = dict(I=(B, nelem), mu=(B, nelem), nu=(B, nelem),
                   Le=(B, nelem), free_mask=(B, n, 3), point_loads=(B, n),
                   udl=(B,))
@@ -623,6 +601,42 @@ def _check_lanes_first(name, I, mu, nu, Le, free_mask, point_loads, udl):
         if not t.is_contiguous():
             raise ValueError(f"{k} is not contiguous: the kernel reads the "
                              "lanes-first layout as it lies and copies none")
+    if not I.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{I.device}")
+
+
+def _sweep_scratch(per_node, n, B, dev):
+    """The fused sweeps' private scratch (n, per_node, lanes padded to
+    whole 32-lane blocks): the kernels stage 128-byte rows."""
+    return torch.empty((n, per_node, -(-B // 32) * 32), dtype=torch.float32,
+                       device=dev)
+
+
+def launch_beam_analysis(I, Le, free_mask, point_loads, udl, E, A,
+                         refine=1):
+    """Launch the analysis kernel on the callers' lanes-first float32
+    tensors, as they are (``_check_lanes_first``, before any build).
+    Returns u (B, n, 3), V, M (B, nelem) and the pivot (B,)."""
+    _check_lanes_first("beam_analysis", I, Le, free_mask, point_loads, udl)
+    B, nelem = I.shape
+    n = nelem + 1
+    dev = I.device
+    lib = _opt_lib()
+    u = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
+    V = torch.empty_like(I)
+    M = torch.empty_like(I)
+    piv = torch.empty((B,), dtype=torch.float32, device=dev)
+    scratch = _sweep_scratch(lib.beam_analysis_scratch_per_node(), n, B, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.beam_analysis_f32(
+            I.data_ptr(), Le.data_ptr(), free_mask.data_ptr(),
+            point_loads.data_ptr(), udl.data_ptr(), u.data_ptr(),
+            V.data_ptr(), M.data_ptr(), piv.data_ptr(), scratch.data_ptr(),
+            B, n, int(refine), float(E), float(E * A), stream)
+    _run(rc, "beam_analysis")
+    return u, V, M, piv
 
 
 def launch_beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl,
@@ -631,17 +645,16 @@ def launch_beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl,
     """Launch the opt-step kernel on the optimizer's lanes-first float32
     tensors, as they are (``_check_lanes_first``).  Returns I_new, mu_new,
     nu_new (B, nelem) and stats (B, 4)."""
-    _check_lanes_first("beam_opt_step", I, mu, nu, Le, free_mask, point_loads,
-                      udl)
+    _check_lanes_first("beam_opt_step", I, Le, free_mask, point_loads, udl,
+                       mu, nu)
     B, nelem = I.shape
     dev = I.device
     lib = _opt_lib()
     I_o, mu_o, nu_o = (torch.empty_like(I) for _ in range(3))
     stats = torch.empty((B, 4), dtype=torch.float32, device=dev)
-    # lanes padded to whole 32-lane blocks: the kernel stages 128-byte rows
-    scratch = torch.empty(
-        (nelem + 1, lib.beam_opt_scratch_per_node(int(bool(grad_semi))),
-         -(-B // 32) * 32), dtype=torch.float32, device=dev)
+    scratch = _sweep_scratch(
+        lib.beam_opt_scratch_per_node(int(bool(grad_semi))), nelem + 1, B,
+        dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.beam_opt_step_f32(
@@ -668,7 +681,7 @@ def launch_beam_solve(I_t, Le_t, free_t, rhs_t, E, A, refine=1):
     lib = _lib()
     x = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
     piv = torch.empty((B,), dtype=torch.float32, device=dev)
-    ws = torch.empty((n, lib.beam_ws_floats_per_node(4), B),
+    ws = torch.empty((n, lib.beam_solve_ws_per_node(), B),
                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -703,14 +716,8 @@ def _analysis_forward(I, Le, free_mask, point_loads, udl, E, A, refine):
         PLAIN_CALLS["beam_analysis"] += 1
         return beam_analysis_reference(I, Le, free_mask, point_loads, udl,
                                        E, A, refine)
-    B, nelem = I.shape
-    _check(I.device, I=(I, (B, nelem)), Le=(Le, (B, nelem)),
-           free_mask=(free_mask, (B, nelem + 1, 3)),
-           point_loads=(point_loads, (B, nelem + 1)), udl=(udl, (B,)))
-    u, V, M, piv = launch_beam_analysis(
-        _lanes_last(I), _lanes_last(Le), _lanes_last(free_mask),
-        _lanes_last(point_loads), udl.contiguous(), E, A, refine)
-    return _lanes_first(u), _lanes_first(V), _lanes_first(M), piv
+    return launch_beam_analysis(I, Le, free_mask, point_loads, udl, E, A,
+                                refine)
 
 
 class _BeamAnalysis(torch.autograd.Function):
@@ -778,8 +785,9 @@ def beam_analysis(I, Le, free_mask, point_loads, udl, E, A, refine=1):
     I, Le (B, nelem); free_mask (B, n, 3) float 0/1, 1 where the DOF is
     free; point_loads (B, n) nodal Fy; udl (B,).  Returns u (B, n, 3),
     V (B, nelem), M (B, nelem) and the min Schur pivot (B,).  CPU tensors
-    run the plain version; CUDA tensors (float32) launch the kernel.  The
-    backward pass runs ``beam_solve`` (kernel or plain version, by device).
+    run the plain version; CUDA tensors (float32, contiguous) launch the
+    kernel, with no layout copy.  The backward pass runs ``beam_solve``
+    (kernel or plain version, by device).
     """
     return _BeamAnalysis.apply(I, Le, free_mask, point_loads, udl, E, A,
                                refine)

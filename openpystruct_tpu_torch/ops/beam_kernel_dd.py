@@ -15,18 +15,18 @@ ceiling (the JAX module's ``fits_dd``) has no counterpart here.
   stiffness -> masked bending-only 2x2 assembly (u_x exactly 0) -> Jacobi
   scaling -> factorization fused with the forward sweep -> back sweep ->
   u, V, M.  The 3-DOF min Schur pivot a_i |det2(S_i)|, with the axial
-  chain's a_i, is computed in float64 and returned in float32.  Its kernel
-  (``csrc/beam_kernel.cu``) instantiates the float32 kernels' stage
-  functions for ``double``, as the JAX dd module hands its float32 stages
-  hi/lo pairs; the wrapper transposes to and from lanes-innermost layouts.
+  chain's a_i, is computed in float64 and returned in float32.
 - ``beam_opt_step_dd`` (``pallas_beam_opt_step_dd``, kernel
   ``_beam_dd_opt_kernel``): the same solve, the loss and its semi-gradient
   in float64; Adam in float32 on the gradient cast to float32, with the
   same lr_t, bc1, bc2 scalars; the pivot as a fifth output.  There is no
-  adjoint mode, as in the JAX package.  Its kernel (``csrc/beam_opt_dd.cu``)
-  walks each lane in two fused sweeps and reads and writes the optimizer's
-  lanes-first tensors directly: the wrapper copies no layout, and takes only
-  contiguous tensors.
+  adjoint mode, as in the JAX package.
+
+Both kernels live in ``csrc/beam_opt_dd.cu``: two fused sweeps per lane,
+the forward one shared (so the two pivots agree bit for bit), the backward
+one writing u, V, M or the Adam step.  They read and write the callers'
+lanes-first tensors directly: the wrappers copy no layout, and take only
+contiguous tensors.
 
 Each wrapper sends a CPU tensor to the plain PyTorch version beside it
 (``beam_analysis_dd_reference``, ``beam_opt_step_dd_reference``), which takes
@@ -48,14 +48,9 @@ from openpystruct_tpu_torch.ops.beam_kernel import (
     _adam_step,
     _assemble_b2,
     _bsub_b2,
-    _check,
-    _check_launch,
     _check_lanes_first,
     _factor_b2,
     _forces,
-    _lanes_first,
-    _lanes_last,
-    _lib,
     _loss_stats,
     _run,
     _scale_b2,
@@ -65,9 +60,6 @@ from openpystruct_tpu_torch.ops.beam_kernel import (
 
 LAUNCHES = {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
 PLAIN_CALLS = {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
-
-# beam_ws_floats_per_node's kind for the float64 analysis kernel's workspace
-_WS_KIND_DD = 3
 
 
 def reset_counts() -> None:
@@ -132,50 +124,54 @@ def beam_opt_step_dd_reference(I, mu, nu, Le, free_mask, point_loads, udl,
 # ---------------------------------------------------------------------------
 
 
-def _workspace(lib, n, B, dev):
-    return torch.empty((n, lib.beam_ws_floats_per_node(_WS_KIND_DD), B),
-                       dtype=torch.float64, device=dev)
-
-
-def launch_beam_analysis_dd(I_t, Le_t, free_t, loads_t, udl, E, A):
-    """Launch the float64 analysis kernel on lane-innermost float32 inputs:
-    I_t, Le_t (nelem, B), free_t (n, 3, B), loads_t (n, B), udl (B,), all
-    contiguous on one card.  Returns u_t (n, 3, B), V_t, M_t (nelem, B),
-    pivot (B,), float32."""
-    nelem, B = I_t.shape
-    n = nelem + 1
-    dev = I_t.device
-    _check_launch(dev, nelem, B, I_t=I_t, Le_t=Le_t, free_t=free_t,
-                  loads_t=loads_t, udl=udl)
-    lib = _lib()
-    u = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
-    V = torch.empty((nelem, B), dtype=torch.float32, device=dev)
-    M = torch.empty_like(V)
-    piv = torch.empty((B,), dtype=torch.float32, device=dev)
-    ws = _workspace(lib, n, B, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.beam_analysis_dd_f32io(
-            I_t.data_ptr(), Le_t.data_ptr(), free_t.data_ptr(),
-            loads_t.data_ptr(), udl.data_ptr(), u.data_ptr(), V.data_ptr(),
-            M.data_ptr(), piv.data_ptr(), ws.data_ptr(), B, n, float(E),
-            float(E * A), stream)
-    _run(rc, "beam_analysis_dd", LAUNCHES)
-    return u, V, M, piv
-
-
 @functools.lru_cache(maxsize=None)
-def _opt_lib():
-    """The library of the opt-step kernel (``csrc/beam_opt_dd.cu``)."""
+def _lib():
+    """The library of the float64 kernels, the analysis and the opt step
+    (``csrc/beam_opt_dd.cu``)."""
     lib = _build.load("beam_opt_dd")
     P, I_, D, F_ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                     ctypes.c_float)
     lib.beam_opt_step_dd_f32io.argtypes = ([P] * 13 + [I_] * 2 + [D] * 5
                                            + [F_] * 4 + [P])
+    lib.beam_analysis_dd_f32io.argtypes = [P] * 10 + [I_] * 2 + [D] * 2 + [P]
     lib.beam_opt_dd_scratch_per_node.argtypes = []
-    for fn in (lib.beam_opt_step_dd_f32io, lib.beam_opt_dd_scratch_per_node):
+    for fn in (lib.beam_opt_step_dd_f32io, lib.beam_analysis_dd_f32io,
+               lib.beam_opt_dd_scratch_per_node):
         fn.restype = I_
     return lib
+
+
+def _scratch(lib, n, B, dev):
+    """The sweeps' private float64 scratch (n, 7, B), written once."""
+    return torch.empty((n, lib.beam_opt_dd_scratch_per_node(), B),
+                       dtype=torch.float64, device=dev)
+
+
+def launch_beam_analysis_dd(I, Le, free_mask, point_loads, udl, E, A):
+    """Launch the float64 analysis kernel on the callers' lanes-first
+    float32 tensors, as they are (``beam_kernel._check_lanes_first``, before
+    any build).  Returns u (B, n, 3), V, M (B, nelem) and the pivot (B,),
+    float32."""
+    _check_lanes_first("beam_analysis_dd", I, Le, free_mask, point_loads,
+                       udl)
+    B, nelem = I.shape
+    n = nelem + 1
+    dev = I.device
+    lib = _lib()
+    u = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
+    V = torch.empty_like(I)
+    M = torch.empty_like(I)
+    piv = torch.empty((B,), dtype=torch.float32, device=dev)
+    scratch = _scratch(lib, n, B, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.beam_analysis_dd_f32io(
+            I.data_ptr(), Le.data_ptr(), free_mask.data_ptr(),
+            point_loads.data_ptr(), udl.data_ptr(), u.data_ptr(),
+            V.data_ptr(), M.data_ptr(), piv.data_ptr(), scratch.data_ptr(),
+            B, n, float(E), float(E * A), stream)
+    _run(rc, "beam_analysis_dd", LAUNCHES)
+    return u, V, M, piv
 
 
 def launch_beam_opt_step_dd(I, mu, nu, Le, free_mask, point_loads, udl,
@@ -185,17 +181,16 @@ def launch_beam_opt_step_dd(I, mu, nu, Le, free_mask, point_loads, udl,
     float32 tensors, as they are (``beam_kernel._check_lanes_first``).
     Returns I_new, mu_new, nu_new (B, nelem), stats (B, 4) and the pivot
     (B,)."""
-    _check_lanes_first("beam_opt_step_dd", I, mu, nu, Le, free_mask,
-                       point_loads, udl)
+    _check_lanes_first("beam_opt_step_dd", I, Le, free_mask, point_loads,
+                       udl, mu, nu)
     B, nelem = I.shape
     n = nelem + 1
     dev = I.device
-    lib = _opt_lib()
+    lib = _lib()
     I_o, mu_o, nu_o = (torch.empty_like(I) for _ in range(3))
     stats = torch.empty((B, 4), dtype=torch.float32, device=dev)
     piv = torch.empty((B,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((n, lib.beam_opt_dd_scratch_per_node(), B),
-                          dtype=torch.float64, device=dev)
+    scratch = _scratch(lib, n, B, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.beam_opt_step_dd_f32io(
@@ -214,20 +209,14 @@ def beam_analysis_dd(I, Le, free_mask, point_loads, udl, E, A):
 
     Shapes of ``beam_analysis``; returns u (B, n, 3), V, M (B, nelem) and
     the float64 min Schur pivot (B,), in the inputs' dtype.  CPU tensors
-    run the plain version; CUDA tensors (float32) launch the kernel.
+    run the plain version; CUDA tensors (float32, contiguous) launch the
+    kernel, with no layout copy.
     """
     if not I.is_cuda:
         PLAIN_CALLS["beam_analysis_dd"] += 1
         return beam_analysis_dd_reference(I, Le, free_mask, point_loads, udl,
                                           E, A)
-    B, nelem = I.shape
-    _check(I.device, I=(I, (B, nelem)), Le=(Le, (B, nelem)),
-           free_mask=(free_mask, (B, nelem + 1, 3)),
-           point_loads=(point_loads, (B, nelem + 1)), udl=(udl, (B,)))
-    u, V, M, piv = launch_beam_analysis_dd(
-        _lanes_last(I), _lanes_last(Le), _lanes_last(free_mask),
-        _lanes_last(point_loads), udl.contiguous(), E, A)
-    return _lanes_first(u), _lanes_first(V), _lanes_first(M), piv
+    return launch_beam_analysis_dd(I, Le, free_mask, point_loads, udl, E, A)
 
 
 def beam_opt_step_dd(I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1,

@@ -1,6 +1,6 @@
-// The datagen's Adam step for Hopper (sm_90a): fused sweeps per lane over
-// read-only lanes-first float32 inputs, the recurrences alone on the lane's
-// thread.
+// The datagen's Adam step and the float32 analysis for Hopper (sm_90a):
+// fused sweeps per lane over read-only lanes-first float32 inputs, the
+// recurrences alone on the lane's thread.
 //
 // beam_opt_step_kernel replaces openpystruct_tpu/ops/beam_kernel.py:819
 // _beam_opt_kernel_b2 (launcher pallas_beam_opt_step): stiffness -> masked
@@ -12,15 +12,28 @@
 // factors and `refine` sweeps, then banded products) -> Adam with clamp.
 // All in float32.
 //
-// Bound on an H100 SXM: the call must read I, mu, nu, Le (n - 1 each), the
-// free mask (3n), the loads (n) and udl, and write I, mu, nu and stats (4):
-// 1,109 floats per lane at n = 101, ~21.7 us at B = 16384 on 3.35 TB/s.
-// Its flops (~360 per node with one refinement sweep, ~610 in adjoint
-// mode) are below that at 67 TFLOP/s.  What keeps a kernel that walks
-// each lane's recurrence on one thread from it is latency: at B = 16384
-// the card holds about one lane-warp per scheduler, the compaction's
-// 512-lane buckets a sixteenth of that, so each step waits on its operands.
-// The design:
+// beam_analysis_kernel replaces openpystruct_tpu/ops/beam_kernel.py:751
+// _beam_kernel_b2 (launcher pallas_beam_analysis): the same sweeps with
+// another last one (mode kAnalysis), which writes the unscaled u (u_x the
+// exact zero x_0 * 0), and V, M recovered from the float32 u.  As the JAX
+// kernel, the first forward sweep saves C_i = Sinv_i U_i and every back
+// substitution reads it (x_i = y_i - C_i x_{i+1}); it also returns the
+// 3-DOF pivot min_i a_i |det2(S_i)|, the axial chain's a_i in float32 with
+// a NaN-propagating min (the datagen gate pivot_tol = 1e-9 and the rescue's
+// 1e-12 are calibrated on it).  Its stiffness and axial EA/Le are rounded
+// as the seven-pass kernel it replaces stored them, so the forward sweep
+// and the pivot keep that kernel's roundings.
+//
+// Bound on an H100 SXM: the opt step must read I, mu, nu, Le (n - 1 each),
+// the free mask (3n), the loads (n) and udl, and write I, mu, nu and stats
+// (4); the analysis reads I, Le, the mask, the loads and udl and writes u
+// (3n), V, M (n - 1 each) and the pivot.  Both are 1,109 floats per lane at
+// n = 101, ~21.7 us at B = 16384 on 3.35 TB/s.  Their flops (~360 per node
+// with one refinement sweep, ~610 in adjoint mode, ~320 in the analysis)
+// are below that at 67 TFLOP/s.  What keeps a kernel that walks each lane's
+// recurrence on one thread from it is latency: at B = 16384 the card holds
+// about one lane-warp per scheduler, the compaction's 512-lane buckets a
+// sixteenth of that, so each step waits on its operands.  The design:
 //  - fused sweeps.  The first forward sweep builds each node's scaled
 //    system from the inputs, factors and substitutes forward.  Each back
 //    sweep forms node i + 1's compensated residual as soon as x_i is known,
@@ -28,7 +41,7 @@
 //    sweep recovers element i's V and M, its loss terms, gradient and Adam
 //    step (semi), or the adjoint's right-hand side one node behind
 //    (adjoint), after which the same sweeps solve for lam and the last one
-//    does the banded products and Adam.
+//    does the banded products and Adam; in the analysis it writes u, V, M.
 //  - the recurrences alone on the lane's thread.  A block is one chain warp
 //    (thread = lane) and kHelpers helper warps over the same 32 lanes.  The
 //    chain warp runs the factorization, forward substitutions and back
@@ -37,28 +50,34 @@
 //    in shared memory: the stiffness with its 1/Le, the IEEE rsqrt scales,
 //    w/12, the scaled blocks and right-hand side (handed to the chain in
 //    tiles), the error-free residuals, forces, loss, gradient, g_hat and
-//    Adam (handed x by the chain through a ring of nodes).  Tiles pass
-//    between the two through two full/empty pairs of named barriers
-//    (bar.arrive / bar.sync), so the chain runs up to two tiles ahead.
+//    Adam (handed x by the chain through a ring of nodes).  The analysis's
+//    axial chain, a second recurrence with one division a node, runs on
+//    the last helper warp beside the chain, which only multiplies its a_i
+//    by |det2(S_i)| and takes the min.  Tiles pass between the two through
+//    two full/empty pairs of named barriers (bar.arrive / bar.sync), so the
+//    chain runs up to two tiles ahead.
 //  - scratch written once per sweep, lanes innermost (row stride the lane
 //    count rounded up to 32): the scaled system, Schur inverses, scales, x
 //    and the residual, 18 floats per node (22 in adjoint mode, with g and
-//    the three banded rows).  The chain stages the rows it reads a tile
-//    ahead into shared memory with 16-byte cp.async.
+//    the three banded rows; 22 in the analysis, with C).  The chain stages
+//    the rows it reads a tile ahead into shared memory with 16-byte
+//    cp.async.
 //  - lanes-first I/O staged through shared memory: the helpers copy
 //    (lanes x nodes) tiles of each input with cp.async while they work on
-//    the previous tile, and write I, mu, nu through a tile too, so every
-//    global access is coalesced and the wrapper copies nothing.
+//    the previous tile, and write I, mu, nu (or u, V, M) through a tile
+//    too, so every global access is coalesced and the wrapper copies
+//    nothing.  Only a lane whose u_x zero is -0 or NaN, known once x_0 is,
+//    has its u_x column written a second time.
 //
-// Against the seven-pass kernel it replaces, every expression keeps its tree
-// (the back sweep's Sinv_i (U_i x_{i+1}), the refinement's error-free
-// transforms, torch's Adam); nvcc's FMA contraction differs with the basic
-// blocks, so outputs agree to float32 rounding, not bitwise.  The loss sums
-// run in another order.
+// Against the seven-pass kernels they replace, every expression keeps its
+// tree (the opt step's back sweep Sinv_i (U_i x_{i+1}), the analysis's C_i
+// x_{i+1}, the refinement's error-free transforms, torch's Adam); nvcc's
+// FMA contraction differs with the basic blocks, so outputs agree to
+// float32 rounding, not bitwise.  The loss sums run in another order.
 //
 // Floating point: no --use_fast_math; IEEE division and square root.  The
 // compiler may contract a*b+c into an FMA anywhere except in the error-free
-// transforms, which use the _rn intrinsics.
+// transforms and the analysis's stiffness, which use the _rn intrinsics.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -92,6 +111,8 @@ enum : int {
   S0, S1, NC_SEMI,
   GR = NC_SEMI, RU, RTI, RTJ, NC_ADJOINT
 };
+// the analysis keeps C_i = Sinv_i U_i where the adjoint keeps its rows
+enum : int { C00 = NC_SEMI, C01, C10, C11, NC_ANALYSIS };
 constexpr int kChainRows = R1 + 1;   // SI, U, X, R: a back sweep's chain rows
 constexpr int kSubstRows = U11 + 3;  // SI, U and a right-hand side pair
 
@@ -100,7 +121,8 @@ enum : int {
   kRefine = 0,     // not the last: store x, form the residual
   kSemi = 1,       // forces, loss, semi-gradient, Adam
   kPrimal = 2,     // forces, loss, g and rows, adjoint right-hand side
-  kAdjoint = 3     // banded products, Adam
+  kAdjoint = 3,    // banded products, Adam
+  kAnalysis = 4    // u, V, M
 };
 
 // shared memory, in floats: the first forward sweep's input windows
@@ -110,14 +132,18 @@ constexpr int kWinE = kChunk + 3;                // pitch of I and Le
 constexpr int kWinF = 3 * (kChunk + 2) + 1;      // pitch of the free mask
 constexpr int kWin = 2 * kWinE + kPitch + kWinF;
 constexpr int kSysVals = 9;    // m0 m1 m2 r0 r1 q00 q01 q10 q11
-// per node c0 .. c0 + kChunk: its scales and element's k11, k12, k2
+// per node c0 .. c0 + kChunk: its scales and element's k11, k12, k2; in
+// the analysis also its axial d00, rsqrt(d00) and u00
 constexpr int kNodeVals = 5;
-constexpr int kSmemFwd = 2 * kWin * kLanes + 2 * kSysVals * kPitch * kLanes +
-                         kNodeVals * kWinE * kLanes;
+constexpr int kNodeValsAx = kNodeVals + 3;
+// the analysis's axial pivot factors a_i of the tile's nodes, two tiles
+constexpr int kAxTile = 2 * kWin + 2 * kSysVals * kPitch + kNodeValsAx * kWinE;
+constexpr int kSmemFwd = (kAxTile + 2 * kPitch) * kLanes;
 // the back sweeps: the chain's row tiles, the x ring, the helpers' input
 // tiles (at most I, Le and the free mask, or I, Le, mu, nu), the output
 // tiles or the g_hat term ring, the helpers' partial sums
 constexpr int kPitch3 = 3 * kChunk + 1;
+constexpr int kPitchU = 3 * (kChunk + 1);   // the analysis's u tile: 9 nodes
 constexpr int kHin = (2 * kPitch + kPitch3 > 4 * kPitch) ? 2 * kPitch + kPitch3
                                                          : 4 * kPitch;
 constexpr int kOutOrRing =
@@ -126,6 +152,7 @@ constexpr int kSmemBwd = 2 * kChainRows * kChunk * kLanes + 2 * kRing * kLanes +
                          2 * kHin * kLanes + kOutOrRing * kLanes +
                          3 * kHelpers * kLanes;
 constexpr int kSmemFloats = kSmemFwd > kSmemBwd ? kSmemFwd : kSmemBwd;
+static_assert(2 * kPitch + kPitchU <= kOutOrRing, "V, M, u output tiles");
 
 __device__ __forceinline__ void two_prod(float a, float b, float& p,
                                          float& e) {
@@ -147,6 +174,9 @@ __device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
 // stay NaN so the validity gate drops it.
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a) ? a : ((b != b || b > a) ? b : a);
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a) ? a : ((b != b || b < a) ? b : a);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -215,6 +245,12 @@ struct Ctx {
   int hw;                       // helper warp 0 .. kHelpers - 1, or -1
   bool live;                    // the lane is < B
   float w, E, Gs, alpha_m, alpha_s, clamp_min, lr_t, bc1, bc2;
+  // the analysis's outputs: u (B, n, 3), V, M (B, n - 1), pivot (B,)
+  float* __restrict__ u;
+  float* __restrict__ V;
+  float* __restrict__ M;
+  float* __restrict__ piv;
+  float EA;
 
   // this lane's scratch value
   __device__ __forceinline__ float& at(int i, int c) const {
@@ -224,14 +260,24 @@ struct Ctx {
 
 struct Stiff {
   float k11, k12, k13, k2, le;   // 12EI/Le^3, 6EI/Le^2, 4EI/Le, 2EI/Le, Le
+  float ea;                      // EA/Le (RN only)
 };
 
-__device__ __forceinline__ Stiff stiffness(float I, float le, float E) {
+// RN: the coefficients rounded as the seven-pass analysis kernel stored
+// them, before a sum read them back (__fmul_rn is never contracted into an
+// FMA), and the axial EA/Le too.
+template <bool RN>
+__device__ __forceinline__ Stiff stiffness(float I, float le, float E,
+                                           float EA = 0.0f) {
   const float inv_le = 1.0f / le;
   const float eil = E * I * inv_le;
   const float eil2 = eil * inv_le;
   const float eil3 = eil2 * inv_le;
-  return {12.0f * eil3, 6.0f * eil2, 4.0f * eil, 2.0f * eil, le};
+  if (RN)
+    return {__fmul_rn(12.0f, eil3), __fmul_rn(6.0f, eil2),
+            __fmul_rn(4.0f, eil), __fmul_rn(2.0f, eil), le,
+            __fmul_rn(EA, inv_le)};
+  return {12.0f * eil3, 6.0f * eil2, 4.0f * eil, 2.0f * eil, le, 0.0f};
 }
 
 // Torch's Adam in float32 (bias-corrected moments; lr_t, bc1, bc2 computed
@@ -249,7 +295,8 @@ __device__ __forceinline__ void adam(const Ctx& c, float I, float mu, float nu,
 
 // Error-free residual f_k - K_s x of node k from node k's D, f and U_k
 // (coupling to x_{k+1}) and U_{k-1} (coupling to x_{k-1}, used
-// transposed); the term order of refine_b2 in beam_kernel.cu.
+// transposed); the term order of the plain version's _refine_b2
+// (ops/beam_kernel.py).
 __device__ __forceinline__ void residual(const Ctx& c, int k, float xp0,
                                          float xp1, float xi0, float xi1,
                                          float xn0, float xn1, float& out0,
@@ -290,7 +337,10 @@ __device__ __forceinline__ void residual(const Ctx& c, int k, float xp0,
 // ---------------------------------------------------------------------------
 // The first forward sweep.  Helpers: node i's scaled blocks, right-hand side
 // and scaled U_i from the inputs into a system tile and the scratch (D, F,
-// S, U).  Chain: factorization and y (SI, X).
+// S, U).  Chain: factorization and y (SI, X).  ANALYSIS: the chain also
+// stores C_{i-1} = Sinv_{i-1} U_{i-1}, the W its Schur complement forms,
+// and the pivot min_i a_i |det2(S_i)|; the last helper warp walks the axial
+// chain a_i (one division a node) beside it and hands a_i over in a tile.
 // ---------------------------------------------------------------------------
 
 // Node i's masked diagonal block from the stiffness of elements i - 1 and
@@ -306,6 +356,7 @@ __device__ __forceinline__ void node_diag(const Stiff& ep, const Stiff& en,
   Dt = d22 * (f2 * f2 + (1.0f - f2));
 }
 
+template <bool ANALYSIS>
 __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
   constexpr int T = kLanes;
   const int n = c.n, nelem = n - 1, b0 = c.b0, B = c.B, lane = c.lane;
@@ -314,6 +365,12 @@ __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
   auto sys = [&](int ch) {
     return smem + 2 * kWin * T + (ch & 1) * kSysVals * kPitch * T;
   };
+  auto axt = [&](int ch) {
+    return smem + (kAxTile + (ch & 1) * kPitch) * T + lane * kPitch;
+  };
+  // the helper warp that walks the axial chain (ANALYSIS)
+  constexpr int kAxWarp = kHelpers - 1;
+  constexpr int kPhase2 = ANALYSIS ? kHelpers - 1 : kHelpers;
 
   if (c.hw >= 0) {
     // ---- helpers ----
@@ -332,6 +389,8 @@ __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
                               3 * n, 3 * c0, b0, B, htid, kHelperThreads);
       cp_async_commit();
     };
+    // the axial walk's carry: a_{i-1}, rsqrt(d00_{i-1}), u00_{i-1}
+    float ax_a = 0.0f, ax_r = 0.0f, ax_u = 0.0f;
     stage_win(0);
     for (int ch = 0; ch < nchunk; ++ch) {
       if (ch + 1 < nchunk) {
@@ -352,8 +411,8 @@ __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
       // elements j - 1 and j of node j = c0 + k sit at window columns k and
       // k + 1
       auto elem = [&](int j, int col) -> Stiff {
-        if (j < 0 || j >= nelem) return {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        return stiffness(wI[col], wLe[col], c.E);
+        if (j < 0 || j >= nelem) return {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        return stiffness<ANALYSIS>(wI[col], wLe[col], c.E, c.EA);
       };
       // phase 1, nodes c0 .. c0 + cnt (the next tile's first too): blocks,
       // right-hand side and scales
@@ -372,6 +431,15 @@ __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
         nv[3 * kWinE * T + k] = en.k12;
         nv[4 * kWinE * T + k] = en.k2;
         if (k == cnt) continue;   // the next tile's node: its scales only
+        if (ANALYSIS) {
+          // the axial chain's masked d00 (its diagonal restored) and u00
+          const float f0 = wF[3 * k];
+          const float d00 = (ep.ea + en.ea) * (f0 * f0 + (1.0f - f0));
+          nv[5 * kWinE * T + k] = d00;
+          nv[6 * kWinE * T + k] = rsq(d00);
+          nv[7 * kWinE * T + k] = i + 1 < n ? -en.ea * (f0 * wF[3 * k + 3])
+                                            : 0.0f;
+        }
         // consistent UDL loads + nodal point loads (no axial load exists)
         const float fy = (ep.le + en.le) * c.w * 0.5f + wL[k];
         const float fm = (en.le * en.le - ep.le * ep.le) * c.w / 12.0f;
@@ -393,31 +461,51 @@ __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
         c.at(i, S1) = sc1;
       }
       help_sync();
-      // phase 2: U_i scaled by the scales of nodes i and i + 1 (zero at the
-      // last node)
-      for (int k = c.hw; c.live && k < cnt; k += kHelpers) {
-        const int i = c0 + k;
-        float q00 = 0.0f, q01 = 0.0f, q10 = 0.0f, q11 = 0.0f;
-        if (i + 1 < n) {
-          const float f1 = wF[3 * k + 1], f2 = wF[3 * k + 2];
-          const float g1 = wF[3 * k + 4], g2 = wF[3 * k + 5];
-          const float sc0 = nv[k], sc1 = nv[kWinE * T + k];
-          const float sn0 = nv[k + 1], sn1 = nv[kWinE * T + k + 1];
-          const float k11 = nv[2 * kWinE * T + k], k12 = nv[3 * kWinE * T + k],
-                      k2 = nv[4 * kWinE * T + k];
-          q00 = -(k11 * (f1 * g1)) * sc0 * sn0;
-          q01 = k12 * (f1 * g2) * sc0 * sn1;
-          q10 = -(k12 * (f2 * g1)) * sc1 * sn0;
-          q11 = k2 * (f2 * g2) * sc1 * sn1;
+      if (ANALYSIS && c.hw == kAxWarp) {
+        // the axial Schur chain a_i = d00s_i - u00s_{i-1}^2 / a_{i-1}, in
+        // the seven-pass kernel's expressions
+        float* at = axt(ch);
+        for (int k = 0; c.live && k < cnt; ++k) {
+          const float d = nv[5 * kWinE * T + k], r = nv[6 * kWinE * T + k];
+          if (c0 + k == 0) {
+            ax_a = d * (r * r);
+          } else {
+            const float u00s = ax_u * ax_r * r;
+            const float d00s = d * r * r;
+            ax_a = d00s - u00s * u00s / ax_a;
+          }
+          at[k] = ax_a;
+          ax_r = r;
+          ax_u = nv[7 * kWinE * T + k];
         }
-        st[5 * kPitch * T + k] = q00;
-        st[6 * kPitch * T + k] = q01;
-        st[7 * kPitch * T + k] = q10;
-        st[8 * kPitch * T + k] = q11;
-        c.at(i, U00) = q00;
-        c.at(i, U01) = q01;
-        c.at(i, U10) = q10;
-        c.at(i, U11) = q11;
+      } else {
+        // phase 2: U_i scaled by the scales of nodes i and i + 1 (zero at
+        // the last node)
+        for (int k = c.hw; c.live && k < cnt; k += kPhase2) {
+          const int i = c0 + k;
+          float q00 = 0.0f, q01 = 0.0f, q10 = 0.0f, q11 = 0.0f;
+          if (i + 1 < n) {
+            const float f1 = wF[3 * k + 1], f2 = wF[3 * k + 2];
+            const float g1 = wF[3 * k + 4], g2 = wF[3 * k + 5];
+            const float sc0 = nv[k], sc1 = nv[kWinE * T + k];
+            const float sn0 = nv[k + 1], sn1 = nv[kWinE * T + k + 1];
+            const float k11 = nv[2 * kWinE * T + k],
+                        k12 = nv[3 * kWinE * T + k],
+                        k2 = nv[4 * kWinE * T + k];
+            q00 = -(k11 * (f1 * g1)) * sc0 * sn0;
+            q01 = k12 * (f1 * g2) * sc0 * sn1;
+            q10 = -(k12 * (f2 * g1)) * sc1 * sn0;
+            q11 = k2 * (f2 * g2) * sc1 * sn1;
+          }
+          st[5 * kPitch * T + k] = q00;
+          st[6 * kPitch * T + k] = q01;
+          st[7 * kPitch * T + k] = q10;
+          st[8 * kPitch * T + k] = q11;
+          c.at(i, U00) = q00;
+          c.at(i, U01) = q01;
+          c.at(i, U10) = q10;
+          c.at(i, U11) = q11;
+        }
       }
       bar_arrive(kFull + (ch & 1), kThreads);
       help_sync();    // the window and node values are read before reuse
@@ -426,33 +514,48 @@ __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
     // ---- chain ----
     float p00 = 0.0f, p01 = 0.0f, p10 = 0.0f, p11 = 0.0f;  // U_{i-1}
     float s00 = 0.0f, s01 = 0.0f, s11 = 0.0f, y0 = 0.0f, y1 = 0.0f;
+    float piv = 0.0f;
     for (int ch = 0; ch < nchunk; ++ch) {
       bar_sync(kFull + (ch & 1), kThreads);
       const int c0 = ch * kChunk;
       const int cnt = min(kChunk, n - c0);
       const float* st = sys(ch) + lane * kPitch;
+      const float* at = axt(ch);
       for (int k = 0; c.live && k < cnt; ++k) {
         const int i = c0 + k;
         const float m0 = st[k], m1 = st[kPitch * T + k],
                     m2 = st[2 * kPitch * T + k];
         const float r0 = st[3 * kPitch * T + k], r1 = st[4 * kPitch * T + k];
         if (i == 0) {
-          const float inv = 1.0f / (m0 * m2 - m1 * m1);
+          const float det = m0 * m2 - m1 * m1;
+          const float inv = 1.0f / det;
           s00 = m2 * inv;
           s01 = -(m1 * inv);
           s11 = m0 * inv;
           y0 = s00 * r0 + s01 * r1;
           y1 = s01 * r0 + s11 * r1;
+          if (ANALYSIS) piv = at[k] * fabsf(det);
         } else {
           const float w00 = s00 * p00 + s01 * p10;
           const float w01 = s00 * p01 + s01 * p11;
-          const float w10 = s01 * p00 + s11 * p10;
-          const float w11 = s01 * p01 + s11 * p11;
+          // the seven-pass kernel formed C_{i-1} beside s01 = -(m1 inv),
+          // whose negation nvcc folds, so its FMA took the s11 product
+          const float w10 = ANALYSIS ? __fmaf_rn(s11, p10, __fmul_rn(s01, p00))
+                                     : s01 * p00 + s11 * p10;
+          const float w11 = ANALYSIS ? __fmaf_rn(s11, p11, __fmul_rn(s01, p01))
+                                     : s01 * p01 + s11 * p11;
+          if (ANALYSIS) {
+            c.at(i - 1, C00) = w00;
+            c.at(i - 1, C01) = w01;
+            c.at(i - 1, C10) = w10;
+            c.at(i - 1, C11) = w11;
+          }
           // S_i = D_i - U^T W (symmetric)
           const float mm0 = m0 - (p00 * w00 + p10 * w10);
           const float mm1 = m1 - (p00 * w01 + p10 * w11);
           const float mm2 = m2 - (p01 * w01 + p11 * w11);
-          const float inv = 1.0f / (mm0 * mm2 - mm1 * mm1);
+          const float det = mm0 * mm2 - mm1 * mm1;
+          const float inv = 1.0f / det;
           s00 = mm2 * inv;
           s01 = -(mm1 * inv);
           s11 = mm0 * inv;
@@ -461,6 +564,7 @@ __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
           const float qq1 = r1 - (p01 * y0 + p11 * y1);
           y0 = s00 * qq0 + s01 * qq1;
           y1 = s01 * qq0 + s11 * qq1;
+          if (ANALYSIS) piv = nan_min(piv, at[k] * fabsf(det));
         }
         c.at(i, SI0) = s00;
         c.at(i, SI1) = s01;
@@ -474,6 +578,7 @@ __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
       }
       if (ch + 2 < nchunk) bar_arrive(kEmpty + (ch & 1), kThreads);
     }
+    if (ANALYSIS && c.live) c.piv[b0 + lane] = piv;
   }
   __syncthreads();
 }
@@ -483,16 +588,16 @@ __device__ __forceinline__ void forward_factor(const Ctx& c, float* smem) {
 // 128 bytes each, staged with 16-byte cp.async by the chain warp.
 // ---------------------------------------------------------------------------
 
-// Stage nodes node0 .. node0 + cnt - 1, components [0, na) and [pb, pb +
-// nb), into tile[k][row][lane] with `rows` = na + nb rows per node.
+// Stage nodes node0 .. node0 + cnt - 1, components [pa, pa + na) and [pb,
+// pb + nb), into tile[k][row][lane] with `rows` = na + nb rows per node.
 __device__ __forceinline__ void stage_rows(const Ctx& c, float* tile,
-                                           int node0, int cnt, int na, int pb,
-                                           int nb) {
+                                           int node0, int cnt, int pa, int na,
+                                           int pb, int nb) {
   const int rows = na + nb;
   for (int q = c.lane; q < cnt * rows * 8; q += kLanes) {
     const int row = q >> 3, part = q & 7;
     const int k = row / rows, j = row - k * rows;
-    const int comp = j < na ? j : pb + (j - na);
+    const int comp = j < na ? pa + j : pb + (j - na);
     cp_async16(tile + row * kLanes + part * 4,
                c.blk + (size_t)(node0 + k) * c.ns + comp * c.Bp + part * 4);
   }
@@ -513,13 +618,13 @@ __device__ __forceinline__ void forward_subst(const Ctx& c, float* smem,
     };
     float p00 = 0.0f, p01 = 0.0f, p10 = 0.0f, p11 = 0.0f;  // U_{i-1}
     float z0 = 0.0f, z1 = 0.0f;
-    stage_rows(c, tile(0), 0, min(kChunk, n), U11 + 1, IN, 2);
+    stage_rows(c, tile(0), 0, min(kChunk, n), 0, U11 + 1, IN, 2);
     for (int ch = 0; ch < nchunk; ++ch) {
       const int c0 = ch * kChunk;
       const int cnt = min(kChunk, n - c0);
       if (ch + 1 < nchunk) {
         stage_rows(c, tile(ch + 1), c0 + kChunk,
-                   min(kChunk, n - c0 - kChunk), U11 + 1, IN, 2);
+                   min(kChunk, n - c0 - kChunk), 0, U11 + 1, IN, 2);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -551,15 +656,20 @@ __device__ __forceinline__ void forward_subst(const Ctx& c, float* smem,
 // ---------------------------------------------------------------------------
 // Back sweeps.  Chain: FIRST, X holds y and x_i = y_i - Sinv_i (U_i
 // x_{i+1}); else R holds the forward-substituted residual z, the correction
-// is c_i = z_i - Sinv_i (U_i c_{i+1}) and x_i = X_i + c_i.  It hands x_i to
-// the helpers through the ring, a tile of elements at a time.  Helpers:
-// what LAST says follows x (kRefine: node i + 1's residual).
+// is c_i = z_i - Sinv_i (U_i c_{i+1}) and x_i = X_i + c_i.  WITH_C reads
+// the saved C_i for Sinv_i U_i.  It hands x_i to the helpers through the
+// ring, a tile of elements at a time.  Helpers: what LAST says follows x
+// (kRefine: node i + 1's residual).
 // ---------------------------------------------------------------------------
 
-template <bool FIRST, int LAST>
+template <bool FIRST, int LAST, bool WITH_C>
 __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
   constexpr int T = kLanes;
-  constexpr int kRows = FIRST ? X1 + 1 : kChainRows;
+  // the chain's rows of a node: SI, U, X (and R); WITH_C: C, X (and R)
+  constexpr int kRows =
+      WITH_C ? (FIRST ? 6 : 8) : (FIRST ? X1 + 1 : kChainRows);
+  constexpr int rX = WITH_C ? 4 : X0;
+  constexpr int rR = WITH_C ? 6 : R0;
   const int n = c.n, nelem = n - 1, b0 = c.b0, B = c.B, lane = c.lane;
   const int nce = (nelem + kChunk - 1) / kChunk;
   auto ctile = [&](int ch) {
@@ -575,6 +685,12 @@ __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
 
   if (c.hw < 0) {
     // ---- chain ----
+    auto stage_tile = [&](int ch, int node0, int cnt) {
+      if (WITH_C)
+        stage_rows(c, ctile(ch), node0, cnt, C00, 4, X0, kRows - 4);
+      else
+        stage_rows(c, ctile(ch), node0, cnt, 0, kRows, 0, 0);
+    };
     float cv0 = 0.0f, cv1 = 0.0f;  // the chain's value at node i + 1
     if (c.live) {
       const float a0 = c.at(n - 1, FIRST ? X0 : R0);
@@ -593,14 +709,13 @@ __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
       rx(0, n - 1) = x0;
       rx(1, n - 1) = x1;
     }
-    stage_rows(c, ctile(nce - 1), (nce - 1) * kChunk,
-               nelem - (nce - 1) * kChunk, kRows, 0, 0);
+    stage_tile(nce - 1, (nce - 1) * kChunk, nelem - (nce - 1) * kChunk);
     for (int d = 0; d < nce; ++d) {
       const int ch = nce - 1 - d;
       const int c0 = ch * kChunk;
       const int cnt = min(kChunk, nelem - c0);
       if (ch > 0) {
-        stage_rows(c, ctile(ch - 1), c0 - kChunk, kChunk, kRows, 0, 0);
+        stage_tile(ch - 1, c0 - kChunk, kChunk);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -611,25 +726,31 @@ __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
       for (int k = cnt - 1; c.live && k >= 0; --k) {
         const int i = c0 + k;
         const float* row = t + k * kRows * T;
-        const float u00 = row[U00 * T], u01 = row[U01 * T],
-                    u10 = row[U10 * T], u11 = row[U11 * T];
-        const float si0 = row[SI0 * T], si1 = row[SI1 * T],
-                    si2 = row[SI2 * T];
-        const float t0 = u00 * cv0 + u01 * cv1;
-        const float t1 = u10 * cv0 + u11 * cv1;
-        const float v0 = si0 * t0 + si1 * t1;
-        const float v1 = si1 * t0 + si2 * t1;
+        float v0, v1;
+        if (WITH_C) {
+          v0 = row[0] * cv0 + row[T] * cv1;
+          v1 = row[2 * T] * cv0 + row[3 * T] * cv1;
+        } else {
+          const float u00 = row[U00 * T], u01 = row[U01 * T],
+                      u10 = row[U10 * T], u11 = row[U11 * T];
+          const float si0 = row[SI0 * T], si1 = row[SI1 * T],
+                      si2 = row[SI2 * T];
+          const float t0 = u00 * cv0 + u01 * cv1;
+          const float t1 = u10 * cv0 + u11 * cv1;
+          v0 = si0 * t0 + si1 * t1;
+          v1 = si1 * t0 + si2 * t1;
+        }
         float x0, x1;
         if (FIRST) {
-          cv0 = row[X0 * T] - v0;
-          cv1 = row[X1 * T] - v1;
+          cv0 = row[rX * T] - v0;
+          cv1 = row[(rX + 1) * T] - v1;
           x0 = cv0;
           x1 = cv1;
         } else {
-          cv0 = row[R0 * T] - v0;
-          cv1 = row[R1 * T] - v1;
-          x0 = row[X0 * T] + cv0;
-          x1 = row[X1 * T] + cv1;
+          cv0 = row[rR * T] - v0;
+          cv1 = row[(rR + 1) * T] - v1;
+          x0 = row[rX * T] + cv0;
+          x1 = row[(rX + 1) * T] + cv1;
         }
         if (LAST == kRefine) {
           c.at(i, X0) = x0;
@@ -650,6 +771,10 @@ __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
   float* oI = outr;
   float* oMu = outr + kPitch * T;
   float* oNu = outr + 2 * kPitch * T;
+  // kAnalysis: V, M of the tile's elements, u of its nodes (and node n - 1)
+  float* oV = outr;
+  float* oM = outr + kPitch * T;
+  float* oU = outr + 2 * kPitch * T;
   // the g_hat terms of element e (kPrimal): gV k11, gM k12, gV k12, gM k13,
   // gM k2
   auto gr_ring = [&](int v, int e) -> float& {
@@ -658,7 +783,7 @@ __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
   auto stage_hin = [&](int ch) {
     const int c0 = ch * kChunk;
     float* s = hin(ch);
-    if (LAST == kSemi || LAST == kPrimal) {
+    if (LAST == kSemi || LAST == kPrimal || LAST == kAnalysis) {
       stage<kChunk>(s, kPitch, c.I, nelem, c0, b0, B, htid, kHelperThreads);
       stage<kChunk>(s + kPitch * T, kPitch, c.Le, nelem, c0, b0, B, htid,
                     kHelperThreads);
@@ -722,10 +847,30 @@ __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
                                        lt * c.at(i, RTI) + ltj * c.at(i, RTJ));
         adam(c, tI[k], tMu[k], tNu[k], g, oI[lane * kPitch + k],
              oMu[lane * kPitch + k], oNu[lane * kPitch + k]);
+      } else if (LAST == kAnalysis) {
+        // node i's unscaled displacements (u_x for the whole lane once x_0
+        // is known) and element i's end forces from them
+        const Stiff s = stiffness<true>(tI[k], tLe[k], c.E);
+        const float le = s.le, w = c.w;
+        const float uy_i = xi0 * c.at(i, S0), th_i = xi1 * c.at(i, S1);
+        const float uy_j = xj0 * c.at(i + 1, S0), th_j = xj1 * c.at(i + 1, S1);
+        oV[lane * kPitch + k] = s.k11 * uy_i + s.k12 * th_i - s.k11 * uy_j +
+                                s.k12 * th_j - w * le * 0.5f;
+        oM[lane * kPitch + k] = s.k12 * uy_i + s.k13 * th_i - s.k12 * uy_j +
+                                s.k2 * th_j - w * le * le / 12.0f;
+        float* u = oU + lane * kPitchU + 3 * k;
+        u[0] = 0.0f;
+        u[1] = uy_i;
+        u[2] = th_i;
+        if (i + 2 == n) {   // the last element writes the last node too
+          u[3] = 0.0f;
+          u[4] = uy_j;
+          u[5] = th_j;
+        }
       } else {
         // element i's end forces, loss terms and explicit dL/dI
         const float Ij = tI[k];
-        const Stiff s = stiffness(Ij, tLe[k], c.E);
+        const Stiff s = stiffness<false>(Ij, tLe[k], c.E);
         const float le = s.le, E = c.E, w = c.w;
         const float uy_i = xi0 * c.at(i, S0), th_i = xi1 * c.at(i, S1);
         const float uy_j = xj0 * c.at(i + 1, S0), th_j = xj1 * c.at(i + 1, S1);
@@ -789,6 +934,22 @@ __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
         c.at(j, F0) = gy * tF[3 * k + 1] * c.at(j, S0);
         c.at(j, F1) = gt * tF[3 * k + 2] * c.at(j, S1);
       }
+    } else if (LAST == kAnalysis) {
+      // coalesced write-back of the tile's V, M and u
+      for (int kk = htid; kk < T * kChunk; kk += kHelperThreads) {
+        const int r = kk / kChunk, col = kk - r * kChunk;
+        if (b0 + r < B && col < cnt) {
+          const size_t o = (size_t)(b0 + r) * nelem + c0 + col;
+          c.V[o] = oV[r * kPitch + col];
+          c.M[o] = oM[r * kPitch + col];
+        }
+      }
+      const int ucols = 3 * (cnt + (c0 + cnt == nelem ? 1 : 0));
+      for (int kk = htid; kk < T * kPitchU; kk += kHelperThreads) {
+        const int r = kk / kPitchU, col = kk - r * kPitchU;
+        if (b0 + r < B && col < ucols)
+          c.u[(size_t)(b0 + r) * 3 * n + 3 * c0 + col] = oU[r * kPitchU + col];
+      }
     } else {
       // coalesced write-back of the tile's I, mu, nu
       for (int kk = htid; kk < T * kChunk; kk += kHelperThreads) {
@@ -821,6 +982,24 @@ __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
       c.at(0, F1) = gt * f[2] * c.at(0, S1);
     }
   }
+  if (LAST == kAnalysis) {
+    // u_x = x_0 * 0 at every node, the JAX kernel's exact zero: the tiles
+    // wrote +0, so only a lane whose zero is -0 or NaN is written again
+    unsigned* redo = reinterpret_cast<unsigned*>(part);
+    float* zero = part + 1;
+    if (c.hw == 0) {
+      const float z = c.live ? rx(0, 0) * 0.0f : 0.0f;
+      zero[lane] = z;
+      const unsigned m = __ballot_sync(0xffffffffu, __float_as_uint(z) != 0u);
+      if (lane == 0) *redo = m;
+    }
+    help_sync();
+    const unsigned m = *redo;
+    for (int kk = htid; m != 0u && kk < T * n; kk += kHelperThreads) {
+      const int r = kk / n, i = kk - r * n;
+      if ((m >> r) & 1u) c.u[(size_t)(b0 + r) * 3 * n + 3 * i] = zero[r];
+    }
+  }
   if (LAST == kSemi || LAST == kPrimal) {
     part[(0 * kHelpers + c.hw) * T + lane] = tb;
     part[(1 * kHelpers + c.hw) * T + lane] = ts;
@@ -842,21 +1021,23 @@ __device__ __forceinline__ void back_sweep(const Ctx& c, float* smem) {
 }
 
 // The sweeps after a forward one: the back sweep, then per refinement a
-// forward and a back sweep; LAST names the last back sweep's work.
+// forward and a back sweep; LAST names the last back sweep's work.  The
+// analysis's back substitutions read the saved C.
 template <int LAST>
 __device__ __forceinline__ void solve_tail(const Ctx& c, float* smem,
                                            int refine) {
+  constexpr bool C = LAST == kAnalysis;
   if (refine == 0) {
-    back_sweep<true, LAST>(c, smem);
+    back_sweep<true, LAST, C>(c, smem);
     return;
   }
-  back_sweep<true, kRefine>(c, smem);
+  back_sweep<true, kRefine, C>(c, smem);
   for (int k = 1; k < refine; ++k) {
     forward_subst(c, smem, R0, R0);
-    back_sweep<false, kRefine>(c, smem);
+    back_sweep<false, kRefine, C>(c, smem);
   }
   forward_subst(c, smem, R0, R0);
-  back_sweep<false, LAST>(c, smem);
+  back_sweep<false, LAST, C>(c, smem);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -882,7 +1063,7 @@ beam_opt_step_kernel(const float* __restrict__ I, const float* __restrict__ mu,
               scr + b0, scr + b0 + lane, B, n, nc, Bp, b0, nc * Bp, lane,
               warp - 1, live, live ? udl[b0 + lane] : 0.0f, E, Gs, alpha_m,
               alpha_s, clamp_min, lr_t, bc1, bc2};
-  forward_factor(c, smem);
+  forward_factor<false>(c, smem);
   if (grad_semi) {
     solve_tail<kSemi>(c, smem, refine);
     return;
@@ -891,6 +1072,29 @@ beam_opt_step_kernel(const float* __restrict__ I, const float* __restrict__ mu,
   // K lam = g_hat (K is symmetric) with the same factors
   forward_subst(c, smem, F0, X0);
   solve_tail<kAdjoint>(c, smem, refine);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+beam_analysis_kernel(const float* __restrict__ I,
+                     const float* __restrict__ Le,
+                     const float* __restrict__ fr,
+                     const float* __restrict__ loads,
+                     const float* __restrict__ udl, float* __restrict__ u,
+                     float* __restrict__ V, float* __restrict__ M,
+                     float* __restrict__ piv, float* __restrict__ scr, int B,
+                     int Bp, int n, int refine, float E, float EA) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int b0 = blockIdx.x * kLanes;
+  const bool live = b0 + lane < B;
+  constexpr int nc = NC_ANALYSIS;
+  const Ctx c{I, nullptr, nullptr, Le, fr, loads, nullptr, nullptr, nullptr,
+              nullptr, scr + b0, scr + b0 + lane, B, n, nc, Bp, b0, nc * Bp,
+              lane, warp - 1, live, live ? udl[b0 + lane] : 0.0f, E, 0.0f,
+              0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, u, V, M, piv, EA};
+  forward_factor<true>(c, smem);
+  solve_tail<kAnalysis>(c, smem, refine);
 }
 
 }  // namespace
@@ -925,6 +1129,30 @@ int beam_opt_step_f32(const float* I, const float* mu, const float* nu,
       I, mu, nu, Le, fr, loads, udl, I_out, mu_out, nu_out, stats, scr, B,
       blocks * kLanes, n, refine, grad_semi, E, G, alpha_m, alpha_s,
       clamp_min, lr_t, bc1, bc2);
+  return (int)cudaGetLastError();
+}
+
+// Scratch floats per node per lane of the analysis: the semi step's and C.
+int beam_analysis_scratch_per_node(void) { return NC_ANALYSIS; }
+
+// Lanes-first float32 I/O: I, Le, V, M (B, n - 1), free (B, n, 3), loads
+// (B, n), udl (B,), u (B, n, 3), piv (B,); scratch (n, NC_ANALYSIS, Bp);
+// all contiguous, n >= 2.
+int beam_analysis_f32(const float* I, const float* Le, const float* fr,
+                      const float* loads, const float* udl, float* u,
+                      float* V, float* M, float* piv, float* scr, int B,
+                      int n, int refine, float E, float EA, void* stream) {
+  if (B <= 0) return 0;
+  if (n < 2 || refine < 0) return (int)cudaErrorInvalidValue;
+  const int bytes = kSmemFloats * (int)sizeof(float);
+  const cudaError_t set = cudaFuncSetAttribute(
+      beam_analysis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (set != cudaSuccess) return (int)set;
+  const int blocks = (B + kLanes - 1) / kLanes;
+  beam_analysis_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
+      I, Le, fr, loads, udl, u, V, M, piv, scr, B, blocks * kLanes, n,
+      refine, E, EA);
   return (int)cudaGetLastError();
 }
 

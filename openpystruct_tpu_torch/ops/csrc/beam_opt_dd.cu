@@ -1,7 +1,7 @@
-// The rescue's float64 Adam step for Hopper (sm_90a): two fused sweeps per
-// lane over read-only lanes-first inputs.
+// The rescue's float64 Adam step and float64 analysis for Hopper (sm_90a):
+// two fused sweeps per lane over read-only lanes-first inputs.
 //
-// beam_opt_step_dd_kernel replaces openpystruct_tpu/ops/beam_kernel_dd.py:376
+// beam_dd_kernel<false> replaces openpystruct_tpu/ops/beam_kernel_dd.py:376
 // _beam_dd_opt_kernel (launcher pallas_beam_opt_step_dd): stiffness ->
 // masked bending-only 2x2 assembly with the axial chain -> Jacobi scaling ->
 // block-Thomas factorization fused with the forward sweep and the 3-DOF
@@ -9,41 +9,54 @@
 // semi-gradient, all in float64; Adam in float32 on the gradient cast to
 // float32.  Inputs and outputs are float32.
 //
-// Bound on an H100 SXM: the call must read I, mu, nu, Le (n - 1 each), the
-// free mask (3n), the loads (n) and udl, and write I, mu, nu, stats (4) and
-// the pivot: 1,110 floats per lane at n = 101, ~21.7 us at B = 16384 on
-// 3.35 TB/s.  Its few hundred float64 flops per node are below that at 34
-// TFLOP/s.  What keeps a one-thread-per-lane kernel from it is latency: the
-// recurrence is serial along the lane, and at the rescue's buckets (256-8192
-// lanes) the card holds at most a few warps per SM, so each node step waits
-// on whatever its slowest operand waits on.  The design keeps that to the
-// float64 arithmetic itself:
+// beam_dd_kernel<true> replaces openpystruct_tpu/ops/beam_kernel_dd.py:337
+// _beam_dd_kernel (launcher pallas_beam_analysis_dd), the rescue's and the
+// accuracy autopilot's float64 analysis: the same forward sweep, so the
+// same pivot, and a back sweep that writes u (u_x the exact zero x_0 * 0)
+// and V, M from the float64 unscaled u, each cast to float32, with no loss
+// or Adam.  As in the JAX kernel there is no refinement (float64's forward
+// error is already below float32's resolution) and no saved C.
+//
+// Bound on an H100 SXM: the opt step must read I, mu, nu, Le (n - 1 each),
+// the free mask (3n), the loads (n) and udl, and write I, mu, nu, stats (4)
+// and the pivot: 1,110 floats per lane at n = 101; the analysis reads I,
+// Le, the mask, the loads and udl and writes u (3n), V, M and the pivot:
+// 1,109.  Both ~21.7 us at B = 16384 on 3.35 TB/s.  Their few hundred
+// float64 flops per node are below that at 34 TFLOP/s.  What keeps a
+// one-thread-per-lane kernel from it is latency: the recurrence is serial
+// along the lane, and at the rescue's buckets (256-8192 lanes) the card
+// holds at most a few warps per SM, so each node step waits on whatever its
+// slowest operand waits on.  The design keeps that to the float64
+// arithmetic itself:
 //  - two sweeps instead of seven passes.  The forward sweep computes each
 //    node's element stiffness, masked blocks, right-hand side, axial terms
 //    and scales on the fly from the inputs (element i - 1's values ride in
 //    registers), factors, substitutes forward and tracks the pivot.  The
 //    backward sweep substitutes back and, as soon as x_i and x_{i+1} are
-//    known, recovers element i's V and M, its loss terms, gradient and Adam
-//    step.  It recomputes element i's stiffness and scaled U_i from the
-//    inputs and the saved scales rather than reading them back.
+//    known, recovers element i's V and M, then its loss terms, gradient and
+//    Adam step, or (the analysis) writes them with node i's u.  It
+//    recomputes element i's stiffness and scaled U_i from the inputs and
+//    the saved scales rather than reading them back.
 //  - scratch written once, read once: the Schur inverses, y and the scales,
 //    7 doubles per node, lanes innermost, through their own pointer; the
 //    backward sweep loads node i - 1's while it works on node i.
 //  - lanes-first I/O staged through shared memory: the block copies a
 //    (lanes x kChunk nodes) tile of each input with cp.async while it works
-//    on the previous tile, and writes I, mu, nu through a tile too, so every
-//    global access is coalesced and the wrapper copies nothing.
+//    on the previous tile, and writes I, mu, nu (or u, V, M) through a tile
+//    too, so every global access is coalesced and the wrapper copies
+//    nothing.  Only a lane whose u_x zero is -0 or NaN, known once x_0 is,
+//    has its u_x column written a second time.
 //
-// Against the seven-pass kernel it replaces: every expression keeps its
-// tree, including the back sweep's Sinv_i (U_i x_{i+1}), and each value that
-// kernel stored to its workspace before a later stage added to it
+// Against the seven-pass kernels they replace: every expression keeps its
+// tree, including the back sweep's Sinv_i (U_i x_{i+1}), and each value
+// those kernels stored to their workspace before a later stage added to it
 // (stiffness, scaled diagonal and right-hand side) is rounded with
 // __dmul_rn, which the compiler never contracts into an FMA.  That keeps
-// the forward sweep, and so the pivot, bitwise equal; I comes within a
-// float32 ulp, mu and nu within ~1e-8 of their scale, because nvcc
-// contracts by basic block and the backward block now holds the back
-// substitution, forces, loss and Adam together.  The loss sums run in
-// reverse order.
+// the forward sweep, and so the pivot, bitwise equal; the opt step's I
+// comes within a float32 ulp, mu and nu within ~1e-8 of their scale,
+// because nvcc contracts by basic block and the backward block now holds
+// the back substitution, forces, loss and Adam together.  The loss sums run
+// in reverse order.
 //
 // Floating point: no --use_fast_math; IEEE division and square root.
 
@@ -59,12 +72,17 @@ constexpr int kChunk = 8;               // nodes per staged tile
 constexpr int kPitch = kChunk + 1;      // odd pitches: no bank conflicts
 constexpr int kPitch3 = 3 * kChunk + 1;
 // forward stage: I, Le, loads tiles and the free tile; backward stage: I,
-// Le, mu, nu tiles and the free tile; plus the three output tiles
+// Le, mu, nu tiles and the free tile (the analysis's: no mu, nu); plus the
+// three output tiles (the analysis's: V, M and u of kChunk + 1 nodes)
 constexpr int kFwdStage = 3 * kPitch + kPitch3;
 constexpr int kBwdStage = 4 * kPitch + kPitch3;
+constexpr int kBwdStageA = 2 * kPitch + kPitch3;
+constexpr int kPitchU = 3 * (kChunk + 1);
 constexpr int kSmemFloats =
     (2 * kFwdStage > 2 * kBwdStage + 3 * kPitch) ? 2 * kFwdStage
                                                  : 2 * kBwdStage + 3 * kPitch;
+static_assert(2 * kBwdStageA + 2 * kPitch + kPitchU <= kSmemFloats,
+              "the analysis's tiles");
 
 // scratch components per node
 enum : int { SI0 = 0, SI1, SI2, Y0, Y1, S0, S1, NSCR };
@@ -124,20 +142,21 @@ __device__ __forceinline__ void stage(float* tile, int pitch,
   }
 }
 
+// ANALYSIS: the float64 analysis, whose outputs I_out, mu_out, nu_out are
+// u (B, n, 3), V, M (B, n - 1); mu, nu, stats and the Adam scalars go
+// unread.
+template <bool ANALYSIS>
 __global__ void __launch_bounds__(kLanes)
-beam_opt_step_dd_kernel(const float* __restrict__ I_g,
-                        const float* __restrict__ mu_g,
-                        const float* __restrict__ nu_g,
-                        const float* __restrict__ Le_g,
-                        const float* __restrict__ fr_g,
-                        const float* __restrict__ loads_g,
-                        const float* __restrict__ udl,
-                        float* __restrict__ I_out, float* __restrict__ mu_out,
-                        float* __restrict__ nu_out,
-                        float* __restrict__ stats, float* __restrict__ piv,
-                        double* __restrict__ scr, int B, int n, double E,
-                        double EA, double Gs, double alpha_m, double alpha_s,
-                        float clamp_min, float lr_t, float bc1, float bc2) {
+beam_dd_kernel(const float* __restrict__ I_g, const float* __restrict__ mu_g,
+               const float* __restrict__ nu_g, const float* __restrict__ Le_g,
+               const float* __restrict__ fr_g,
+               const float* __restrict__ loads_g,
+               const float* __restrict__ udl, float* __restrict__ I_out,
+               float* __restrict__ mu_out, float* __restrict__ nu_out,
+               float* __restrict__ stats, float* __restrict__ piv,
+               double* __restrict__ scr, int B, int n, double E, double EA,
+               double Gs, double alpha_m, double alpha_s, float clamp_min,
+               float lr_t, float bc1, float bc2) {
   constexpr int T = kLanes;
   __shared__ float smem[kSmemFloats * T];
   const int t = threadIdx.x;
@@ -305,19 +324,23 @@ beam_opt_step_dd_kernel(const float* __restrict__ I_g,
   }
   if (live) piv[b] = float(min_piv);
 
-  // ---- backward sweep: x, forces, loss, semi-gradient, Adam ----
-  float* bbuf[2] = {smem, smem + kBwdStage * T};
-  float* oI = smem + 2 * kBwdStage * T;
+  // ---- backward sweep: x, forces, then loss, semi-gradient, Adam or (the
+  // analysis) u, V, M ----
+  constexpr int kStage = ANALYSIS ? kBwdStageA : kBwdStage;
+  constexpr int kFrOff = ANALYSIS ? 2 * kPitch : 4 * kPitch;
+  float* bbuf[2] = {smem, smem + kStage * T};
+  float* oI = smem + 2 * kStage * T;
   float* oMu = oI + kPitch * T;
-  float* oNu = oMu + kPitch * T;
+  float* oNu = oMu + kPitch * T;     // the analysis's u tile, pitch kPitchU
   auto stage_bwd = [&](int c, float* s) {
     const int c0 = c * kChunk;
     stage<kChunk>(s, kPitch, I_g, nelem, c0, b0, B);
     stage<kChunk>(s + kPitch * T, kPitch, Le_g, nelem, c0, b0, B);
-    stage<kChunk>(s + 2 * kPitch * T, kPitch, mu_g, nelem, c0, b0, B);
-    stage<kChunk>(s + 3 * kPitch * T, kPitch, nu_g, nelem, c0, b0, B);
-    stage<3 * kChunk>(s + 4 * kPitch * T, kPitch3, fr_g, 3 * n, 3 * c0,
-                         b0, B);
+    if (!ANALYSIS) {
+      stage<kChunk>(s + 2 * kPitch * T, kPitch, mu_g, nelem, c0, b0, B);
+      stage<kChunk>(s + 3 * kPitch * T, kPitch, nu_g, nelem, c0, b0, B);
+    }
+    stage<3 * kChunk>(s + kFrOff * T, kPitch3, fr_g, 3 * n, 3 * c0, b0, B);
     cp_async_commit();
   };
 
@@ -363,7 +386,7 @@ beam_opt_step_dd_kernel(const float* __restrict__ I_g,
     const float* tLe = tI + kPitch * T;
     const float* tMu = tI + 2 * kPitch * T;
     const float* tNu = tI + 3 * kPitch * T;
-    const float* tF = bbuf[c & 1] + 4 * kPitch * T + t * kPitch3;
+    const float* tF = bbuf[c & 1] + kFrOff * T + t * kPitch3;
     const int c0 = c * kChunk;
     const int cnt = min(kChunk, nelem - c0);
     for (int k = cnt - 1; live && k >= 0; --k) {
@@ -388,9 +411,13 @@ beam_opt_step_dd_kernel(const float* __restrict__ I_g,
       const double u01 = k12 * (g1 * fn2) * s0 * sn1;
       const double u10 = -(k12 * (g2 * fn1)) * s1 * sn0;
       const double u11 = k2 * (g2 * fn2) * s1 * sn1;
-      // x_j = y_j - Sinv_j (U_j x_{j+1})
-      const double t0 = u00 * x0 + u01 * x1;
-      const double t1 = u10 * x0 + u11 * x1;
+      // x_j = y_j - Sinv_j (U_j x_{j+1}); the analysis takes the seven-pass
+      // kernel's FMAs, which read U_j back (nvcc folds the negation of
+      // u00 and u10 here and fuses the other product)
+      const double t0 = ANALYSIS ? __fma_rn(u00, x0, __dmul_rn(u01, x1))
+                                 : u00 * x0 + u01 * x1;
+      const double t1 = ANALYSIS ? __fma_rn(u10, x0, __dmul_rn(u11, x1))
+                                 : u10 * x0 + u11 * x1;
       const double v0 = si0 * t0 + si1 * t1;
       const double v1 = si1 * t0 + si2 * t1;
       x0 = yy0 - v0;
@@ -402,24 +429,38 @@ beam_opt_step_dd_kernel(const float* __restrict__ I_g,
           k11 * uy_i + k12 * th_i - k11 * uy_j + k12 * th_j - w * le * 0.5;
       const double M = k12 * uy_i + k13 * th_i - k12 * uy_j + k2 * th_j -
                        w * le * le / 12.0;
-      const double den_b = 2.0 * E * Ij + 1e-6;
-      const double den_s = Gs * (0.03 * sqrt(Ij));
-      const double be = M * M / den_b;
-      const double se = V * V / den_s;
-      const double g =
-          1.0 - alpha_m * be * 2.0 * E / den_b - alpha_s * 0.5 * se / Ij;
-      // Adam in float32 on the gradient cast to float32; the clamp applies
-      // to I only
-      const float g32 = float(g);
-      const float m = b1 * tMu[k] + omb1 * g32;
-      const float v = b2 * tNu[k] + omb2 * g32 * g32;
-      const float step = lr_t * (m * bc1) / (sqrtf(v * bc2) + eps);
-      oI[t * kPitch + k] = nan_max(Ij32 - step, clamp_min);
-      oMu[t * kPitch + k] = m;
-      oNu[t * kPitch + k] = v;
-      tb = tb + be;
-      ts = ts + se;
-      ti = ti + Ij;
+      if constexpr (ANALYSIS) {
+        oI[t * kPitch + k] = float(V);
+        oMu[t * kPitch + k] = float(M);
+        float* u = oNu + t * kPitchU + 3 * k;
+        u[0] = 0.0f;
+        u[1] = float(uy_i);
+        u[2] = float(th_i);
+        if (j + 1 == nelem) {   // the last element writes the last node too
+          u[3] = 0.0f;
+          u[4] = float(uy_j);
+          u[5] = float(th_j);
+        }
+      } else {
+        const double den_b = 2.0 * E * Ij + 1e-6;
+        const double den_s = Gs * (0.03 * sqrt(Ij));
+        const double be = M * M / den_b;
+        const double se = V * V / den_s;
+        const double g =
+            1.0 - alpha_m * be * 2.0 * E / den_b - alpha_s * 0.5 * se / Ij;
+        // Adam in float32 on the gradient cast to float32; the clamp
+        // applies to I only
+        const float g32 = float(g);
+        const float m = b1 * tMu[k] + omb1 * g32;
+        const float v = b2 * tNu[k] + omb2 * g32 * g32;
+        const float step = lr_t * (m * bc1) / (sqrtf(v * bc2) + eps);
+        oI[t * kPitch + k] = nan_max(Ij32 - step, clamp_min);
+        oMu[t * kPitch + k] = m;
+        oNu[t * kPitch + k] = v;
+        tb = tb + be;
+        ts = ts + se;
+        ti = ti + Ij;
+      }
       uy_j = uy_i;
       th_j = th_i;
       sn0 = s0;
@@ -428,16 +469,50 @@ beam_opt_step_dd_kernel(const float* __restrict__ I_g,
       fn2 = g2;
     }
     __syncthreads();
-    // coalesced write-back of the chunk's I, mu, nu
-    for (int kk = t; kk < T * kChunk; kk += T) {
-      const int r = kk / kChunk, col = kk - r * kChunk;
-      if (b0 + r < B && col < cnt) {
-        const size_t o = (size_t)(b0 + r) * nelem + c0 + col;
-        I_out[o] = oI[r * kPitch + col];
-        mu_out[o] = oMu[r * kPitch + col];
-        nu_out[o] = oNu[r * kPitch + col];
+    if constexpr (ANALYSIS) {
+      // coalesced write-back of the chunk's V, M and u
+      for (int kk = t; kk < T * kChunk; kk += T) {
+        const int r = kk / kChunk, col = kk - r * kChunk;
+        if (b0 + r < B && col < cnt) {
+          const size_t o = (size_t)(b0 + r) * nelem + c0 + col;
+          mu_out[o] = oI[r * kPitch + col];
+          nu_out[o] = oMu[r * kPitch + col];
+        }
+      }
+      const int ucols = 3 * (cnt + (c0 + cnt == nelem ? 1 : 0));
+      for (int kk = t; kk < T * kPitchU; kk += T) {
+        const int r = kk / kPitchU, col = kk - r * kPitchU;
+        if (b0 + r < B && col < ucols)
+          I_out[(size_t)(b0 + r) * 3 * n + 3 * c0 + col] =
+              oNu[r * kPitchU + col];
+      }
+    } else {
+      // coalesced write-back of the chunk's I, mu, nu
+      for (int kk = t; kk < T * kChunk; kk += T) {
+        const int r = kk / kChunk, col = kk - r * kChunk;
+        if (b0 + r < B && col < cnt) {
+          const size_t o = (size_t)(b0 + r) * nelem + c0 + col;
+          I_out[o] = oI[r * kPitch + col];
+          mu_out[o] = oMu[r * kPitch + col];
+          nu_out[o] = oNu[r * kPitch + col];
+        }
       }
     }
+  }
+  if constexpr (ANALYSIS) {
+    // u_x = x_0 * 0 at every node, the JAX kernel's exact zero: the tiles
+    // wrote +0, so only a lane whose zero is -0 or NaN is written again
+    const float z = live ? float(x0 * 0.0) : 0.0f;
+    const unsigned redo =
+        __ballot_sync(0xffffffffu, __float_as_uint(z) != 0u);
+    __syncthreads();
+    smem[t] = z;
+    __syncthreads();
+    for (int kk = t; redo != 0u && kk < T * n; kk += T) {
+      const int r = kk / n, i = kk - r * n;
+      if ((redo >> r) & 1u) I_out[(size_t)(b0 + r) * 3 * n + 3 * i] = smem[r];
+    }
+    return;
   }
   if (live) {
     const float4 out = make_float4(float(ti + alpha_m * tb + alpha_s * ts),
@@ -468,9 +543,25 @@ int beam_opt_step_dd_f32io(const float* I, const float* mu, const float* nu,
   if (B <= 0) return 0;
   if (n < 2) return (int)cudaErrorInvalidValue;
   const int blocks = (B + kLanes - 1) / kLanes;
-  beam_opt_step_dd_kernel<<<blocks, kLanes, 0, (cudaStream_t)stream>>>(
+  beam_dd_kernel<false><<<blocks, kLanes, 0, (cudaStream_t)stream>>>(
       I, mu, nu, Le, fr, loads, udl, I_out, mu_out, nu_out, stats, piv, scr,
       B, n, E, EA, G, alpha_m, alpha_s, clamp_min, lr_t, bc1, bc2);
+  return (int)cudaGetLastError();
+}
+
+// The float64 analysis, lanes-first float32 I/O: I, Le, V, M (B, n - 1),
+// free (B, n, 3), loads (B, n), udl (B,), u (B, n, 3), piv (B,); scratch
+// (n, 7, B) float64 as the opt step's; all contiguous, n >= 2.
+int beam_analysis_dd_f32io(const float* I, const float* Le, const float* fr,
+                           const float* loads, const float* udl, float* u,
+                           float* V, float* M, float* piv, double* scr, int B,
+                           int n, double E, double EA, void* stream) {
+  if (B <= 0) return 0;
+  if (n < 2) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + kLanes - 1) / kLanes;
+  beam_dd_kernel<true><<<blocks, kLanes, 0, (cudaStream_t)stream>>>(
+      I, nullptr, nullptr, Le, fr, loads, udl, u, V, M, nullptr, piv, scr, B,
+      n, E, EA, 0.0, 0.0, 0.0, 0.0f, 0.0f, 0.0f, 0.0f);
   return (int)cudaGetLastError();
 }
 

@@ -171,3 +171,37 @@ def test_opt_step_launchers_check_inputs_before_building(case):
         assert "contiguous" in str(err.value)
     assert tk.LAUNCHES["beam_opt_step"] == 0
     assert tkd.LAUNCHES["beam_opt_step_dd"] == 0
+
+
+@pytest.mark.parametrize("dd", [False, True], ids=["analysis", "analysis_dd"])
+@pytest.mark.parametrize("case", ["strided I", "strided free", "float64",
+                                  "short loads", "no element", "cpu"])
+def test_analysis_launchers_check_inputs_before_building(case, dd):
+    """The analysis kernels (#1, #7) read the callers' lanes-first tensors
+    as they lie: the launchers refuse a strided view, another dtype or
+    shape, a beam without elements, or tensors off the card, before
+    building or launching."""
+    from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
+
+    args = _opt_args(B=1 if case == "no element" else 4,
+                     n=1 if case == "no element" else 9)
+    args = [args[i] for i in (0, 3, 4, 5, 6)]     # I, Le, free, loads, udl
+    if case == "strided I":
+        args[0] = args[0].t().contiguous().t()
+    if case == "strided free":
+        args[2] = args[2].movedim(0, -1).contiguous().movedim(-1, 0)
+    if case == "float64":
+        args[1] = args[1].double()
+    if case == "short loads":
+        args[3] = args[3][:, :-1]
+    tk.reset_counts()
+    tkd.reset_counts()
+    launch = tkd.launch_beam_analysis_dd if dd else tk.launch_beam_analysis
+    with pytest.raises((ValueError, TypeError)) as err:
+        launch(*args, E, A)
+    if case.startswith("strided"):
+        assert "contiguous" in str(err.value)
+    if case == "cpu":
+        assert "CUDA" in str(err.value)
+    assert tk.LAUNCHES["beam_analysis"] == 0
+    assert tkd.LAUNCHES["beam_analysis_dd"] == 0

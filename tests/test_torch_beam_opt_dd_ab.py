@@ -5,7 +5,10 @@ of hashes and times beside an npz of the kernel's outputs) and decides
 whether two checkouts' kernels agree.  For #8 (``--kernel opt_dd``): I, mu,
 nu and the pivot bit for bit, stats to rounding, every other kernel's hash
 exactly.  For #2 (``--kernel opt``): its outputs are reported in float32
-ulps, not held to bits; every other kernel's hash exactly.
+ulps, not held to bits; every other kernel's hash exactly.  For #7
+(``--kernel analysis_dd``): the pivot bit for bit, u, V and M within 1 ulp.
+For #1 (``--kernel analysis``): reported in ulps, and no lane's validity at
+1e-9 may flip.
 """
 
 import importlib.util
@@ -96,5 +99,62 @@ def test_compare(tmp_path, change):
         assert (row["max_abs"] > 0) == off
         assert row["exact"] == (kernel == "opt_dd"
                                 and not key.endswith(".stats"))
+    assert r["hashes"][other] == (change != "hash")
+    assert own not in r["hashes"]   # the kernel is held by its arrays
+
+
+def _analysis_arrays(seed):
+    """#1's or #7's fields per input set: u (B, n, 3), V, M, pivot, with
+    pivots on both sides of the validity gate."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for case, n in (("rb101", 6), ("fixed201", 9)):
+        out[f"{case}.u"] = rng.standard_normal((5, n, 3)).astype(np.float32)
+        out[f"{case}.u"][..., 0] = 0.0
+        out[f"{case}.V"] = rng.standard_normal((5, n - 1)).astype(np.float32)
+        out[f"{case}.M"] = rng.standard_normal((5, n - 1)).astype(np.float32)
+        out[f"{case}.pivot"] = np.array([2e-9, 1e-3, 5e-10, 0.1, 3e-9],
+                                        np.float32)
+    out["rb101.u"][2] = np.nan          # a NaN lane stays NaN in both
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["analysis", "analysis_dd"])
+@pytest.mark.parametrize("change", ["none", "u 1 ulp", "u 2 ulp",
+                                    "pivot 1 ulp", "pivot flips", "hash"])
+def test_compare_analysis(tmp_path, kernel, change):
+    """#7: the pivot held bitwise, u, V, M to 1 ulp; #1: u, V, M and the
+    pivot reported in ulps, a lane whose validity flips makes the dumps
+    differ; for both another kernel's hash off does."""
+    tool = _tool()
+    own = "#1 fixed101" if kernel == "analysis" else "#7 rb101"
+    other = "#7 rb101" if kernel == "analysis" else "#1 fixed101"
+    hashes = {own: "a", "#2 fixed101 semi": "b", other: "c"}
+    a = _analysis_arrays(1)
+    b = {k: v.copy() for k, v in a.items()}
+    hashes_b = dict(hashes)
+    if change == "u 1 ulp":
+        b["rb101.u"] = _flip_last_bit(a["rb101.u"], (1, 2, 1))
+    if change == "u 2 ulp":
+        b["rb101.u"].view(np.uint32)[1, 2, 1] ^= 2
+    if change == "pivot 1 ulp":
+        b["fixed201.pivot"] = _flip_last_bit(a["fixed201.pivot"], 1)
+    if change == "pivot flips":
+        b["fixed201.pivot"][0] = 9e-10
+    if change == "hash":
+        hashes_b[other] = "d"
+    _dump(tmp_path / "a", a, hashes, kernel)
+    _dump(tmp_path / "b", b, hashes_b, kernel)
+    r = tool.compare_dumps(tmp_path / "a", tmp_path / "b")
+    held = {"analysis": ("none", "u 1 ulp", "u 2 ulp", "pivot 1 ulp"),
+            "analysis_dd": ("none", "u 1 ulp")}[kernel]
+    assert r["equal"] == (change in held)
+    assert tool.compare(tmp_path / "a", tmp_path / "b") == (
+        0 if r["equal"] else 1)
+    assert r["outputs"]["fixed201.pivot"]["flips"] == (
+        1 if change == "pivot flips" else 0)
+    ulps = r["outputs"]["rb101.u"]["max_ulps"]
+    assert ulps == {"u 1 ulp": 1, "u 2 ulp": 2}.get(change, 0)
+    assert r["outputs"]["rb101.pivot"]["exact"] == (kernel == "analysis_dd")
     assert r["hashes"][other] == (change != "hash")
     assert own not in r["hashes"]   # the kernel is held by its arrays

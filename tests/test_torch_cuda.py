@@ -82,11 +82,12 @@ def _systems(B, seed, device, dtype, cfg=ScenarioConfig()):
     return tuple(t.to(device=device, dtype=dtype) for t in (d, u, f * s))
 
 
-def _hold(kern, f64, f32, factor=2.0):
+def _hold(kern, f64, f32, factor=2.0, floors=None):
     """Kernel error vs plain float64 no more than ``factor`` times the plain
-    float32 version's, or 1e-5 of the output's scale."""
-    for k, t64, p32 in zip(kern, f64, f32):
-        scale = t64.abs().max().item()
+    float32 version's, or 1e-5 of the output's scale (at least its entry
+    in ``floors``, for an output float64 may give as exact zeros)."""
+    for j, (k, t64, p32) in enumerate(zip(kern, f64, f32)):
+        scale = max(t64.abs().max().item(), floors[j] if floors else 0.0)
         err_k = (k.double() - t64).abs().max().item() / scale
         err_p = (p32.double() - t64).abs().max().item() / scale
         assert err_k <= max(factor * err_p, 1e-5), (err_k, err_p)
@@ -166,10 +167,13 @@ def test_batch_program_launches_kernels_only(cuda):
     tk.reset_counts()
 
 
-def _lane_err(got, want):
+def _lane_err(got, want, floor=0.0):
+    """The worst lane's largest error relative to that lane's largest
+    |want| (at least ``floor``)."""
     got, want = got.double().reshape(len(got), -1), want.double().reshape(
         len(want), -1)
-    return ((got - want).abs().amax(1) / want.abs().amax(1)).max().item()
+    return ((got - want).abs().amax(1)
+            / want.abs().amax(1).clamp_min(floor)).max().item()
 
 
 @pytest.mark.cuda
@@ -277,6 +281,135 @@ def test_beam_opt_step_dd_rejects_a_strided_input(cuda):
         with pytest.raises(ValueError, match="contiguous"):
             tkd.beam_opt_step_dd(*bad, *tail)
     assert tkd.LAUNCHES["beam_opt_step_dd"] == before
+
+
+ANALYSES = pytest.mark.parametrize("dd", [False, True],
+                                   ids=["analysis", "analysis_dd"])
+# The float32 analysis kernel, bitwise the seven-pass kernel it replaced,
+# lands up to 8.7x plain float32's worst value on _beam_lanes' random
+# supports (B = 1, n = 201; 4.4-4.9x at B = 31 and 33, n = 101 and 201;
+# NVIDIA H100 80GB HBM3, 700.00 W): float32 rounded in another order.  A
+# wrong lane or node is off by O(1).
+ANALYSIS_SUPPORTS = 10.0
+
+
+def _force_floors(args):
+    """Floors of the force scales for outputs float64 may give as exact
+    zeros (the end moments of a simply supported element): V on w Le / 2,
+    M on w Le^2 / 12."""
+    w, le = args[6].abs().max().item(), args[3].max().item()
+    return (0.0, w * le / 2.0, w * le * le / 12.0, 0.0)
+
+
+def _analysis(dd, args, refine=1):
+    """The analysis wrapper (#1, or #7 with ``dd``) on ``_beam_lanes``'s
+    inputs."""
+    ana = [args[i] for i in (0, 3, 4, 5, 6)]
+    if dd:
+        return tkd.beam_analysis_dd(*ana, E, A)
+    return tk.beam_analysis(*ana, E, A, refine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("n", [2, 3, 9, 101, 201])
+@pytest.mark.parametrize("B", [1, 31, 33, 256, 16384])
+def test_beam_analysis_kernel_shapes(cuda, B, n, refine):
+    """The fused-sweep float32 analysis (#1) at one lane, ragged batches
+    (31 and 33 lanes), a compaction bucket, the full datagen batch, and
+    meshes shorter than one staged tile (n = 2, 3, 9) or spanning many
+    (101, 201), at every refinement count: lanes-first outputs, one launch
+    and no plain call, each output's error against the plain float64
+    version no more than ANALYSIS_SUPPORTS times the plain float32
+    version's, or 1e-5 of its scale, and u_x exactly zero."""
+    args = _beam_lanes(B, n, 100 * n + B + refine, cuda)
+    tk.reset_counts()
+    kern = _analysis(False, args, refine)
+    assert tk.LAUNCHES["beam_analysis"] == 1
+    assert tk.PLAIN_CALLS == {"beam_analysis": 0, "beam_opt_step": 0,
+                              "beam_solve": 0}
+    ana = [args[i] for i in (0, 3, 4, 5, 6)]
+    f64 = tk.beam_analysis_reference(*(a.double() for a in ana), E, A,
+                                     refine)
+    f32 = tk.beam_analysis_reference(*ana, E, A, refine)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, f32):
+        assert k.shape == p.shape and k.is_contiguous() and k.is_cuda
+    # a simply supported single element (B = 1, n = 2) has end moments of
+    # exactly 0: V and M are held on the scale of their fixed-end terms
+    _hold(kern, f64, f32, ANALYSIS_SUPPORTS, floors=_force_floors(args))
+    assert (kern[0][..., 0] == 0).all()
+    tk.reset_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 9, 101, 201])
+@pytest.mark.parametrize("B", [1, 31, 33, 256, 16384])
+def test_beam_analysis_dd_kernel_shapes(cuda, B, n):
+    """The two-sweep float64 analysis (#7) at the same shapes: lanes-first
+    outputs, one launch and no plain call, per-lane error no more than 1e-5
+    of the lane's scale (V and M at least their fixed-end terms') and
+    pivots within 1e-3 relative (phase 3b's rule), u_x exactly zero."""
+    args = _beam_lanes(B, n, 100 * n + B, cuda)
+    tkd.reset_counts()
+    kern = _analysis(True, args)
+    assert tkd.LAUNCHES["beam_analysis_dd"] == 1
+    assert tkd.PLAIN_CALLS == {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
+    plain = tkd.beam_analysis_dd_reference(
+        *(args[i] for i in (0, 3, 4, 5, 6)), E, A)
+    torch.cuda.synchronize()
+    for k, p, floor in zip(kern[:3], plain[:3], _force_floors(args)):
+        assert k.shape == p.shape and k.is_contiguous() and k.is_cuda
+        assert _lane_err(k, p, floor) <= 1e-5
+    assert ((kern[3].double() / plain[3].double() - 1).abs() <= 1e-3).all()
+    assert (kern[0][..., 0] == 0).all()
+    tkd.reset_counts()
+
+
+@pytest.mark.cuda
+@ANALYSES
+def test_beam_analysis_kernels_keep_nan_lanes(cuda, dd):
+    """A lane with a NaN I comes out NaN in u (u_x too), V, M and the
+    pivot, where the plain version's does; the other lanes are bitwise
+    those of a run without the NaN (lanes are independent)."""
+    args = _beam_lanes(70, 101, 3, cuda)
+    clean = _analysis(dd, args)
+    args[0][5, 40] = float("nan")
+    kern = _analysis(dd, args)
+    ana = [args[i] for i in (0, 3, 4, 5, 6)]
+    plain = (tkd.beam_analysis_dd_reference(*ana, E, A) if dd else
+             tk.beam_analysis_reference(*ana, E, A, 1))
+    torch.cuda.synchronize()
+    assert torch.isnan(kern[0][5]).all() and torch.isnan(kern[3][5])
+    for k, p in zip(kern, plain):
+        assert torch.equal(torch.isnan(k), torch.isnan(p))
+    keep = torch.arange(70, device=cuda) != 5
+    for k, c in zip(kern, clean):
+        assert torch.equal(k[keep], c[keep])
+
+
+@pytest.mark.cuda
+@ANALYSES
+def test_beam_analysis_kernels_reject_what_they_do_not_take(cuda, dd):
+    """The analysis kernels read the callers' lanes-first tensors as they
+    lie: a transposed view raises instead of being copied, the launcher
+    refuses CPU tensors, and nothing launches."""
+    args = _beam_lanes(40, 101, 4, cuda)
+    launches = tkd.LAUNCHES if dd else tk.LAUNCHES
+    name = "beam_analysis_dd" if dd else "beam_analysis"
+    launch = tkd.launch_beam_analysis_dd if dd else tk.launch_beam_analysis
+    before = launches[name]
+    for i in (0, 4):
+        bad = list(args)
+        bad[i] = args[i].movedim(0, -1).contiguous().movedim(-1, 0)
+        assert not bad[i].is_contiguous() and torch.equal(bad[i], args[i])
+        with pytest.raises(ValueError, match="contiguous"):
+            _analysis(dd, bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        launch(*(args[i].cpu() for i in (0, 3, 4, 5, 6)), E, A)
+    with pytest.raises(ValueError):
+        launch(args[0], args[3].cpu(), *(args[i] for i in (4, 5, 6)), E, A)
+    assert launches[name] == before
 
 
 MODES = pytest.mark.parametrize("grad_semi", [True, False],

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""A/B an opt-step kernel of two checkouts on one CUDA card: the rescue's
-float64 #8 (``--kernel opt_dd``, the default) or the datagen's float32 #2
-(``--kernel opt``).  Are its outputs equal, and how long does a launch take?
+"""A/B a fused-sweep beam kernel of two checkouts on one CUDA card: the
+rescue's float64 Adam step #8 (``--kernel opt_dd``, the default), the
+datagen's float32 #2 (``--kernel opt``), the float32 analysis #1
+(``--kernel analysis``) or the float64 analysis #7 (``--kernel
+analysis_dd``).  Are its outputs equal, and how long does a launch take?
 
     python tools/beam_opt_dd_ab.py run --tree DIR --out PREFIX [--layout L]
                                        [--kernel K]
@@ -16,23 +18,32 @@ and 3c's inputs (#1 ``beam_analysis``, #2 ``beam_opt_step`` semi and
 adjoint, #3 ``beam_solve``, #7 ``beam_analysis_dd``).  With ``opt`` it runs
 ``beam_opt_step`` in semi and adjoint mode (refine 1) on phase 3's inputs
 (16384 fixed-bridge lanes, n = 101) and phase 4c's, and hashes #1, #3, #7
-and #8.  It writes the outputs to PREFIX.npz and, to PREFIX.json, a SHA-256
-of each and of the other kernels' outputs, then CUDA-event medians of 20
-launches of the kernel's wrapper and of its launcher alone at B = 256,
-2048, 8192 and 16384, n = 101 and 201 (for #2 in both modes, and the
-launcher at refine 0, 1 and 2 at B = 256 and 16384, n = 101).  ``--layout``
-names the checkout's launch contract: ``lanes_first`` (the launcher takes
-the optimizer's tensors as they are) or ``lanes_last`` (the launcher takes
-lane-innermost copies, as before the redesign).
+and #8.  With ``analysis`` it runs ``beam_analysis`` (refine 1) on phases
+3, 3b and 4c's inputs with each output's per-lane error to the plain
+float64 version beside plain float32's, and at refine 0 and 2 on phase 3's,
+and hashes #2, #3, #7 and #8; with
+``analysis_dd`` it runs ``beam_analysis_dd`` on phases 3b and 4c's inputs
+and hashes #1, #2, #3 and #8.  It writes the outputs to PREFIX.npz and, to
+PREFIX.json, a SHA-256 of each and of the other kernels' outputs, then
+CUDA-event medians of 20 launches of the kernel's wrapper and of its
+launcher alone at B = 256, 2048, 8192 and 16384, n = 101 and 201 (for #2
+in both modes; the launcher of #2 and #1 also at refine 0, 1 and 2 at B =
+256 and 16384, n = 101).  ``--layout`` names the checkout's launch
+contract: ``lanes_first`` (the launcher takes the callers' tensors as they
+are) or ``lanes_last`` (the launcher takes lane-innermost copies, as before
+the redesign).
 
 ``compare`` reports, per output, whether the two runs are bitwise equal
 (else their largest difference, absolute and in float32 units in the last
-place; for #2 also each run's per-lane error to the plain float64 version
-beside plain float32's), whether the other kernels hashed the same, and
-the two runs' times side by side.  For #8 it exits 1 unless I, mu, nu,
-the pivot and every hash agree; #2 is held to float32 rounding, not bits
-(its ulp distance is reported), so it exits 1 only when a hash differs.
-One process per checkout: both trees hold a package of the same name.
+place; for #2 and #1 also each run's per-lane error to the plain float64
+version beside plain float32's; for a pivot the lanes whose validity at
+1e-9 flips), whether the other kernels hashed the same, and the two runs'
+times side by side.  It exits 1 when a hash differs, and besides: for #8
+unless I, mu, nu and the pivot are bitwise equal; for #7 unless the pivot
+is and u, V, M are within 1 ulp; for #1 if a lane's validity flips.  #2
+and #1 are held to float32 rounding, not bits (their ulp distance is
+reported).  One process per checkout: both trees hold a package of the
+same name.
 """
 
 from __future__ import annotations
@@ -46,11 +57,17 @@ from pathlib import Path
 import numpy as np
 
 FIELDS = ("I", "mu", "nu", "stats", "pivot")
-EXACT = ("I", "mu", "nu", "pivot")  # #8's, held bitwise; stats to rounding
+ANA_FIELDS = ("u", "V", "M", "pivot")
+# per kernel: the outputs held bitwise, and the ulps the others may differ
+# by (None: reported, not held)
+EXACT = {"opt_dd": ("I", "mu", "nu", "pivot"), "opt": (), "analysis": (),
+         "analysis_dd": ("pivot",)}
+ULP_LIMIT = {"analysis_dd": 1}
+PIVOT_TOL = 1e-9     # the datagen's validity gate
 SWEEP_B = (256, 2048, 8192, 16384)
 SWEEP_N = (101, 201)
 MODES = ("semi", "adjoint")
-TAG = {"opt_dd": "#8", "opt": "#2"}
+TAG = {"opt_dd": "#8", "opt": "#2", "analysis": "#1", "analysis_dd": "#7"}
 
 
 def _sha(t) -> str:
@@ -121,6 +138,17 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
                   layout=layout, kernel=kernel, hashes={}, times={})
     arrays = {}
     hashes = result["hashes"]
+
+    def keep_errors(key, outs, plain):
+        # per-lane error to float64, of the lane's scale: the kernel's and
+        # plain float32's p50, p99
+        for f, t, p32, p64 in zip(key[1], outs, *plain):
+            errs = [cs.lane_errors(torch, y.reshape(len(y), -1),
+                                   p64.reshape(len(p64), -1))
+                    for y in (t, p32)]
+            result.setdefault("errors", {})[f"{key[0]}.{f}"] = [
+                e.quantile(q).item() for e in errs for q in (0.5, 0.99)]
+
     for case in ("rb101", "fixed201"):
         x = inputs(case, B)
         outs = tkd.beam_opt_step_dd(*(x[k] for k in opt_keys), *scalars,
@@ -129,9 +157,30 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
             if kernel == "opt_dd":
                 arrays[f"{case}.{f}"] = t.cpu().numpy()
             hashes[f"#8 {case} {f}"] = _sha(t)
+        outs = tkd.beam_analysis_dd(*(x[k] for k in ana_keys), E, A)
         if case == "rb101":
-            hashes["#7 rb101"] = _sha_all(tkd.beam_analysis_dd(
-                *(x[k] for k in ana_keys), E, A))
+            hashes["#7 rb101"] = _sha_all(outs)
+        if kernel == "analysis_dd":
+            for f, t in zip(ANA_FIELDS, outs):
+                arrays[f"{case}.{f}"] = t.cpu().numpy()
+    if kernel == "analysis":
+        # #1 on phases 3, 3b and 4c's inputs, beside the plain versions
+        for case in ("fixed101", "rb101", "fixed201"):
+            x = inputs(case, B)
+            outs = tk.beam_analysis(*(x[k] for k in ana_keys), E, A, 1)
+            plain = [tk.beam_analysis_reference(
+                *(x[k].to(dt) for k in ana_keys), E, A, 1)
+                for dt in (torch.float32, torch.float64)]
+            for f, t in zip(ANA_FIELDS, outs):
+                arrays[f"{case}.{f}"] = t.cpu().numpy()
+            keep_errors((case, ANA_FIELDS[:3]), outs[:3],
+                        [p[:3] for p in plain])
+            if case == "fixed101":    # the other refinement counts
+                for r in (0, 2):
+                    outs = tk.beam_analysis(*(x[k] for k in ana_keys), E, A,
+                                            r)
+                    for f, t in zip(ANA_FIELDS, outs):
+                        arrays[f"{case}.refine{r}.{f}"] = t.cpu().numpy()
     # the float32 beam kernels, on phase 3's, 4c's and 3c's inputs
     for case in ("fixed101", "fixed201"):
         x = inputs(case, B)
@@ -145,14 +194,9 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
                     *(x[k].to(dt) for k in opt_keys), *scalars, E, A, G,
                     grad_semi=mode == "semi", refine=1)
                     for dt in (torch.float32, torch.float64)]
-                for j, (f, t) in enumerate(zip(FIELDS, outs)):
+                for f, t in zip(FIELDS, outs):
                     arrays[f"{case}.{mode}.{f}"] = t.cpu().numpy()
-                    # per-lane error to float64, of the lane's scale: the
-                    # kernel's and plain float32's p50, p99
-                    errs = [cs.lane_errors(torch, y, plain[1][j])
-                            for y in (t, plain[0][j])]
-                    result.setdefault("errors", {})[f"{case}.{mode}.{f}"] = [
-                        e.quantile(q).item() for e in errs for q in (0.5, 0.99)]
+                keep_errors((f"{case}.{mode}", FIELDS[:4]), outs, plain)
             if case == "fixed101":
                 hashes[f"#2 fixed101 {mode}"] = _sha_all(outs)
     s3 = cs.split_inputs(torch, sample_scenarios, constraint_mask,
@@ -168,6 +212,21 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
 
     for n in SWEEP_N:
         for lanes in SWEEP_B:
+            if kernel in ("analysis", "analysis_dd"):
+                x = inputs("fixed201" if n == 201 else "rb101"
+                           if kernel == "analysis_dd" else "fixed101",
+                           lanes, False)
+                ana = [x[k] for k in ana_keys]
+                fns = ((lambda: tk.beam_analysis(*ana, E, A, 1),
+                        lambda: tk.launch_beam_analysis(*ana_t, E, A, 1))
+                       if kernel == "analysis" else
+                       (lambda: tkd.beam_analysis_dd(*ana, E, A),
+                        lambda: tkd.launch_beam_analysis_dd(*ana_t, E, A)))
+                ana_t = copies(ana)
+                result["times"][f"n={n} B={lanes}"] = dict(
+                    wrapper=cs.time_ms(torch, fns[0], 20),
+                    kernel=cs.time_ms(torch, fns[1], 20))
+                continue
             if kernel == "opt_dd":
                 x = inputs("rb101" if n == 101 else "fixed201", lanes, False)
                 opt = [x[k] for k in opt_keys]
@@ -191,6 +250,14 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
                     kernel=cs.time_ms(torch, lambda: tk.launch_beam_opt_step(
                         *opt_t, *scalars, E, G, **kw), 20))
             del x, opt, opt_t
+    if kernel == "analysis":
+        # what a refinement (a forward and a back sweep) costs: the kernel
+        # alone at refine 0, 1, 2
+        for lanes in (256, 16384):
+            ana_t = copies([inputs("fixed101", lanes)[k] for k in ana_keys])
+            result["times"][f"n=101 B={lanes} by refine"] = [
+                cs.time_ms(torch, lambda: tk.launch_beam_analysis(
+                    *ana_t, E, A, r), 20) for r in (0, 1, 2)]
     if kernel == "opt":
         # what a refinement (a forward and a back sweep) costs: the kernel
         # alone at refine 0, 1, 2
@@ -220,13 +287,16 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> int:
 
 
 def compare_dumps(a: Path, b: Path) -> dict:
-    """Per output: bitwise equality, largest |difference| and ULP distance;
-    per hash of another kernel: equality.  ``equal`` is True when every hash
-    agrees and, for #8, every exact output is bitwise equal."""
+    """Per output: bitwise equality, largest |difference| and ULP distance,
+    for a pivot the lanes whose validity at PIVOT_TOL flips; per hash of
+    another kernel: equality.  ``equal`` is True when every hash agrees,
+    every exact output is bitwise equal, every other output is within the
+    kernel's ULP_LIMIT, and (#1) no lane's validity flips."""
     ja, jb = (json.loads(p.with_suffix(".json").read_text()) for p in (a, b))
     na, nb = (np.load(p.with_suffix(".npz")) for p in (a, b))
     kernel = ja.get("kernel", "opt_dd")
     tag = TAG[kernel]
+    limit = ULP_LIMIT.get(kernel)
     rows = {}
     for key in sorted(na.files):
         x, y = na[key], nb[key]
@@ -234,16 +304,25 @@ def compare_dumps(a: Path, b: Path) -> dict:
         diff = np.abs(x.astype(np.float64) - y.astype(np.float64))
         diff[np.isnan(x) & np.isnan(y)] = 0.0
         scale = np.abs(y.astype(np.float64)).max() if y.size else 0.0
+        field = key.split(".")[-1]
         rows[key] = dict(bitwise=same, max_abs=float(np.nanmax(diff))
                          if diff.size else 0.0,
                          max_rel=float(np.nanmax(diff) / scale)
                          if scale > 0 else 0.0,
                          max_ulps=_ulps(x, y),
-                         exact=kernel == "opt_dd"
-                         and key.split(".")[-1] in EXACT)
+                         exact=field in EXACT[kernel],
+                         held_ulps=None if field in EXACT[kernel]
+                         or field == "stats" else limit)
+        if field == "pivot":
+            rows[key]["flips"] = int(((x > PIVOT_TOL) != (y > PIVOT_TOL))
+                                     .sum())
     hashes = {k: v == jb["hashes"].get(k)
               for k, v in ja["hashes"].items() if not k.startswith(tag)}
     equal = (all(r["bitwise"] for r in rows.values() if r["exact"])
+             and all(r["max_ulps"] <= r["held_ulps"] for r in rows.values()
+                     if r["held_ulps"] is not None)
+             and (kernel != "analysis"
+                  or all(r.get("flips", 0) == 0 for r in rows.values()))
              and all(hashes.values()) and set(na.files) == set(nb.files))
     errors = {k: (v, jb.get("errors", {}).get(k, [float("nan")] * 4))
               for k, v in ja.get("errors", {}).items()}
@@ -256,11 +335,15 @@ def compare(a: Path, b: Path) -> int:
     r = compare_dumps(a, b)
     tag = TAG[r["kernel"]]
     for key, row in r["outputs"].items():
+        held = ("" if row["exact"] else " (held to rounding, not bits)"
+                if row["held_ulps"] is None else
+                f" (held to {row['held_ulps']} ulp)")
         print(f"{tag} {key}: " + ("bitwise equal" if row["bitwise"] else
                                   f"DIFFER max |a - b| {row['max_abs']:.3e} "
                                   f"({row['max_rel']:.3e} of scale, "
-                                  f"{row['max_ulps']} ulp)")
-              + ("" if row["exact"] else " (held to rounding, not bits)"))
+                                  f"{row['max_ulps']} ulp)") + held
+              + (f"; validity at {PIVOT_TOL:g} flips on {row['flips']} "
+                 "lanes" if "flips" in row else ""))
     for k, same in r["hashes"].items():
         print(f"{k}: {'equal' if same else 'DIFFER'}")
     for key, (ea, eb) in r["errors"].items():
