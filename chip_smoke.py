@@ -35,9 +35,10 @@ Phases, each of which raises on failure (exit code not 0):
    lane) must be no more than twice the plain float32 version's, or 1e-6,
    at the median, the 99th percentile and the worst lane (#3 at n = 51:
    the median and the 99th percentile, phase 3's rule; its worst lane is
-   printed), with no more non-finite lanes; then, under torch.profiler,
-   one call of each wrapper that copies no layout (#1, #2, #4, #6, #7,
-   #8) launches its kernel and no copy;
+   printed with its forward error and condition), with no more non-finite
+   lanes; then, under torch.profiler, one call of each wrapper that
+   copies no layout (#1, #2, #3, #4, #6, #7, #8) launches its kernel and
+   no copy;
 3d. the streamed float64 solve (#9) against its plain version on the
    float64-assembled systems of phase 3b's 16384 random-bridge lanes plus
    the four quasi-cantilever lanes (n = 101) and of 16384 span-scaled
@@ -89,12 +90,13 @@ Phases, each of which raises on failure (exit code not 0):
    valid masks, equal epochs on the rescued lanes, I within 1e-3 relative
    (1e-7 absolute), deflections within 1e-3 of the lane's scale;
 6. times: CUDA events, median of 20 launches per kernel (wrapper, kernel
-   alone and, where the wrapper transposes, its layout copies; #1, #2, #4,
-   #6, #7 and #8 read lanes-first tensors and copy none), beside the plain
+   alone and, where the wrapper transposes, its layout copies; #1-#4 and
+   #6-#8 read lanes-first tensors and copy none), beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
-   float64, H100 SXM); for #4, #5 and #6 also the dense float32
-   ``torch.linalg.solve`` of the same systems, for #9 the dense float64 one
+   float64, H100 SXM); for #3 (the masked K(I) x = rhs), #4, #5 and #6
+   also the dense float32 ``torch.linalg.solve`` of the same systems, for
+   #9 the dense float64 one
    (the library yardsticks); #4 and #6 in turns at n = 51, 101, 201, 301
    and 1001 and at 512, 2048, 4096, 8192 and 16384 lanes (the compaction
    buckets and the full batch), launcher and wrapper, each output bitwise
@@ -218,11 +220,15 @@ def flops_per_lane(n, refine, kind):
         return 192 * n
     if kind == "thomas_dd":
         return 194 * n
-    # explicit-RHS 3-DOF solve (#3), per node: stiffness 10, assembly 47,
-    # scaling 45, factor with C and det3 190, back sweep 18, unscaling 3;
-    # a refinement sweep: residual 300, substitution 51, update 3
+    # explicit-RHS 3-DOF solve (#3), per node, over the nonzeros of each
+    # block (csrc/beam_kernel.cu): the first forward sweep 165 (the two
+    # elements' stiffness 20, assembly 23, scales 6, scaled block and
+    # right-hand side 16, scaled U 20; the chain's S 23, q 13, det2, det3
+    # and the division 5, Sinv 9, y 10, C 18, pivot 2), back sweep 13,
+    # unscaling 3; a refinement sweep: residual 168 (15 error-free terms of
+    # 11), forward substitution 23, back sweep 16
     if kind == "solve3":
-        return (313 + 354 * refine) * n
+        return (181 + 207 * refine) * n
     if kind in ("analysis_dd", "opt_dd"):
         return (129 + 61 + (23 + 15 if kind == "opt_dd" else 0)) * n
     if kind in ("semi", "adjoint"):
@@ -613,9 +619,26 @@ def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
                              else t)
     d64, u64, _ = assemble_beam_system(args64[0], sc64, E, A)
     b64 = args64[3] * args64[2]
+    bw_k = backward_errors(torch, matvec, d64, u64, b64, kern[0])
+    bw_p = backward_errors(torch, matvec, d64, u64, b64, p32[0])
     errs["beam_solve"]["backward_p99"] = hold_backward(
-        torch, "#3 x", backward_errors(torch, matvec, d64, u64, b64, kern[0]),
-        backward_errors(torch, matvec, d64, u64, b64, p32[0]), held=held3)
+        torch, "#3 x", bw_k, bw_p, held=held3)
+    if 1.0 not in held3:
+        # the lane the rule does not hold: its errors and its condition
+        j = int(torch.where(torch.isfinite(bw_k), bw_k, -1.0).argmax())
+        K, _ = dense_system(torch, d64[j:j + 1], u64[j:j + 1], b64[j:j + 1])
+        s = torch.rsqrt(torch.diagonal(K[0]))
+        cond = torch.linalg.cond(s[:, None] * K[0] * s[None, :]).item()
+        fwd_k, fwd_p = (lane_errors(torch, t[j:j + 1], p64[0][j:j + 1]
+                                    ).item() for t in (kern[0], p32[0]))
+        worst = dict(lane=j, forward=fwd_k, plain32_forward=fwd_p,
+                     backward=bw_k[j].item(), plain32_backward=bw_p[j].item(),
+                     cond_scaled=cond)
+        errs["beam_solve"]["worst_lane"] = worst
+        log(f"  #3 worst lane {j}: forward err {fwd_k:.3e} (plain f32 "
+            f"{fwd_p:.3e}), backward err {worst['backward']:.3e} (plain f32 "
+            f"{worst['plain32_backward']:.3e}), cond of the scaled K "
+            f"{cond:.3e}")
     return errs
 
 
@@ -1102,13 +1125,12 @@ def main(argv=None) -> int:
     # the split-path kernels on phase 3c's fixed-bridge n = 101 inputs
     sys_t = [lanes_last(x) for x in sys32]
     sv = [split101[k] for k in ("I", "Le", "free", "rhs")]
-    sv_t = [lanes_last(x) for x in sv]
     cases.update({
+        # #3 reads the lanes-first inputs as they lie
         "beam_solve": dict(
             wrapper=lambda: tk.beam_solve(*sv, E, A, refine),
-            kernel=lambda: tk.launch_beam_solve(*sv_t, E, A, refine),
-            layout=lambda: ([lanes_last(x) for x in sv],
-                            [lanes_first(sv_t[3])]),
+            kernel=lambda: tk.launch_beam_solve(*sv, E, A, refine),
+            layout=None,
             plain=lambda: tk.beam_solve_reference(*sv, E, A, refine),
             kind="solve3"),
         # #4 and #6 read the lanes-first systems as they lie; #4's wrapper
@@ -1647,9 +1669,14 @@ def main(argv=None) -> int:
         *opt, *scalars, E, G, grad_semi=False, refine=refine), 20)
 
     # the library yardsticks: one dense LU solve of the same systems, in
-    # float32 for #4, #5 and #6 (no TF32 in an LU), in float64 for #9
+    # float32 for #3 (the masked K(I) and right-hand side it assembles),
+    # #4, #5 and #6 (no TF32 in an LU), in float64 for #9
+    sys_solve = (*assemble_beam_system(sv[0], split101["scenario"], E,
+                                       A)[:2], sv[3] * sv[2])
     library = {}
     for kind_l, sys_l, plain_l in (
+            ("solve3", sys_solve, lambda: tk.beam_solve_reference(
+                *sv, E, A, refine)[0]),
             ("thomas", sys32, lambda: tbt.thomas_reference(*sys32)),
             ("thomas_dd", sys_dd, lambda: tsd.thomas_dd_reference(
                 *sys_dd)[0])):
@@ -1660,11 +1687,13 @@ def main(argv=None) -> int:
                                 x_dense.double()).median().item()
         library[kind_l] = time_ms(torch, lambda: torch.linalg.solve(K, rhs_d),
                                   3, warmup=1)
-        log(f"  library: torch.linalg.solve on the dense ({Bd}, {3 * nd}, "
-            f"{3 * nd}) {sys_l[0].dtype} systems {library[kind_l]:.3f} ms "
-            f"(p50 per-lane gap to the plain block-Thomas {dense_gap:.2e})")
+        log(f"  library ({kind_l}): torch.linalg.solve on the dense ({Bd}, "
+            f"{3 * nd}, {3 * nd}) {sys_l[0].dtype} systems "
+            f"{library[kind_l]:.3f} ms (p50 per-lane gap to the plain "
+            f"version {dense_gap:.2e})")
         del K, rhs_d, x_dense
         torch.cuda.empty_cache()
+    del sys_solve
 
     kernels = []
     for name, c in cases.items():
@@ -1705,10 +1734,13 @@ def main(argv=None) -> int:
     kernels[1]["adjoint_bound_ms"] = bound_ms(B, n, refine, "adjoint")[0]
     log(f"  beam_opt_step adjoint: kernel {adjoint_ms:.3f} ms | bound "
         f"{1e3 * kernels[1]['adjoint_bound_ms']:.1f} us")
-    log("  library_ms: no single PyTorch call computes #1-#3 or #7-#8")
+    log("  library_ms: no single PyTorch call computes #1-#2 or #7-#8")
     for k in kernels:
         if k["name"] == "solve_dd_streamed":
             k["rel_err_p99_n1001"] = errs_fine_dd["rel_p99"]
+        if k["name"] == "beam_solve":
+            k["worst_lane_n51"] = errs_split[(51, "random bridge")][
+                "beam_solve"].get("worst_lane")
     del sys_dd, sys_dd_t, x_dd_t
 
     # #4 against #6 in turns #4, #6, #6, #4 by mesh and lane count: the

@@ -16,16 +16,18 @@ Three public wrappers keep the JAX launchers' argument order and shapes:
   gradient (semi, or the exact adjoint: one more substitution pair and
   ``refine`` sweeps on the saved factors), and the Adam update with clamp.
 - ``beam_solve`` (``pallas_beam_solve``, kernel ``_beam_kernel`` with an
-  explicit right-hand side): the 3-DOF assembly of K(I) with full 3x3
-  blocks (an arbitrary RHS may load the axial chain), masking, Jacobi
-  scaling, block-Thomas with saved Sinv and C, ``refine`` compensated
-  sweeps; the pivot is min_i |det3(S_i)|, without the axial-chain product.
+  explicit right-hand side): the 3-DOF assembly of K(I) (an arbitrary RHS
+  may load the axial chain), masking, Jacobi scaling, block-Thomas with
+  saved Sinv and C, ``refine`` compensated sweeps; the pivot is min_i
+  |det3(S_i)|, without the axial-chain product.
 
 The first two kernels live in ``csrc/beam_opt.cu``: one set of fused sweeps
-per lane, with the analysis a last-sweep mode of the opt step's.  They read
-and write the callers' lanes-first tensors directly: the wrappers copy no
-layout, and take only contiguous tensors.  The explicit-RHS solve's kernel
-(``csrc/beam_kernel.cu``) takes lane-innermost copies.
+per lane, with the analysis a last-sweep mode of the opt step's.  The
+explicit-RHS solve's kernel (``csrc/beam_kernel.cu``) runs the same kind of
+sweeps with one chain that carries the axial and the bending factorization
+over the nonzeros of each 3x3 block.  All three read and write the callers'
+lanes-first tensors directly: the wrappers copy no layout, and take only
+contiguous tensors.
 
 ``beam_analysis`` is differentiable in I, the point loads and the UDL, as
 ``pallas_beam_analysis`` is through its ``custom_vjp``: the backward pass is
@@ -69,8 +71,6 @@ from openpystruct_tpu_torch.ops.block_tridiag import (
     _mtv,
     _mv,
 )
-from openpystruct_tpu_torch.ops.block_tridiag import lanes_first as _lanes_first
-from openpystruct_tpu_torch.ops.block_tridiag import lanes_last as _lanes_last
 
 LAUNCHES = {"beam_analysis": 0, "beam_opt_step": 0, "beam_solve": 0}
 PLAIN_CALLS = {"beam_analysis": 0, "beam_opt_step": 0, "beam_solve": 0}
@@ -525,8 +525,8 @@ def _lib():
     points."""
     lib = _build.load("beam_kernel")
     lib.beam_solve_f32.argtypes = [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P]
-    lib.beam_solve_ws_per_node.argtypes = []
-    for fn in (lib.beam_solve_f32, lib.beam_solve_ws_per_node):
+    lib.beam_solve_scratch_per_node.argtypes = []
+    for fn in (lib.beam_solve_f32, lib.beam_solve_scratch_per_node):
         fn.restype = _I
     return lib
 
@@ -560,42 +560,29 @@ def _check(device, **tensors):
                              f"expected {tuple(shape)}")
 
 
-def _check_launch(dev, nelem, B, **tensors):
-    """Raise unless every lane-innermost launch input of the explicit-RHS
-    solve (named as in its launcher) is contiguous float32 on ``dev`` with
-    its shape."""
-    n = nelem + 1
-    shapes = dict(I_t=(nelem, B), Le_t=(nelem, B), free_t=(n, 3, B),
-                  rhs_t=(n, 3, B))
-    for t in tensors.values():
-        if not t.is_contiguous():
-            raise ValueError("launch inputs must be contiguous")
-    _check(dev, **{k: (t, shapes[k]) for k, t in tensors.items()})
-
-
 def _run(rc, name, launches=LAUNCHES):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[name] += 1
 
 
-def _check_lanes_first(name, I, Le, free_mask, point_loads, udl, mu=None,
-                       nu=None):
+def _check_lanes_first(name, I, Le, free_mask, point_loads=None, udl=None,
+                       mu=None, nu=None, rhs=None):
     """Raise unless the inputs are the callers' lanes-first float32
     tensors, contiguous on one CUDA device: I, Le (and the opt step's mu,
-    nu) (B, nelem), free_mask (B, n, 3), point_loads (B, n), udl (B,),
-    nelem >= 1.  The fused-sweep kernels read them as they lie and copy
-    none."""
+    nu) (B, nelem), free_mask (and the solve's rhs) (B, n, 3), point_loads
+    (B, n), udl (B,), nelem >= 1.  The fused-sweep kernels read them as they
+    lie and copy none."""
     B, nelem = I.shape
     n = nelem + 1
     if nelem < 1:
         raise ValueError(f"{name} needs at least one element")
     ins = dict(I=I, mu=mu, nu=nu, Le=Le, free_mask=free_mask,
-               point_loads=point_loads, udl=udl)
+               point_loads=point_loads, udl=udl, rhs=rhs)
     ins = {k: t for k, t in ins.items() if t is not None}
     shapes = dict(I=(B, nelem), mu=(B, nelem), nu=(B, nelem),
                   Le=(B, nelem), free_mask=(B, n, 3), point_loads=(B, n),
-                  udl=(B,))
+                  udl=(B,), rhs=(B, n, 3))
     _check(I.device, **{k: (t, shapes[k]) for k, t in ins.items()})
     for k, t in ins.items():
         if not t.is_contiguous():
@@ -669,25 +656,24 @@ def launch_beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl,
     return I_o, mu_o, nu_o, stats
 
 
-def launch_beam_solve(I_t, Le_t, free_t, rhs_t, E, A, refine=1):
-    """Launch the explicit-RHS solve kernel on lane-innermost inputs: I_t,
-    Le_t (nelem, B), free_t, rhs_t (n, 3, B), all contiguous float32 on one
-    card.  Returns x_t (n, 3, B) and the pivot (B,)."""
-    nelem, B = I_t.shape
+def launch_beam_solve(I, Le, free_mask, rhs, E, A, refine=1):
+    """Launch the explicit-RHS solve kernel on the callers' lanes-first
+    float32 tensors, as they are (``_check_lanes_first``, before any
+    build): I, Le (B, nelem), free_mask, rhs (B, n, 3).  Returns x (B, n, 3)
+    and the pivot (B,)."""
+    _check_lanes_first("beam_solve", I, Le, free_mask, rhs=rhs)
+    B, nelem = I.shape
     n = nelem + 1
-    dev = I_t.device
-    _check_launch(dev, nelem, B, I_t=I_t, Le_t=Le_t, free_t=free_t,
-                  rhs_t=rhs_t)
+    dev = I.device
     lib = _lib()
-    x = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
+    x = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
     piv = torch.empty((B,), dtype=torch.float32, device=dev)
-    ws = torch.empty((n, lib.beam_solve_ws_per_node(), B),
-                     dtype=torch.float32, device=dev)
+    scratch = _sweep_scratch(lib.beam_solve_scratch_per_node(), n, B, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.beam_solve_f32(
-            I_t.data_ptr(), Le_t.data_ptr(), free_t.data_ptr(),
-            rhs_t.data_ptr(), x.data_ptr(), piv.data_ptr(), ws.data_ptr(),
+            I.data_ptr(), Le.data_ptr(), free_mask.data_ptr(),
+            rhs.data_ptr(), x.data_ptr(), piv.data_ptr(), scratch.data_ptr(),
             B, n, int(refine), float(E), float(E * A), stream)
     _run(rc, "beam_solve")
     return x, piv
@@ -697,18 +683,12 @@ def beam_solve(I, Le, free_mask, rhs, E, A, refine=1):
     """Fused assembly and solve of K(I) x = rhs for an explicit (B, n, 3)
     right-hand side, constrained DOFs projected out (``pallas_beam_solve``).
     Returns x (B, n, 3) and the pivot (B,).  CPU tensors run the plain
-    version; CUDA tensors (float32) launch the kernel."""
+    version; CUDA tensors (float32, contiguous) launch the kernel, with no
+    layout copy."""
     if not I.is_cuda:
         PLAIN_CALLS["beam_solve"] += 1
         return beam_solve_reference(I, Le, free_mask, rhs, E, A, refine)
-    B, nelem = I.shape
-    _check(I.device, I=(I, (B, nelem)), Le=(Le, (B, nelem)),
-           free_mask=(free_mask, (B, nelem + 1, 3)),
-           rhs=(rhs, (B, nelem + 1, 3)))
-    x, piv = launch_beam_solve(_lanes_last(I), _lanes_last(Le),
-                               _lanes_last(free_mask), _lanes_last(rhs), E,
-                               A, refine)
-    return _lanes_first(x), piv
+    return launch_beam_solve(I, Le, free_mask, rhs, E, A, refine)
 
 
 def _analysis_forward(I, Le, free_mask, point_loads, udl, E, A, refine):
@@ -746,12 +726,16 @@ class _BeamAnalysis(torch.autograd.Function):
         k2 = 2.0 * E * I / Le
 
         # (dV/du)^T gV + (dM/du)^T gM scattered onto the nodal cotangent
-        g_hat = gu.clone()
+        g_hat = gu.clone(memory_format=torch.contiguous_format)
         g_hat[:, :-1, 1] += gV * k11 + gM * k12
         g_hat[:, :-1, 2] += gV * k12 + gM * k13
         g_hat[:, 1:, 1] += -gV * k11 - gM * k12
         g_hat[:, 1:, 2] += gV * k12 + gM * k2
         g_hat = g_hat * free_mask
+        if I.is_cuda:
+            # the forward pass took contiguous tensors: the solve reads
+            # them, and g_hat, as they lie
+            assert all(t.is_contiguous() for t in (g_hat, I, Le, free_mask))
 
         lam, _ = beam_solve(I, Le, free_mask, g_hat, E, A, refine)
 

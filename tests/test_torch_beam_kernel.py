@@ -205,3 +205,35 @@ def test_analysis_launchers_check_inputs_before_building(case, dd):
         assert "CUDA" in str(err.value)
     assert tk.LAUNCHES["beam_analysis"] == 0
     assert tkd.LAUNCHES["beam_analysis_dd"] == 0
+
+
+@pytest.mark.parametrize("case", ["strided I", "strided rhs", "float64",
+                                  "short rhs", "no element", "cpu"])
+def test_solve_launcher_checks_inputs_before_building(case):
+    """The explicit-RHS solve (#3) reads the callers' lanes-first tensors
+    as they lie: its launcher refuses a strided view, another dtype or
+    shape, a beam without elements, or tensors off the card, before
+    building or launching; the CPU wrapper runs the plain version."""
+    B, n = (1, 1) if case == "no element" else (4, 9)
+    rng = np.random.default_rng(n)
+    args = [torch.from_numpy(rng.random(s, dtype=np.float32))
+            for s in ((B, n - 1), (B, n - 1), (B, n, 3), (B, n, 3))]
+    if case == "strided I":
+        args[0] = args[0].t().contiguous().t()
+    if case == "strided rhs":
+        args[3] = args[3].movedim(0, -1).contiguous().movedim(-1, 0)
+    if case == "float64":
+        args[1] = args[1].double()
+    if case == "short rhs":
+        args[3] = args[3][:, :-1]
+    tk.reset_counts()
+    with pytest.raises((ValueError, TypeError)) as err:
+        tk.launch_beam_solve(*args, E, A)
+    if case.startswith("strided"):
+        assert "contiguous" in str(err.value)
+    if case == "cpu":
+        assert "CUDA" in str(err.value)
+        tk.beam_solve(*args, E, A)
+        assert tk.PLAIN_CALLS["beam_solve"] == 1
+    assert tk.LAUNCHES["beam_solve"] == 0
+    tk.reset_counts()

@@ -158,3 +158,71 @@ def test_compare_analysis(tmp_path, kernel, change):
     assert r["outputs"]["rb101.pivot"]["exact"] == (kernel == "analysis_dd")
     assert r["hashes"][other] == (change != "hash")
     assert own not in r["hashes"]   # the kernel is held by its arrays
+
+
+def _solve_arrays(seed):
+    """#3's fields per input set and refinement count: x (B, n, 3) with
+    exact zeros at constrained DOFs, and pivots on both sides of the
+    validity gate; one NaN lane."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for case, n in (("fixed101", 6), ("random51", 4)):
+        for r in (0, 1, 2):
+            x = rng.standard_normal((5, n, 3)).astype(np.float32)
+            x[:, 0, :2] = 0.0
+            x[3] = np.nan
+            out[f"{case}.refine{r}.x"] = x
+            out[f"{case}.refine{r}.pivot"] = np.array(
+                [2e-9, 1e-3, 5e-10, np.nan, 3e-9], np.float32)
+    return out
+
+
+@pytest.mark.parametrize("change", ["none", "signed zero", "x 1 ulp",
+                                    "pivot 1 ulp", "pivot flips", "nan",
+                                    "hash"])
+def test_compare_solve(tmp_path, change):
+    """#3: x and the pivot held equal in value; a zero of the other sign is
+    counted apart and does not make the dumps differ, one ulp off in x or
+    the pivot does, as does a lane whose validity flips, a lane that is
+    NaN on one side only, or another kernel's hash."""
+    tool = _tool()
+    hashes = {"#3 fixed101": "a", "#1 fixed101": "b", "#8 rb101 I": "c"}
+    a = _solve_arrays(2)
+    b = {k: v.copy() for k, v in a.items()}
+    hashes_b = dict(hashes)
+    key = "fixed101.refine1.x"
+    if change == "signed zero":
+        b[key][1, 0, 0] = -0.0
+    if change == "x 1 ulp":
+        b[key] = _flip_last_bit(a[key], (2, 1, 2))
+    if change == "pivot 1 ulp":
+        b["random51.refine2.pivot"] = _flip_last_bit(
+            a["random51.refine2.pivot"], 1)
+    if change == "pivot flips":
+        b["random51.refine0.pivot"][4] = 9e-10
+    if change == "nan":
+        b[key][0, 2, 1] = np.nan
+    if change == "hash":
+        hashes_b["#1 fixed101"] = "d"
+    _dump(tmp_path / "a", a, hashes, "solve")
+    _dump(tmp_path / "b", b, hashes_b, "solve")
+    r = tool.compare_dumps(tmp_path / "a", tmp_path / "b")
+    assert r["equal"] == (change in ("none", "signed zero"))
+    assert tool.compare(tmp_path / "a", tmp_path / "b") == (
+        0 if r["equal"] else 1)
+    row = r["outputs"][key]
+    assert row["signed_zeros"] == (1 if change == "signed zero" else 0)
+    assert row["bitwise"] == (change not in ("signed zero", "x 1 ulp",
+                                             "nan"))
+    assert row["value_equal"] == (change in ("none", "signed zero",
+                                             "pivot 1 ulp", "pivot flips",
+                                             "hash"))
+    # a NaN against a number is as far as the bit patterns lie
+    assert (row["max_ulps"] > 1 if change == "nan" else
+            row["max_ulps"] == (1 if change == "x 1 ulp" else 0))
+    assert r["outputs"]["random51.refine0.pivot"]["flips"] == (
+        1 if change == "pivot flips" else 0)
+    assert all(v["held_value"] and not v["exact"]
+               for v in r["outputs"].values())
+    assert r["hashes"]["#1 fixed101"] == (change != "hash")
+    assert "#3 fixed101" not in r["hashes"]   # held by its arrays

@@ -30,6 +30,7 @@ from openpystruct_tpu_torch.fem.beam import (
     constraint_mask,
     solve_beam_batched,
 )
+from openpystruct_tpu_torch.fem.solve import block_tridiag_matvec
 from openpystruct_tpu_torch.ops import beam_kernel as tk
 from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
 from openpystruct_tpu_torch.ops import block_stream as tbs
@@ -555,19 +556,139 @@ def test_block_tridiag_kernels(cuda, streamed):
 
 @pytest.mark.cuda
 def test_beam_solve_kernel(cuda):
+    """The explicit-RHS solve (#3) on scenario beams: one launch, no plain
+    call, x and the pivot held against the plain float64 version by
+    _hold's rule."""
     x32, x64 = (_inputs(300, 9, cuda, dt) for dt in (torch.float32,
                                                        torch.float64))
     gen = torch.Generator().manual_seed(9)
     rhs = torch.randn((300, 101, 3), generator=gen) * 1e4
     args32 = [x32[k] for k in ("I", "Le", "free")] + [rhs.to(cuda)]
     args64 = [x64[k] for k in ("I", "Le", "free")] + [rhs.to(cuda).double()]
-    before = tk.LAUNCHES["beam_solve"]
+    tk.reset_counts()
     kern = tk.beam_solve(*args32, E, A, 1)
-    assert tk.LAUNCHES["beam_solve"] == before + 1
+    assert tk.LAUNCHES["beam_solve"] == 1
+    assert tk.PLAIN_CALLS == {"beam_analysis": 0, "beam_opt_step": 0,
+                              "beam_solve": 0}
     f64 = tk.beam_solve_reference(*args64, E, A, 1)
     f32 = tk.beam_solve_reference(*args32, E, A, 1)
     torch.cuda.synchronize()
     _hold(kern, f64, f32)
+    tk.reset_counts()
+
+
+# The explicit-RHS solve (#3) on _beam_lanes' random supports: float32
+# keeps few digits of x there (one lane of B = 31, n = 51, refine 2 lands
+# 7.7e-4 of the batch's scale from float64 both in the kernel and in the
+# plain version on the CPU, 5.1e-5 in the plain version on the card, whose
+# rsqrt is not IEEE's; NVIDIA H100 80GB HBM3, 700.00 W), so x is held by
+# its backward error, chip_smoke.py phase 3c's rule, and the pivot against
+# float64 within SOLVE_SUPPORTS times plain float32's error, as the
+# analysis kernel's (ANALYSIS_SUPPORTS).  A wrong lane or node is off by
+# O(1) in both.
+SOLVE_SUPPORTS = ANALYSIS_SUPPORTS
+
+
+def _solve_backward_errors(args, x):
+    """Per-lane backward error of x for K(I) x = rhs (masked, in float64):
+    max_i |b - K x|_i over max_i (|K| |x| + |b|)_i in Jacobi-scaled rows,
+    chip_smoke.py's ``backward_errors``; inf on a non-finite lane."""
+    I, Le, free, rhs = (a.double() for a in args)
+    d, u, b = tk._assemble3(tk._stiffness(I, Le, E, E * A), free, rhs)
+    u, x = u[:, :-1], x.double()
+    s = torch.rsqrt(torch.diagonal(d, dim1=-2, dim2=-1))
+    r = (b - block_tridiag_matvec(d, u, x)) * s
+    den = (block_tridiag_matvec(d.abs(), u.abs(), x.abs()) + b.abs()) * s
+    err = r.abs().amax((1, 2)) / den.amax((1, 2)).clamp_min(1e-300)
+    return torch.where(torch.isfinite(err), err, torch.inf)
+
+
+def _solve_lanes(B, n, seed, device):
+    """_beam_lanes' I, Le and mask, and a right-hand side that loads every
+    DOF, the axial one included (the analysis gradient's rarely does)."""
+    args = _beam_lanes(B, n, seed, device)
+    rhs = np.random.default_rng(seed + 1).normal(size=(B, n, 3)) * 1e4
+    return [args[0], args[3], args[4],
+            torch.from_numpy(rhs).to(device=device, dtype=torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("n", [2, 3, 9, 51, 101, 201])
+@pytest.mark.parametrize("B", [1, 31, 33, 256, 16384])
+def test_beam_solve_kernel_shapes(cuda, B, n, refine):
+    """#3 at one lane, ragged batches (31 and 33 lanes), a compaction
+    bucket, the full batch, and meshes shorter than one staged tile (n = 2,
+    3) or spanning one to many (9, 51, 101, 201), at every refinement
+    count, on a right-hand side with an axial component: lanes-first x,
+    one launch and no plain call, x's worst backward error no more than
+    twice plain float32's (or 1e-6), the pivot within SOLVE_SUPPORTS times
+    plain float32's error to float64 (or 1e-5 of its scale)."""
+    args = _solve_lanes(B, n, 1000 * n + B + refine, cuda)
+    tk.reset_counts()
+    kern = tk.beam_solve(*args, E, A, refine)
+    assert tk.LAUNCHES["beam_solve"] == 1
+    assert tk.PLAIN_CALLS["beam_solve"] == 0
+    f64 = tk.beam_solve_reference(*(a.double() for a in args), E, A, refine)
+    f32 = tk.beam_solve_reference(*args, E, A, refine)
+    torch.cuda.synchronize()
+    assert kern[0].shape == (B, n, 3) and kern[0].is_contiguous()
+    assert kern[1].shape == (B,)
+    assert (kern[0][..., 0].abs().amax() > 0).item()   # the axial chain ran
+    bw_k, bw_p = (_solve_backward_errors(args, x[0]) for x in (kern, f32))
+    assert bw_k.max().item() <= max(2.0 * bw_p.max().item(), 1e-6), (
+        bw_k.max().item(), bw_p.max().item())
+    _hold([kern[1]], [f64[1]], [f32[1]], SOLVE_SUPPORTS)
+    tk.reset_counts()
+
+
+@pytest.mark.cuda
+def test_beam_solve_kernel_non_finite_lanes(cuda):
+    """Lanes the system leaves singular or undefined come out non-finite
+    where the plain version's do, entry by entry, and in the pivot: a NaN
+    I, an I = 0 on the first element (a zero diagonal) and inside the
+    beam, no support at all.  Their values are not held.  The other lanes
+    are bitwise those of a run without them (lanes are independent)."""
+    args = _solve_lanes(70, 101, 5, cuda)
+    clean = tk.beam_solve(*args, E, A, 1)
+    args[0][5, 40] = float("nan")
+    args[0][9, 0] = 0.0
+    args[0][12, 60] = 0.0
+    args[2][20] = 1.0
+    kern = tk.beam_solve(*args, E, A, 1)
+    plain = tk.beam_solve_reference(*args, E, A, 1)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(kern[0][5]).any()
+    assert torch.isnan(kern[1][5]) and torch.isnan(kern[1][9])
+    for k, p in zip(kern, plain):
+        assert torch.equal(torch.isfinite(k), torch.isfinite(p))
+    keep = torch.ones(70, dtype=torch.bool, device=cuda)
+    keep[[5, 9, 12, 20]] = False
+    for k, c in zip(kern, clean):
+        assert torch.equal(k[keep], c[keep])
+
+
+@pytest.mark.cuda
+def test_beam_solve_rejects_what_it_does_not_take(cuda):
+    """#3 reads the callers' lanes-first tensors as they lie: a transposed
+    view raises instead of being copied, the launcher refuses CPU tensors
+    and float64 ones, and nothing launches."""
+    args = _solve_lanes(40, 101, 6, cuda)
+    tk.reset_counts()
+    for i in (0, 2, 3):
+        bad = list(args)
+        bad[i] = args[i].movedim(0, -1).contiguous().movedim(-1, 0)
+        assert not bad[i].is_contiguous() and torch.equal(bad[i], args[i])
+        with pytest.raises(ValueError, match="contiguous"):
+            tk.beam_solve(*bad, E, A, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_beam_solve(*(a.cpu() for a in args), E, A, 1)
+    with pytest.raises(ValueError):
+        tk.launch_beam_solve(args[0], args[1].cpu(), *args[2:], E, A, 1)
+    with pytest.raises(TypeError):
+        tk.beam_solve(*args[:3], args[3].double(), E, A, 1)
+    assert tk.LAUNCHES["beam_solve"] == 0
+    assert tk.PLAIN_CALLS["beam_solve"] == 0
 
 
 def _solves(cuda, n, B):
@@ -643,11 +764,18 @@ def test_beam_analysis_gradient_on_the_card(cuda):
                         ("plain32", x32, tk.beam_analysis_reference),
                         ("plain64", x64, tk.beam_analysis_reference)):
         I = x["I"].clone().requires_grad_(True)
+        tk.reset_counts()
         u, V, M, _ = fn(I, x["Le"], x["free"], x["loads"], x["udl"], E, A, 1)
         loss = (M**2).sum() * 1e-9 + (V**2).sum() * 1e-7 + (u[..., 1]**2
                                                              ).sum() * 1e3
         (grads[name],) = torch.autograd.grad(loss, I)
+        if name == "kernel":
+            # forward #1, backward #3, nothing plain
+            assert tk.LAUNCHES == {"beam_analysis": 1, "beam_opt_step": 0,
+                                   "beam_solve": 1}
+            assert not any(tk.PLAIN_CALLS.values())
     torch.cuda.synchronize()
+    tk.reset_counts()
     _hold([grads["kernel"]], [grads["plain64"]], [grads["plain32"]])
 
 

@@ -2,8 +2,9 @@
 """A/B a fused-sweep beam kernel of two checkouts on one CUDA card: the
 rescue's float64 Adam step #8 (``--kernel opt_dd``, the default), the
 datagen's float32 #2 (``--kernel opt``), the float32 analysis #1
-(``--kernel analysis``) or the float64 analysis #7 (``--kernel
-analysis_dd``).  Are its outputs equal, and how long does a launch take?
+(``--kernel analysis``), the float64 analysis #7 (``--kernel
+analysis_dd``) or the explicit-RHS solve #3 (``--kernel solve``).  Are its
+outputs equal, and how long does a launch take?
 
     python tools/beam_opt_dd_ab.py run --tree DIR --out PREFIX [--layout L]
                                        [--kernel K]
@@ -23,26 +24,34 @@ and #8.  With ``analysis`` it runs ``beam_analysis`` (refine 1) on phases
 float64 version beside plain float32's, and at refine 0 and 2 on phase 3's,
 and hashes #2, #3, #7 and #8; with
 ``analysis_dd`` it runs ``beam_analysis_dd`` on phases 3b and 4c's inputs
-and hashes #1, #2, #3 and #8.  It writes the outputs to PREFIX.npz and, to
+and hashes #1, #2, #3 and #8; with ``solve`` it runs ``beam_solve`` on
+phase 3c's inputs (fixed bridge at n = 101 and 201, random bridge at n =
+51, 101 and 201, a right-hand side with an axial component) at refine 0, 1
+and 2, with each lane's error to the plain float64 version beside plain
+float32's at refine 1, and hashes #1, #2, #7 and #8.  It writes the outputs to PREFIX.npz and, to
 PREFIX.json, a SHA-256 of each and of the other kernels' outputs, then
 CUDA-event medians of 20 launches of the kernel's wrapper and of its
 launcher alone at B = 256, 2048, 8192 and 16384, n = 101 and 201 (for #2
-in both modes; the launcher of #2 and #1 also at refine 0, 1 and 2 at B =
-256 and 16384, n = 101).  ``--layout`` names the checkout's launch
+in both modes; #3 also at n = 51; the launcher of #2, #1 and #3 also at
+refine 0, 1 and 2 at B = 256 and 16384, n = 101; with ``solve`` also the
+analysis gradient #3 serves, ``beam_analysis`` forward and backward on
+16384 lanes of chip_smoke.py phase 4d's inputs).  ``--layout`` names the checkout's launch
 contract: ``lanes_first`` (the launcher takes the callers' tensors as they
 are) or ``lanes_last`` (the launcher takes lane-innermost copies, as before
 the redesign).
 
 ``compare`` reports, per output, whether the two runs are bitwise equal
 (else their largest difference, absolute and in float32 units in the last
-place; for #2 and #1 also each run's per-lane error to the plain float64
-version beside plain float32's; for a pivot the lanes whose validity at
-1e-9 flips), whether the other kernels hashed the same, and the two runs'
-times side by side.  It exits 1 when a hash differs, and besides: for #8
-unless I, mu, nu and the pivot are bitwise equal; for #7 unless the pivot
-is and u, V, M are within 1 ulp; for #1 if a lane's validity flips.  #2
-and #1 are held to float32 rounding, not bits (their ulp distance is
-reported).  One process per checkout: both trees hold a package of the
+place, and the entries that differ only in the sign of a zero; for #2, #1
+and #3 also each run's per-lane error to the plain float64 version beside
+plain float32's; for a pivot the lanes whose validity at 1e-9 flips),
+whether the other kernels hashed the same, and the two runs' times side by
+side.  It exits 1 when a hash differs, and besides: for #8 unless I, mu, nu
+and the pivot are bitwise equal; for #7 unless the pivot is and u, V, M are
+within 1 ulp; for #1 if a lane's validity flips; for #3 unless x and the
+pivot are equal in value (a zero's sign aside, NaN where the other has
+NaN) and no lane's validity flips.  #2 and #1 are held to float32
+rounding, not bits (their ulp distance is reported).  One process per checkout: both trees hold a package of the
 same name.
 """
 
@@ -61,13 +70,22 @@ ANA_FIELDS = ("u", "V", "M", "pivot")
 # per kernel: the outputs held bitwise, and the ulps the others may differ
 # by (None: reported, not held)
 EXACT = {"opt_dd": ("I", "mu", "nu", "pivot"), "opt": (), "analysis": (),
-         "analysis_dd": ("pivot",)}
+         "analysis_dd": ("pivot",), "solve": ()}
+# per kernel: the outputs held equal in value, a zero's sign aside
+VALUE_EQUAL = {"solve": ("x", "pivot")}
 ULP_LIMIT = {"analysis_dd": 1}
 PIVOT_TOL = 1e-9     # the datagen's validity gate
 SWEEP_B = (256, 2048, 8192, 16384)
 SWEEP_N = (101, 201)
 MODES = ("semi", "adjoint")
-TAG = {"opt_dd": "#8", "opt": "#2", "analysis": "#1", "analysis_dd": "#7"}
+TAG = {"opt_dd": "#8", "opt": "#2", "analysis": "#1", "analysis_dd": "#7",
+       "solve": "#3"}
+# chip_smoke.py phase 3c's meshes and bridges for #3 (51: random bridge
+# only) and the meshes #3 is timed at
+SOLVE_CASES = (("fixed", 101), ("fixed", 201), ("random", 51),
+               ("random", 101), ("random", 201))
+SOLVE_N = (51, 101, 201)
+SOLVE_KEYS = ("I", "Le", "free", "rhs")
 
 
 def _sha(t) -> str:
@@ -130,6 +148,13 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
                               seed + 5, lanes, dev,
                               cfg=ScenarioConfig(num_nodes=201))  # phase 4c
 
+    def split(bridge, n, lanes):
+        # chip_smoke.py phase 3c's inputs (its seed for the mesh)
+        return cs.split_inputs(torch, sample_scenarios, constraint_mask,
+                               assemble_beam_system, seed + 10 + n, lanes, n,
+                               rb_cfg if bridge == "random" else
+                               ScenarioConfig(), E, A, dev)
+
     def opt_step(x, mode):
         return tk.beam_opt_step(*(x[k] for k in opt_keys), *scalars, E, A, G,
                                 grad_semi=mode == "semi", refine=1)
@@ -181,6 +206,24 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
                                             r)
                     for f, t in zip(ANA_FIELDS, outs):
                         arrays[f"{case}.refine{r}.{f}"] = t.cpu().numpy()
+    if kernel == "solve":
+        # #3 on phase 3c's inputs at each refinement count, beside the
+        # plain versions at refine 1
+        for bridge, n in SOLVE_CASES:
+            x = split(bridge, n, B)
+            sv = [x[k] for k in SOLVE_KEYS]
+            case = f"{bridge}{n}"
+            for r in (0, 1, 2):
+                outs = tk.beam_solve(*sv, E, A, r)
+                for f, t in zip(("x", "pivot"), outs):
+                    arrays[f"{case}.refine{r}.{f}"] = t.cpu().numpy()
+                if r == 1:
+                    plain = [tk.beam_solve_reference(
+                        *(t.to(dt) for t in sv), E, A, 1)
+                        for dt in (torch.float32, torch.float64)]
+                    keep_errors((case, ("x",)), outs[:1],
+                                [p[:1] for p in plain])
+            del x, sv
     # the float32 beam kernels, on phase 3's, 4c's and 3c's inputs
     for case in ("fixed101", "fixed201"):
         x = inputs(case, B)
@@ -210,8 +253,22 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
         return ([lanes_last(t) for t in opt[:-1]] + [opt[-1]]
                 if layout == "lanes_last" else opt)
 
-    for n in SWEEP_N:
+    def copies_all(ts):
+        return [lanes_last(t) for t in ts] if layout == "lanes_last" else ts
+
+    for n in SOLVE_N if kernel == "solve" else SWEEP_N:
         for lanes in SWEEP_B:
+            if kernel == "solve":
+                x = split("random" if n < 100 else "fixed", n, lanes)
+                sv = [x[k] for k in SOLVE_KEYS]
+                sv_t = copies_all(sv)
+                result["times"][f"n={n} B={lanes}"] = dict(
+                    wrapper=cs.time_ms(torch, lambda: tk.beam_solve(
+                        *sv, E, A, 1), 20),
+                    kernel=cs.time_ms(torch, lambda: tk.launch_beam_solve(
+                        *sv_t, E, A, 1), 20))
+                del x, sv, sv_t
+                continue
             if kernel in ("analysis", "analysis_dd"):
                 x = inputs("fixed201" if n == 201 else "rb101"
                            if kernel == "analysis_dd" else "fixed101",
@@ -258,6 +315,30 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
             result["times"][f"n=101 B={lanes} by refine"] = [
                 cs.time_ms(torch, lambda: tk.launch_beam_analysis(
                     *ana_t, E, A, r), 20) for r in (0, 1, 2)]
+    if kernel == "solve":
+        # what a refinement (a forward and a back sweep) costs: the kernel
+        # alone at refine 0, 1, 2
+        for lanes in (256, 16384):
+            sv_t = copies_all([split("fixed", 101, lanes)[k]
+                               for k in SOLVE_KEYS])
+            result["times"][f"n=101 B={lanes} by refine"] = [
+                cs.time_ms(torch, lambda: tk.launch_beam_solve(
+                    *sv_t, E, A, r), 20) for r in (0, 1, 2)]
+        # the analysis gradient #3 serves (chip_smoke.py phase 4d's inputs
+        # and loss): beam_analysis forward (#1) and backward (#3), whole
+        xg = cs.make_inputs(torch, sample_scenarios, constraint_mask,
+                            seed + 9, B, dev)
+        I_g, loads_g, udl_g = (xg[k].clone().requires_grad_(True)
+                               for k in ("I", "loads", "udl"))
+
+        def gradient():
+            out = tk.beam_analysis(I_g, xg["Le"], xg["free"], loads_g, udl_g,
+                                   E, A, 1)
+            return torch.autograd.grad(cs.analysis_loss(*out[:3]),
+                                       (I_g, loads_g, udl_g))
+
+        result["times"][f"analysis gradient n=101 B={B}"] = dict(
+            wall=cs.time_ms(torch, gradient, 20))
     if kernel == "opt":
         # what a refinement (a forward and a back sweep) costs: the kernel
         # alone at refine 0, 1, 2
@@ -288,10 +369,12 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> int:
 
 def compare_dumps(a: Path, b: Path) -> dict:
     """Per output: bitwise equality, largest |difference| and ULP distance,
-    for a pivot the lanes whose validity at PIVOT_TOL flips; per hash of
-    another kernel: equality.  ``equal`` is True when every hash agrees,
-    every exact output is bitwise equal, every other output is within the
-    kernel's ULP_LIMIT, and (#1) no lane's validity flips."""
+    the entries equal in value that differ in the sign of a zero, for a
+    pivot the lanes whose validity at PIVOT_TOL flips; per hash of another
+    kernel: equality.  ``equal`` is True when every hash agrees, every
+    exact output is bitwise equal, every output held in value is equal in
+    value, every other output is within the kernel's ULP_LIMIT, and (#1,
+    #3) no lane's validity flips."""
     ja, jb = (json.loads(p.with_suffix(".json").read_text()) for p in (a, b))
     na, nb = (np.load(p.with_suffix(".npz")) for p in (a, b))
     kernel = ja.get("kernel", "opt_dd")
@@ -305,7 +388,16 @@ def compare_dumps(a: Path, b: Path) -> dict:
         diff[np.isnan(x) & np.isnan(y)] = 0.0
         scale = np.abs(y.astype(np.float64)).max() if y.size else 0.0
         field = key.split(".")[-1]
-        rows[key] = dict(bitwise=same, max_abs=float(np.nanmax(diff))
+        both_nan = np.isnan(x) & np.isnan(y) if x.shape == y.shape else None
+        value_equal = x.shape == y.shape and bool(
+            ((x == y) | both_nan).all())
+        signed_zeros = int(((x == y) & (x == 0) & (np.signbit(x)
+                                                   != np.signbit(y))).sum()
+                           ) if x.shape == y.shape else 0
+        rows[key] = dict(bitwise=same, value_equal=value_equal,
+                         signed_zeros=signed_zeros,
+                         held_value=field in VALUE_EQUAL.get(kernel, ()),
+                         max_abs=float(np.nanmax(diff))
                          if diff.size else 0.0,
                          max_rel=float(np.nanmax(diff) / scale)
                          if scale > 0 else 0.0,
@@ -319,9 +411,11 @@ def compare_dumps(a: Path, b: Path) -> dict:
     hashes = {k: v == jb["hashes"].get(k)
               for k, v in ja["hashes"].items() if not k.startswith(tag)}
     equal = (all(r["bitwise"] for r in rows.values() if r["exact"])
+             and all(r["value_equal"] for r in rows.values()
+                     if r["held_value"])
              and all(r["max_ulps"] <= r["held_ulps"] for r in rows.values()
                      if r["held_ulps"] is not None)
-             and (kernel != "analysis"
+             and (kernel not in ("analysis", "solve")
                   or all(r.get("flips", 0) == 0 for r in rows.values()))
              and all(hashes.values()) and set(na.files) == set(nb.files))
     errors = {k: (v, jb.get("errors", {}).get(k, [float("nan")] * 4))
@@ -335,13 +429,17 @@ def compare(a: Path, b: Path) -> int:
     r = compare_dumps(a, b)
     tag = TAG[r["kernel"]]
     for key, row in r["outputs"].items():
-        held = ("" if row["exact"] else " (held to rounding, not bits)"
+        held = ("" if row["exact"] else " (held in value)"
+                if row["held_value"] else " (held to rounding, not bits)"
                 if row["held_ulps"] is None else
                 f" (held to {row['held_ulps']} ulp)")
-        print(f"{tag} {key}: " + ("bitwise equal" if row["bitwise"] else
-                                  f"DIFFER max |a - b| {row['max_abs']:.3e} "
-                                  f"({row['max_rel']:.3e} of scale, "
-                                  f"{row['max_ulps']} ulp)") + held
+        print(f"{tag} {key}: " + (
+            "bitwise equal" if row["bitwise"] else
+            f"equal in value, {row['signed_zeros']} zeros of the other sign"
+            if row["value_equal"] else
+            f"DIFFER max |a - b| {row['max_abs']:.3e} ({row['max_rel']:.3e} "
+            f"of scale, {row['max_ulps']} ulp; {row['signed_zeros']} zeros "
+            "of the other sign)") + held
               + (f"; validity at {PIVOT_TOL:g} flips on {row['flips']} "
                  "lanes" if "flips" in row else ""))
     for k, same in r["hashes"].items():
@@ -356,11 +454,16 @@ def compare(a: Path, b: Path) -> int:
             print(f"{k} 0, 1, 2: " + " | ".join(
                 f"{a:.4f} / {b:.4f}" for a, b in zip(ta[k], tb.get(k, ()))))
             continue
+        if k.startswith("analysis gradient"):
+            print(f"{k}: wall (CUDA events, forward and backward) "
+                  f"{ta[k]['wall']:.4f} / "
+                  f"{tb.get(k, {}).get('wall', float('nan')):.4f} ms")
+            continue
         print(f"{k}: " + " | ".join(
             f"{f} {ta[k][f]:.4f} / {tb.get(k, {}).get(f, float('nan')):.4f}"
             for f in ("kernel", "wrapper")) + " ms")
-    print(("bitwise equal" if r["kernel"] == "opt_dd" else "hashes equal")
-          if r["equal"] else "outputs differ")
+    print({"opt_dd": "bitwise equal", "solve": "equal in value"}.get(
+        r["kernel"], "hashes equal") if r["equal"] else "outputs differ")
     return 0 if r["equal"] else 1
 
 
