@@ -37,13 +37,18 @@ Phases, each of which raises on failure (exit code not 0):
    the median and the 99th percentile, phase 3's rule; its worst lane is
    printed with its forward error and condition), with no more non-finite
    lanes; then, under torch.profiler, one call of each wrapper that
-   copies no layout (#1, #2, #3, #4, #6, #7, #8) launches its kernel and
-   no copy;
+   copies no layout (#1, #2, #3, #4, #6, #7, #8, #9) launches its kernel
+   and no copy, and one of the fused float64 route
+   ``solve_beam_dd_streamed`` launches #9's two sweeps and nothing else;
 3d. the streamed float64 solve (#9) against its plain version on the
    float64-assembled systems of phase 3b's 16384 random-bridge lanes plus
    the four quasi-cantilever lanes (n = 101) and of 16384 span-scaled
    tail-overhang lanes at n = 1001: per-lane error no more than 1e-5 of
-   the lane's scale, pivots within a relative 1e-3 (phase 3b's rule);
+   the lane's scale, pivots within a relative 1e-3 (phase 3b's rule); on
+   the same lanes the fused route ``solve_beam_dd_streamed`` (#9's sweeps
+   assembling the system themselves) against its plain version, u within
+   1e-5 of the lane's scale and pivots within a relative 1e-6, its lanes
+   bitwise equal to the unfused route (assembly, then #9) counted;
 4. the main path: ``generate_dataset`` (DATAGEN_OPT, refine 1, lane
    compaction) over two 16384-lane fixed-bridge batches, the 13-key JSON
    written and read back, both kernels launched and no plain version
@@ -79,8 +84,8 @@ Phases, each of which raises on failure (exit code not 0):
    lanes at n = 1001 (tests/test_block_stream_dd.py's family, past
    ``fem.accuracy.DD_STREAM_FROM_N``): every lane it certifies within 1e-4
    of the lane's scale of the plain float64 solve, the escalation through
-   the float64 analysis kernel below the threshold and the streamed
-   float64 kernel from it, no plain version and nothing on the host;
+   the float64 analysis kernel below the threshold and the fused streamed
+   float64 route (#9) from it, no plain version and nothing on the host;
 5. the whole optimizer on 512 lanes with the kernels, with the plain
    float32 path and with the plain float64 path: the kernel path's median
    per-lane loss gap to float64 no more than twice the plain float32
@@ -90,8 +95,8 @@ Phases, each of which raises on failure (exit code not 0):
    valid masks, equal epochs on the rescued lanes, I within 1e-3 relative
    (1e-7 absolute), deflections within 1e-3 of the lane's scale;
 6. times: CUDA events, median of 20 launches per kernel (wrapper, kernel
-   alone and, where the wrapper transposes, its layout copies; #1-#4 and
-   #6-#8 read lanes-first tensors and copy none), beside the plain
+   alone and, where the wrapper transposes, its layout copies; all but
+   #5 read lanes-first tensors and copy none), beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
    float64, H100 SXM); for #3 (the masked K(I) x = rhs), #4, #5 and #6
@@ -105,8 +110,8 @@ Phases, each of which raises on failure (exit code not 0):
    ``block_tridiag.uses_streamed`` picks;
    and solve_beam_checked's two escalation routes in turns on 16384
    fixed-span lanes at n = 201, 501, 1001 and 2001 (the float64 analysis
-   wrapper, #7, against the float64 assembly, layout and #9), with the
-   ``DD_STREAM_FROM_N`` they imply.
+   wrapper, #7, against the fused ``solve_beam_dd_streamed``, #9), each
+   route's peak device memory, and the ``DD_STREAM_FROM_N`` they imply.
 
 ``--quick`` stops after phase 3d.  Prints the card line, a JSON line of
 kernel results, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -138,7 +143,7 @@ SOURCE = {
     "block_tridiag_solve": CSRC + "block_resident.cu",
     "block_tridiag_solve_streamed": CSRC + "block_stream.cu",
     "block_tridiag_solve_bidi": CSRC + "block_tridiag.cu",
-    "solve_dd_streamed": CSRC + "block_tridiag.cu",
+    "solve_dd_streamed": CSRC + "block_stream_dd.cu",
 }
 REPLACES = {
     "beam_analysis": "openpystruct_tpu/ops/beam_kernel.py:751",
@@ -220,6 +225,11 @@ def flops_per_lane(n, refine, kind):
         return 192 * n
     if kind == "thomas_dd":
         return 194 * n
+    # #9's beam mode (the escalation route): the same solve, the row's
+    # assembly ~95 (element 15, node with its three scales 26, scaled
+    # blocks and right-hand side 54) and the unscaling 3
+    if kind == "route_dd":
+        return (194 + 95 + 3) * n
     # explicit-RHS 3-DOF solve (#3), per node, over the nonzeros of each
     # block (csrc/beam_kernel.cu): the first forward sweep 165 (the two
     # elements' stiffness 20, assembly 23, scales 6, scaled block and
@@ -253,6 +263,8 @@ def bytes_per_lane(n, kind):
         return 4 * (2 * nelem + 3 * n + 3 * n + 3 * n + 1)
     # I, Le, free (n, 3), loads (n), udl: float32 in every kernel
     inputs = 2 * nelem + 3 * n + n + 1
+    if kind == "route_dd":
+        return 4 * (inputs + 3 * n + 1)            # u, pivot
     if kind.startswith("analysis"):
         outputs = 3 * n + 2 * nelem + 1            # u, V, M, pivot
     else:
@@ -687,16 +699,35 @@ def beam_args(torch, constraint_mask, I, sc):
             (~constraint_mask(sc)).to(torch.float32), sc.point_loads, sc.udl)
 
 
+def max_ulps(torch, a, b):
+    """Largest distance between two float32 tensors in units in the last
+    place (NaN against NaN counts as equal)."""
+    ia, ib = (t.float().view(torch.int32).long() for t in (a, b))
+    ia = torch.where(ia < 0, -(2 ** 31) - ia, ia)
+    ib = torch.where(ib < 0, -(2 ** 31) - ib, ib)
+    d = (ia - ib).abs()
+    d[torch.isnan(a) & torch.isnan(b)] = 0
+    return int(d.max().item()) if d.numel() else 0
+
+
 def check_dd_streamed(torch, tsd, args, E, A, label, pivots_of=None):
-    """Kernel #9 (wrapper) against its plain version on the same float64
-    systems, assembled from ``args``: per-lane error of x no more than
-    DD_TOL of the lane's scale, pivots within a relative 1e-3.  With
-    ``pivots_of`` (the float64 analysis's pivots of the same lanes), their
-    ratio to #9's is printed.  Returns the max abs error and the per-lane
-    error's 99th percentile."""
-    sys_dd = tsd.assemble_beam_system_dd(*args, E, A)[:3]
-    kern = tsd.solve_dd_streamed(*sys_dd)
-    plain = tsd.thomas_dd_reference(*sys_dd)
+    """Kernel #9's system solve (the wrapper) against its plain version on
+    the float64 systems assembled from ``args``: per-lane error of x no more
+    than DD_TOL of the lane's scale, pivots within a relative 1e-3.  Then
+    the fused route ``solve_beam_dd_streamed`` on ``args`` against its plain
+    version (the same assembly and the plain solve): u within DD_TOL of the
+    lane's scale, pivots within a relative 1e-6; its lanes bitwise equal to
+    the unfused route (the assembly, then #9) are counted and the largest
+    gaps printed in ulps.  With ``pivots_of`` (the float64 analysis's pivots
+    of the same lanes), their ratio to #9's is printed.  Returns the max abs
+    error and the per-lane error's 99th percentile of both."""
+    diag, upper, f, s = tsd.assemble_beam_system_dd(*args, E, A)
+    kern = tsd.solve_dd_streamed(diag, upper, f)
+    plain = tsd.thomas_dd_reference(diag, upper, f)
+    fused = tsd.solve_beam_dd_streamed(*args, E, A)
+    unfused_u = (kern[0].to(s.dtype) * s).float()
+    plain_u = (plain[0].to(s.dtype) * s).float()
+    del diag, upper, f, s
     torch.cuda.synchronize()
     e = lane_errors(torch, kern[0], plain[0].double())
     ratio = kern[1].double() / plain[1].double()
@@ -710,6 +741,23 @@ def check_dd_streamed(torch, tsd, args, E, A, label, pivots_of=None):
                              f"{DD_TOL:.0e} of the lane's scale")
     if not ((ratio - 1.0).abs() <= 1e-3).all():
         raise AssertionError("#9 pivot off by more than 1e-3")
+    e_f = lane_errors(torch, fused[0], plain_u.double())
+    ratio_f = fused[1].double() / plain[1].double()
+    bits = lambda t: t.view(torch.int32).reshape(t.shape[0], -1)
+    same = ((bits(fused[0]) == bits(unfused_u)).all(1)
+            & (bits(fused[1][:, None]) == bits(kern[1][:, None])).all(1))
+    log(f"  fused route: u per-lane err p50 {e_f.quantile(0.5).item():.3e} "
+        f"p99 {e_f.quantile(0.99).item():.3e} max {e_f.max().item():.3e} | "
+        f"pivot ratio to plain min {ratio_f.min().item():.12f} max "
+        f"{ratio_f.max().item():.12f} | bitwise the unfused route on "
+        f"{int(same.sum())}/{same.numel()} lanes (max gap u "
+        f"{max_ulps(torch, fused[0], unfused_u)} ulp, pivot "
+        f"{max_ulps(torch, fused[1], kern[1])} ulp)")
+    if not e_f.max().item() <= DD_TOL:
+        raise AssertionError(f"fused #9 route: error {e_f.max().item():.3e} "
+                             f"exceeds {DD_TOL:.0e} of the lane's scale")
+    if not ((ratio_f - 1.0).abs() <= 1e-6).all():
+        raise AssertionError("fused #9 route: pivot off by more than 1e-6")
     if pivots_of is not None:
         r7 = pivots_of.double() / kern[1][-len(pivots_of):].double()
         log("  #7 pivot (a_axial |det2|) / #9 pivot (min |det S_i|) on the "
@@ -717,7 +765,10 @@ def check_dd_streamed(torch, tsd, args, E, A, label, pivots_of=None):
                                                    for r in r7.tolist()))
     return dict(abs=(kern[0].double() - plain[0].double()).abs().max()
                 .item(), rel_p99=e.quantile(0.99).item(),
-                plain32_rel_p99=None)
+                plain32_rel_p99=None,
+                fused_abs=(fused[0].double() - plain_u.double()).abs().max()
+                .item(), fused_rel_p99=e_f.quantile(0.99).item(),
+                fused_bitwise_lanes=int(same.sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -1024,7 +1075,8 @@ def main(argv=None) -> int:
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build(["beam_kernel", "block_tridiag", "block_resident",
-                          "block_stream", "beam_opt", "beam_opt_dd"])
+                          "block_stream", "block_stream_dd", "beam_opt",
+                          "beam_opt_dd"])
     log(f"phase 2: built {len(built)} libraries in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for info in built.values():
@@ -1155,16 +1207,14 @@ def main(argv=None) -> int:
                             [lanes_first(sys_t[2])]),
             plain=lambda: tbt.thomas_bidi_reference(*sys32), kind="thomas"),
     })
-    # #9 on the float64 systems of phase 3b's random-bridge lanes
+    # #9 on the float64 systems of phase 3b's random-bridge lanes, read as
+    # they lie
     sys_dd = tsd.assemble_beam_system_dd(*(rb_inputs[k] for k in ana_keys),
                                          E, A)[:3]
-    sys_dd_t = [lanes_last(x) for x in sys_dd]
-    x_dd_t = torch.empty_like(sys_dd_t[2], dtype=torch.float32)
     cases["solve_dd_streamed"] = dict(
         wrapper=lambda: tsd.solve_dd_streamed(*sys_dd),
-        kernel=lambda: tsd.launch_thomas_streamed_dd(*sys_dd_t),
-        layout=lambda: ([lanes_last(x) for x in sys_dd],
-                        [lanes_first(x_dd_t)]),
+        kernel=lambda: tsd.launch_thomas_streamed_dd(*sys_dd),
+        layout=None,
         plain=lambda: tsd.thomas_dd_reference(*sys_dd), kind="thomas_dd")
 
     # ---- phase 3c: what one call of each wrapper that copies no layout
@@ -1182,6 +1232,16 @@ def main(argv=None) -> int:
         if copies or not launched[name]:
             raise AssertionError(f"{name}'s wrapper launched "
                                  f"{copies or 'nothing the profiler saw'}")
+    # the fused float64 route: #9's two sweeps in their beam mode, nothing
+    # else (no float64 assembly, no copy)
+    fused_kernels = device_kernels(
+        torch, lambda: tsd.solve_beam_dd_streamed(*rb_ana, E, A))
+    log("phase 3c: one solve_beam_dd_streamed call launches "
+        + ", ".join(f"{k[:60]} x{v}" for k, v in fused_kernels.items()))
+    if (sum(fused_kernels.values()) != 2
+            or not all("stream_dd_" in k and ", true>" in k
+                       for k in fused_kernels)):
+        raise AssertionError(f"the fused #9 route launched {fused_kernels}")
 
     # ---- phase 3d: the streamed float64 solve against its plain version --
     qc_piv = tkd.beam_analysis_dd(*(qc[k] for k in ana_keys), E, A)[3]
@@ -1540,12 +1600,14 @@ def main(argv=None) -> int:
             raise AssertionError(f"a plain version ran: {plain}")
         if not sol.deflections.is_cuda or not used.is_cuda:
             raise AssertionError("solve_beam_checked left the card")
-        dd_kernel = ("solve_dd_streamed" if n_c >= tacc.DD_STREAM_FROM_N
-                     else "beam_analysis_dd")
-        other = ({"solve_dd_streamed", "beam_analysis_dd"} - {dd_kernel}).pop()
-        if used.any() and launches[dd_kernel] == 0 or launches[other] != 0:
+        dd_kernel = ("solve_beam_dd_streamed"
+                     if n_c >= tacc.DD_STREAM_FROM_N else "beam_analysis_dd")
+        others = {"solve_beam_dd_streamed", "beam_analysis_dd",
+                  "solve_dd_streamed"} - {dd_kernel}
+        if (used.any() and launches[dd_kernel] == 0
+                or any(launches[k] != 0 for k in others)):
             raise AssertionError(f"lanes escalated without {dd_kernel}, or "
-                                 f"through {other}: {launches}")
+                                 f"through {others}: {launches}")
         if label == "span-scaled overhang" and not used.any():
             raise AssertionError("the large mesh escalated no lane")
         for k, v in launches.items():
@@ -1659,7 +1721,7 @@ def main(argv=None) -> int:
             path_split["block_tridiag_solve_streamed"]
             + path_checked["block_tridiag_solve_streamed"]),
         block_tridiag_solve_bidi=path_bidi,
-        solve_dd_streamed=path_checked["solve_dd_streamed"])
+        solve_dd_streamed=path_checked["solve_beam_dd_streamed"])
     for k in ("block_tridiag_solve", "block_tridiag_solve_streamed",
               "block_tridiag_solve_bidi", "solve_dd_streamed"):
         if path_launches[k] == 0:
@@ -1738,10 +1800,16 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] == "solve_dd_streamed":
             k["rel_err_p99_n1001"] = errs_fine_dd["rel_p99"]
+            k["fused_route"] = {
+                f"{key}_{label}": e[key] for label, e in (
+                    ("n101", errs["solve_dd_streamed"]),
+                    (f"n{DD_CHECK_N}", errs_fine_dd))
+                for key in ("fused_abs", "fused_rel_p99",
+                            "fused_bitwise_lanes")}
         if k["name"] == "beam_solve":
             k["worst_lane_n51"] = errs_split[(51, "random bridge")][
                 "beam_solve"].get("worst_lane")
-    del sys_dd, sys_dd_t, x_dd_t
+    del sys_dd
 
     # #4 against #6 in turns #4, #6, #6, #4 by mesh and lane count: the
     # launchers and the wrappers block_tridiag_solve reaches, each x
@@ -1820,25 +1888,35 @@ def main(argv=None) -> int:
             k[f"library_ms_n{min(TURN_NS)}"] = lib_small
 
     # solve_beam_checked's escalation routes, each whole: the float64
-    # analysis wrapper (#7) against the float64 assembly, layout and #9;
-    # in turns #7, #9, #9, #7
+    # analysis wrapper (#7) against the fused streamed route (#9); in turns
+    # #7, #9, #9, #7, then each route's peak device memory over one call
     log(f"phase 6: escalation routes at B={BATCH} on fixed-span lanes, n in "
         f"{DD_ROUTE_NS}: beam_analysis_dd (#7) vs solve_beam_dd_streamed "
-        "(#9) (ms, mean of two medians of 5)")
-    route = {}
+        "(#9, fused) (ms, mean of two medians of 5)")
+    route, peak = {}, {}
     for n_r in DD_ROUTE_NS:
         args_r = beam_args(torch, constraint_mask, *fixed_span(
             torch, BeamScenario, n_r, BATCH, args.seed + 30 + n_r, dev))
         fns = (lambda: tkd.beam_analysis_dd(*args_r, E, A),
                lambda: tsd.solve_beam_dd_streamed(*args_r, E, A))
-        torch.cuda.reset_peak_memory_stats()
         turns = [time_ms(torch, fns[j], 5, warmup=1) for j in (0, 1, 1, 0)]
         route[n_r] = ((turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
+        peak[n_r] = []
+        for fn in fns:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak[n_r].append((torch.cuda.max_memory_allocated() - base)
+                             / 2**30)
         log(f"  n={n_r}: #7 route {route[n_r][0]:.3f} ms ({turns[0]:.3f}, "
             f"{turns[3]:.3f}) | #9 route {route[n_r][1]:.3f} ms "
             f"({turns[1]:.3f}, {turns[2]:.3f}) | #9/#7 "
-            f"{route[n_r][1] / route[n_r][0]:.3f} | peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            f"{route[n_r][1] / route[n_r][0]:.3f} | #9 route bound "
+            f"{1e3 * bound_ms(BATCH, n_r, 0, 'route_dd')[0]:.1f} us | peak "
+            f"device memory above the inputs #7 {peak[n_r][0]:.3f} GiB, #9 "
+            f"{peak[n_r][1]:.3f} GiB")
         del args_r, fns
         torch.cuda.empty_cache()
     implied_dd = min((k for k in DD_ROUTE_NS if route[k][1] <= route[k][0]),
@@ -1850,6 +1928,12 @@ def main(argv=None) -> int:
         if k["name"] in route_names:
             j = route_names.index(k["name"])
             k["route_ms_by_n"] = {str(n_r): v[j] for n_r, v in route.items()}
+            k["route_peak_gib_by_n"] = {str(n_r): v[j]
+                                        for n_r, v in peak.items()}
+        if k["name"] == "solve_dd_streamed":
+            k["route_bound_ms_by_n"] = {
+                str(n_r): bound_ms(BATCH, n_r, 0, "route_dd")[0]
+                for n_r in route}
     if read_counts(*mods)[0] == counts_before:
         raise AssertionError("timing loop launched nothing")
     log(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -11,7 +11,9 @@ from its last refinement correction, and re-solves the lanes that miss
 ``tol`` (or whose float32 Schur pivot looks singular) in float64: with
 ``beam_analysis_dd`` (the fused float64 analysis) below ``DD_STREAM_FROM_N``
 nodes and with ``solve_beam_dd_streamed`` (the streamed float64 solve) from
-there, as the JAX package escalates past its resident dd kernel's range.
+there.  The JAX package takes its streamed dd solve only past its resident
+dd kernel's range, from 788 nodes; the port's threshold is measured on the
+card (below).
 Each runs its kernel on the card and its plain float64 version for a CPU
 batch; neither leaves the batch's device.  It warns, or raises, for lanes
 not even float64 can certify.
@@ -61,14 +63,20 @@ _EPS_DD = 2.0 ** -48
 _SINGULAR_PIVOT = 1e-12
 
 # Meshes of this many nodes or more escalate through the streamed float64
-# solve (kernel #9), smaller ones through the fused float64 analysis (#7).
-# Set as block_tridiag.uses_streamed is, by measured turns: the smallest of
-# n = 201, 501, 1001, 2001 at which #9's whole route (float64 assembly,
-# layout, kernel) is no slower than #7's on 16384 lanes (chip_smoke.py
-# phase 6, PERF.md), or, slower at all four, the n from which the JAX
-# package escalates through its streamed dd kernel: pick_sub(n, 52) is None
-# from n = 788.
-DD_STREAM_FROM_N = 788
+# solve (kernel #9 in its beam mode: the assembly fused into its sweeps),
+# smaller ones through the fused float64 analysis (#7).  Set as
+# block_tridiag.uses_streamed is, by measured turns: the smallest of n =
+# 201, 501, 1001, 2001 at which #9's whole route is no slower than #7's on
+# 16384 fixed-span lanes in two runs on the card (chip_smoke.py phase 6,
+# PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), else the JAX package's own
+# point, 788 (pick_sub(n, 52) is None from there).  Route ms, #7 / #9, in
+# the two runs:
+#   n = 201:   0.576 / 0.438,  0.547 / 0.404
+#   n = 501:   1.291 / 0.991,  1.287 / 0.934
+#   n = 1001:  2.431 / 1.843,  2.411 / 1.827
+#   n = 2001:  4.715 / 3.655,  4.753 / 3.620
+# #9's route takes 0.72-0.78x #7's at every n.
+DD_STREAM_FROM_N = 201
 
 
 def auto_refine(n_nodes: int) -> int:

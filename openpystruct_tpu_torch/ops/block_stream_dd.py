@@ -4,7 +4,12 @@ package's ``ops/block_stream_dd.py``).
 The JAX package reaches double-double accuracy past its resident dd
 kernel's VMEM range with the streamed block-Thomas solve of
 ``ops/block_stream.py`` carried in float32 hi/lo pairs.  The H100 has
-native FP64, so here the same two sweeps run in float64:
+native FP64, so here the same two sweeps run in float64 (kernel #9,
+``csrc/block_stream_dd.cu``, the design of #6's ``csrc/block_stream.cu``:
+per block of 4-32 lanes one chain warp runs the recurrence while other
+warps stage each lane's rows a tile ahead in shared memory, C and y go
+through a private lanes-innermost workspace, and the I/O is lanes-first
+with no layout copy):
 
 - ``assemble_beam_system_dd`` (the JAX module's XLA pipeline, not a kernel):
   the full 3x3 beam assembly with the axial DOF, row and column masking
@@ -12,45 +17,67 @@ native FP64, so here the same two sweeps run in float64:
   float64 PyTorch.  The scale ``s`` stays float64.
 - ``solve_dd_streamed`` (``pallas_solve_dd_streamed``, kernels
   ``_fwd_kernel_dd`` and ``_bwd_kernel_dd``): a forward sweep writing the
-  float64 multipliers C and forward solution y of every lane to device
-  memory and keeping the lane's min |det S_i| (the Schur-pivot
+  float64 multipliers C and forward solution y of every lane to the
+  workspace and keeping the lane's min |det S_i| (the Schur-pivot
   diagnostic), and a backward sweep carrying x in float64 and writing it
   as float32.  float32 out, float64 inside: the JAX contract.
-- ``solve_beam_dd_streamed``: the two together, ``(u, pivot)``, the role
-  ``fem.accuracy.solve_beam_checked`` escalates large meshes to.
+- ``solve_beam_dd_streamed``: the assembly and the solve, ``(u, pivot)``,
+  the role ``fem.accuracy.solve_beam_checked`` escalates large meshes to.
+  On the card it is one forward and one backward launch of the same pair
+  in its beam mode: helper warps assemble each row in float64 from the
+  callers' float32 inputs, one rounding per op of
+  ``assemble_beam_system_dd``, and the backward sweep writes u = x s.
 
-``solve_dd_streamed`` sends a CPU tensor to the plain version
-(``thomas_dd_reference``, the block-Thomas recurrence of
-``ops/block_tridiag.py`` in float64 with the pivot) and launches the CUDA
-kernels (``csrc/block_tridiag.cu``) on CUDA float64 systems, or raises.
-``LAUNCHES`` counts solves (one forward and one backward launch each) and
-``PLAIN_CALLS`` the calls sent to the plain version.  The TPU kernels' node
-chunks and identity-padded rows and lanes existed for VMEM and have no
-counterpart: one thread walks all rows of its lane.
+A CPU tensor runs the plain version (``assemble_beam_system_dd`` and
+``thomas_dd_reference``, the block-Thomas recurrence of
+``ops/block_tridiag.py`` in float64 with the pivot); a CUDA tensor launches
+the kernels, which take contiguous tensors as they lie, or raises: there is
+no fallback.  ``LAUNCHES`` counts solves (one forward and one backward
+launch each) by route, ``solve_dd_streamed`` the direct system solves and
+``solve_beam_dd_streamed`` the beam solves; ``PLAIN_CALLS`` the calls sent
+to the plain version.  The TPU kernels' node chunks and identity-padded
+rows and lanes existed for VMEM and have no counterpart.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from openpystruct_tpu_torch.ops import _build
+from openpystruct_tpu_torch.ops.beam_kernel import _check_lanes_first
 from openpystruct_tpu_torch.ops.block_tridiag import (
-    _lib,
-    check_system,
-    lanes_first,
-    lanes_last,
+    check_lanes_first,
     thomas_backward_reference,
     thomas_forward_reference,
 )
 
-LAUNCHES = {"solve_dd_streamed": 0}
-PLAIN_CALLS = {"solve_dd_streamed": 0}
+LAUNCHES = {"solve_dd_streamed": 0, "solve_beam_dd_streamed": 0}
+PLAIN_CALLS = {"solve_dd_streamed": 0, "solve_beam_dd_streamed": 0}
 
 
 def reset_counts() -> None:
     for counts in (LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The library of kernel #9 (``csrc/block_stream_dd.cu``)."""
+    lib = _build.load("block_stream_dd")
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.thomas_streamed_dd_f64.argtypes = [P] * 6 + [I] * 2 + [P]
+    lib.beam_streamed_dd_f64.argtypes = ([P] * 5 + [D] * 2 + [P] * 3
+                                         + [I] * 2 + [P])
+    lib.stream_dd_ws_per_row.argtypes = [I]
+    for fn in (lib.thomas_streamed_dd_f64, lib.beam_streamed_dd_f64,
+               lib.stream_dd_ws_per_row):
+        fn.restype = I
+    return lib
 
 
 def assemble_beam_system_dd(I, Le, free, point_loads, udl, E: float,
@@ -132,28 +159,63 @@ def thomas_dd_reference(diag, upper, b):
     return thomas_backward_reference(c, y).float(), piv.float()
 
 
-def launch_thomas_streamed_dd(diag_t, upper_t, b_t):
+def _workspace(lib, beam, B, n, dev):
+    """The sweeps' private float64 workspace: C and y (and in the beam mode
+    s) of every row, for lanes padded to whole 32-lane blocks."""
+    per_row = lib.stream_dd_ws_per_row(int(beam))
+    return torch.empty(-(-B // 32) * 32 * n * per_row, dtype=torch.float64,
+                       device=dev)
+
+
+def _run(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def launch_thomas_streamed_dd(diag, upper, b):
     """Launch the float64 forward and backward sweeps (kernel #9) on
-    lane-innermost float64 systems, contiguous on one card: diag_t (n, 3,
-    3, B), upper_t (n-1, 3, 3, B), b_t (n, 3, B).  Returns x_t (n, 3, B) and
-    the pivot (B,), float32."""
-    n, B = b_t.shape[0], b_t.shape[-1]
-    dev = b_t.device
-    c = torch.empty((n, 3, 3, B), dtype=torch.float64, device=dev)
-    y = torch.empty((n, 3, B), dtype=torch.float64, device=dev)
-    x = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
+    lanes-first float64 systems as they lie: diag (B, n, 3, 3), upper (B,
+    n-1, 3, 3), b (B, n, 3), contiguous on one card
+    (``block_tridiag.check_lanes_first``, before any build).  Returns x (B,
+    n, 3) and the pivot (B,), float32."""
+    B, n = check_lanes_first(diag, upper, b, dtype=torch.float64)
+    dev = b.device
+    lib = _lib()
+    ws = _workspace(lib, False, B, n, dev)
+    x = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
     piv = torch.empty((B,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().thomas_streamed_dd_f64(
-            diag_t.data_ptr(), upper_t.data_ptr(), b_t.data_ptr(),
-            c.data_ptr(), y.data_ptr(), x.data_ptr(), piv.data_ptr(), B, n,
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"solve_dd_streamed launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES["solve_dd_streamed"] += 1
+        rc = lib.thomas_streamed_dd_f64(
+            diag.data_ptr(), upper.data_ptr(), b.data_ptr(), ws.data_ptr(),
+            x.data_ptr(), piv.data_ptr(), B, n, stream)
+    _run(rc, "solve_dd_streamed")
     return x, piv
+
+
+def launch_beam_streamed_dd(I, Le, free_mask, point_loads, udl, E, A):
+    """Launch kernel #9's sweeps in their beam mode on the callers'
+    lanes-first float32 inputs as they lie (``beam_kernel._check_lanes_first``,
+    before any build): I, Le (B, n-1), free_mask (B, n, 3), point_loads (B,
+    n), udl (B,).  Returns u (B, n, 3) and the pivot (B,), float32."""
+    _check_lanes_first("solve_beam_dd_streamed", I, Le, free_mask,
+                       point_loads, udl)
+    B, nelem = I.shape
+    n = nelem + 1
+    dev = I.device
+    lib = _lib()
+    ws = _workspace(lib, True, B, n, dev)
+    u = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
+    piv = torch.empty((B,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.beam_streamed_dd_f64(
+            I.data_ptr(), Le.data_ptr(), free_mask.data_ptr(),
+            point_loads.data_ptr(), udl.data_ptr(), float(E), float(E * A),
+            ws.data_ptr(), u.data_ptr(), piv.data_ptr(), B, n, stream)
+    _run(rc, "solve_beam_dd_streamed")
+    return u, piv
 
 
 def solve_dd_streamed(diag, upper, b):
@@ -161,14 +223,12 @@ def solve_dd_streamed(diag, upper, b):
     systems of any length (``pallas_solve_dd_streamed``): diag (B, n, 3,
     3), upper (B, n-1, 3, 3), b (B, n, 3), float64.  Returns ``(x,
     pivot)``: x (B, n, 3) and min |det S_i| (B,), float32.  CPU tensors run
-    the plain version; CUDA tensors (float64) launch the kernels."""
+    the plain version; CUDA tensors (float64, contiguous) launch the
+    kernels, with no layout copy."""
     if not diag.is_cuda:
         PLAIN_CALLS["solve_dd_streamed"] += 1
         return thomas_dd_reference(diag, upper, b)
-    check_system(diag, upper, b, dtype=torch.float64)
-    x, piv = launch_thomas_streamed_dd(lanes_last(diag), lanes_last(upper),
-                                       lanes_last(b))
-    return lanes_first(x), piv
+    return launch_thomas_streamed_dd(diag, upper, b)
 
 
 def solve_beam_dd_streamed(I, Le, free_mask, point_loads, udl, E: float,
@@ -177,8 +237,14 @@ def solve_beam_dd_streamed(I, Le, free_mask, point_loads, udl, E: float,
     assembly, then the streamed float64 solve.  ``free_mask`` is the (B, n,
     3) free-DOF mask (True or 1 = free), ``~constraint_mask(scenario)``.
     Returns ``(u, pivot)``: displacements (B, n, 3) and the float64 min
-    Schur pivot of the scaled system (B,), in I's dtype."""
+    Schur pivot of the scaled system (B,), in I's dtype.  CPU tensors run
+    the plain version; CUDA tensors (float32, contiguous) launch the fused
+    route, two launches and no assembled system in device memory."""
+    if I.is_cuda:
+        return launch_beam_streamed_dd(I, Le, free_mask, point_loads, udl,
+                                       E, A)
+    PLAIN_CALLS["solve_beam_dd_streamed"] += 1
     diag, upper, f, s = assemble_beam_system_dd(I, Le, free_mask,
                                                 point_loads, udl, E, A)
-    x, piv = solve_dd_streamed(diag, upper, f)
+    x, piv = thomas_dd_reference(diag, upper, f)
     return (x.to(s.dtype) * s).to(I.dtype), piv.to(I.dtype)

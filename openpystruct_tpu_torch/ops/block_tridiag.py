@@ -217,12 +217,10 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The library of kernels #5 and #9 (``csrc/block_tridiag.cu``)."""
+    """The library of kernel #5 (``csrc/block_tridiag.cu``)."""
     lib = _build.load("block_tridiag")
     lib.thomas_bidi_f32.argtypes = [_P] * 5 + [_I] * 2 + [_P]
-    lib.thomas_streamed_dd_f64.argtypes = [_P] * 7 + [_I] * 2 + [_P]
-    for fn in (lib.thomas_bidi_f32, lib.thomas_streamed_dd_f64):
-        fn.restype = _I
+    lib.thomas_bidi_f32.restype = _I
     return lib
 
 
@@ -258,11 +256,12 @@ def check_system(diag, upper, b, dtype=torch.float32):
     return B, n
 
 
-def check_lanes_first(diag, upper, b):
-    """Raise unless (diag, upper, b) are contiguous float32 (B, n, 3, 3),
-    (B, n-1, 3, 3), (B, n, 3) on one CUDA device: kernels #4 and #6 read
-    them as they lie and copy none.  Returns (B, n)."""
-    B, n = check_system(diag, upper, b)
+def check_lanes_first(diag, upper, b, dtype=torch.float32):
+    """Raise unless (diag, upper, b) are contiguous ``dtype`` (B, n, 3, 3),
+    (B, n-1, 3, 3), (B, n, 3) on one CUDA device: kernels #4 and #6
+    (float32) and #9 (float64) read them as they lie and copy none.
+    Returns (B, n)."""
+    B, n = check_system(diag, upper, b, dtype)
     for name, t in (("diag", diag), ("upper", upper), ("b", b)):
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous: the kernel reads the "

@@ -6,7 +6,8 @@ package's, on the CPU, with the JAX Pallas solves in interpret mode.
 - float32 fixed-span meshes (n = 201, the tests/test_accuracy.py family,
   cond ~ n^4): both sides escalate the same lanes, and both land within
   1e-4 of the float64 solve.  The escalated lanes are the port's float64
-  plain analysis against the JAX double-double kernel, both rounded to
+  plain route for n = 201 (the streamed solve from ``DD_STREAM_FROM_N``,
+  else the analysis) against the JAX double-double kernel, both rounded to
   float32: they agree to 1e-6 of scale, and their pivots to 5e-3 relative
   (the JAX kernel's axial chain is float32);
 - a float32 batch of which only some lanes escalate (n = 101): the same
@@ -32,6 +33,7 @@ from openpystruct_tpu_torch.fem import accuracy as tacc
 from openpystruct_tpu_torch.fem import auto_refine, solve_beam_checked
 from openpystruct_tpu_torch.interop import scenario_from_numpy
 from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
+from openpystruct_tpu_torch.ops import block_stream_dd as tsd
 from openpystruct_tpu_torch.ops import block_tridiag as tbt
 
 E, A = 200e9, 0.01
@@ -117,10 +119,16 @@ def test_checked_escalates_like_jax_at_n201():
         jsol, jinfo = j_solve_beam_checked(I, scs, E, A, tol=1e-4)
         It, sc = _torch_case(scs, I, torch.float32)
         tkd.reset_counts()
+        tsd.reset_counts()
         tsol, tinfo = solve_beam_checked(It, sc, E, A, tol=1e-4)
-    # the escalation ran the float64 analysis (its plain version here)
-    assert tkd.PLAIN_CALLS["beam_analysis_dd"] == 1
+    # the escalation ran the float64 route the threshold names for n = 201
+    # (its plain version here): the streamed solve from DD_STREAM_FROM_N,
+    # the float64 analysis below it
+    streamed = 201 >= tacc.DD_STREAM_FROM_N
+    assert tkd.PLAIN_CALLS["beam_analysis_dd"] == int(not streamed)
+    assert tsd.PLAIN_CALLS["solve_beam_dd_streamed"] == int(streamed)
     tkd.reset_counts()
+    tsd.reset_counts()
     np.testing.assert_array_equal(tinfo["used_dd"].numpy(), jinfo["used_dd"])
     assert tinfo["used_dd"].all()
     d64 = _f64_deflections(scs, I)

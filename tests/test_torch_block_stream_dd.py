@@ -73,8 +73,10 @@ def _port_inputs(scen, I):
 def _port_streamed(scen, I):
     tsd.reset_counts()
     u, piv = tsd.solve_beam_dd_streamed(*_port_inputs(scen, I), E, A)
-    assert tsd.PLAIN_CALLS == {"solve_dd_streamed": 1}
-    assert tsd.LAUNCHES == {"solve_dd_streamed": 0}
+    assert tsd.PLAIN_CALLS == {"solve_dd_streamed": 0,
+                               "solve_beam_dd_streamed": 1}
+    assert tsd.LAUNCHES == {"solve_dd_streamed": 0,
+                            "solve_beam_dd_streamed": 0}
     tsd.reset_counts()
     assert u.dtype == torch.float32 and piv.dtype == torch.float32
     return u.numpy(), piv.numpy()
@@ -170,7 +172,8 @@ def test_checked_escalates_through_the_streamed_solve(monkeypatch):
         tsd.reset_counts()
         tkd.reset_counts()
         tsol, tinfo = solve_beam_checked(It, sc, E, A, tol=1e-4)
-    assert tsd.PLAIN_CALLS == {"solve_dd_streamed": 1}
+    assert tsd.PLAIN_CALLS == {"solve_dd_streamed": 0,
+                               "solve_beam_dd_streamed": 1}
     assert tkd.PLAIN_CALLS["beam_analysis_dd"] == 0
     tsd.reset_counts()
     used = tinfo["used_dd"].numpy()

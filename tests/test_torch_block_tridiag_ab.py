@@ -3,8 +3,8 @@
 The tool's ``run`` needs a CUDA card; ``compare`` reads two dumps (a JSON
 of hashes and times beside an npz of kernels #4's and #6's outputs) and
 decides whether two checkouts' block-Thomas kernels agree: #4, #5 and #9
-bit for bit, #4 and #6 reported as bitwise equal or by their gaps in
-float32 ulps.
+(its escalation route included) bit for bit, or but for the sign of zeros,
+#4 and #6 reported as bitwise equal or by their gaps in float32 ulps.
 """
 
 import importlib.util
@@ -107,3 +107,48 @@ def test_compare_four(tmp_path, case, capsys):
     assert ("lane-innermost copies of the / the lanes-first" in out) == (
         case == "lanes_last parent")
     assert "device us kernel 15.2 / 15.2" in out
+
+
+@pytest.mark.parametrize("case", ["equal", "sign of zeros", "differs"])
+def test_compare_nine(tmp_path, case, capsys):
+    """#9's hashes, the route's included: a raw hash off while the one with
+    -0 made +0 agrees is reported as ±0 and held equal; both off make the
+    trees differ.  The route's times print beside #9's kernel and wrapper
+    times, and each tree's #9 launcher contract is named."""
+    tool = _tool()
+    x = np.zeros((2, 3, 3), np.float32)
+    keys = ("#9 overhang, n=1001 x", "#9 route overhang, n=1001 u")
+    times = {"#9 n=101 B=512": dict(kernel=0.05, wrapper=0.06,
+                                    device_us=dict(fwd=30.5, bwd=12.0)),
+             "#9 route n=101 B=512": dict(route=0.07,
+                                          device_us=dict(kernel=55.5))}
+    for prefix, dd_layout in ((tmp_path / "a", "lanes_last"),
+                              (tmp_path / "b", "lanes_first")):
+        off = prefix.name == "b" and case != "equal"
+        hashes = {k: "h" + k for k in keys}
+        pm0 = {k: "p" + k for k in keys}
+        if off:
+            hashes[keys[1]] = "other"
+            if case == "differs":
+                pm0[keys[1]] = "other"
+        np.savez(prefix.with_suffix(".npz"), **{"fixed bridge, n=101": x})
+        prefix.with_suffix(".json").write_text(json.dumps(dict(
+            layout="lanes_first", dd_layout=dd_layout, hashes=hashes,
+            hashes_pm0=pm0, errors={}, times=times)))
+    r = tool.compare_dumps(tmp_path / "a", tmp_path / "b")
+    assert r["hashes"][keys[0]] == "equal"
+    assert r["hashes"][keys[1]] == {"equal": "equal", "sign of zeros": "±0",
+                                    "differs": "differ"}[case]
+    assert r["equal"] == (case != "differs")
+    assert tool.compare(tmp_path / "a", tmp_path / "b") == (
+        1 if case == "differs" else 0)
+    out = capsys.readouterr().out
+    assert ("equal but for the sign of zeros (±0)" in out) == (
+        case == "sign of zeros")
+    assert ("(1 up to ±0)" in out) == (case == "sign of zeros")
+    assert ("route overhang, n=1001 u: DIFFER" in out) == (case == "differs")
+    assert "#9 launcher takes lane-innermost copies of the / the lanes-first" \
+        in out
+    assert "#9 route n=101 B=512: route 0.0700 / 0.0700 ms" in out
+    assert "#9 n=101 B=512: kernel 0.0500 / 0.0500 | wrapper 0.0600" in out
+    assert "device us kernel 55.5 / 55.5" in out

@@ -985,13 +985,69 @@ def test_streamed_dd_kernel(cuda, B):
         tsd.solve_dd_streamed(*(t.float() for t in sys_dd))
 
 
+def _dd_routes(beam):
+    """The streamed float64 beam solve of the (I, Le, free, loads, udl)
+    float32 lanes ``beam`` three ways: the fused route (#9's beam mode),
+    the unfused one (float64 assembly, then #9's system solve) and the
+    plain version (the same assembly and the plain solve), each (u,
+    pivot); each route's launch counted once, no plain call."""
+    diag, upper, f, s = tsd.assemble_beam_system_dd(*beam, E, A)
+    tsd.reset_counts()
+    fused = tsd.solve_beam_dd_streamed(*beam, E, A)
+    assert tsd.LAUNCHES == {"solve_dd_streamed": 0,
+                            "solve_beam_dd_streamed": 1}
+    x, piv = tsd.solve_dd_streamed(diag, upper, f)
+    assert tsd.LAUNCHES == {"solve_dd_streamed": 1,
+                            "solve_beam_dd_streamed": 1}
+    assert not any(tsd.PLAIN_CALLS.values())
+    tsd.reset_counts()
+    xp, pp = tsd.thomas_dd_reference(diag, upper, f)
+    return (fused, ((x.to(s.dtype) * s).float(), piv),
+            ((xp.to(s.dtype) * s).float(), pp))
+
+
+def _hold_dd_route(fused, unfused, plain):
+    """The fused route bitwise the unfused one, and by phase 3d's rules
+    against the plain version: per-lane error within 1e-5 of the lane's
+    scale, pivots within a relative 1e-6."""
+    for k, p in zip(fused, plain):
+        assert k.dtype == torch.float32 and k.shape == p.shape
+        assert k.is_contiguous() and k.is_cuda
+    assert torch.equal(fused[0], unfused[0])
+    assert torch.equal(fused[1], unfused[1])
+    assert _lane_err(fused[0], plain[0]) <= 1e-5
+    assert ((fused[1].double() / plain[1].double() - 1).abs() <= 1e-6).all()
+
+
 @pytest.mark.cuda
-def test_solve_beam_checked_large_mesh_streams(cuda):
-    """A span-scaled mesh of DD_STREAM_FROM_N nodes (Le = 2 m, rollers
-    every 64 nodes, a 64 m tail overhang): the lanes escalate through the
-    streamed float64 kernel #9 on the card, not the fused one, and no
-    plain version runs."""
-    n, B = tacc.DD_STREAM_FROM_N, 64
+@pytest.mark.parametrize("n", [2, 3, 9, 101, 1001])
+@pytest.mark.parametrize("B", [1, 31, 33, 256, 16384])
+def test_streamed_dd_kernel_shapes(cuda, B, n):
+    """Kernel #9 on _beam_lanes' random-support beams assembled in
+    float64, at meshes shorter than one 8-row tile (n = 2, 3), across a
+    tile edge (9) and over many (101, 1001), one lane, ragged blocks (31,
+    33) and each lane count per block the launcher picks on an H100 (4 up
+    to 1056 lanes, 32 at 16384): the system solve against
+    thomas_dd_reference by phase 3d's rule (1e-5 of the lane's scale,
+    pivots within 1e-3), and the fused route by _hold_dd_route."""
+    args = _beam_lanes(B, n, 100 * n + B + 9, cuda)
+    beam = [args[i] for i in (0, 3, 4, 5, 6)]
+    fused, unfused, plain = _dd_routes(beam)
+    sys_dd = tsd.assemble_beam_system_dd(*beam, E, A)[:3]
+    x, piv = tsd.launch_thomas_streamed_dd(*sys_dd)
+    xp, pp = tsd.thomas_dd_reference(*sys_dd)
+    torch.cuda.synchronize()
+    assert x.shape == (B, n, 3) and piv.shape == (B,)
+    assert _lane_err(x, xp) <= 1e-5
+    assert ((piv.double() / pp.double() - 1).abs() <= 1e-3).all()
+    _hold_dd_route(fused, unfused, plain)
+
+
+def _overhang_lanes(B, n, seed, device):
+    """Span-scaled beams (Le = 2 m) pinned at node 0, rollers every 64
+    nodes from node 63 and a 64 m tail overhang, a point load near its end,
+    I = 0.05 U(0.8, 1.2): (I, Le, free, loads, udl), float32, and the
+    scenario."""
     roller = torch.zeros((B, n), dtype=torch.bool)
     roller[:, 63:n - 32:64] = True
     roller[:, n - 33] = True
@@ -1000,15 +1056,137 @@ def test_solve_beam_checked_large_mesh_streams(cuda):
     sc = BeamScenario(
         node_x=torch.linspace(0.0, 2.0 * (n - 1), n).repeat(B, 1),
         roller_mask=roller, point_loads=loads,
-        udl=torch.full((B,), -1000.0)).map(lambda t: t.to(cuda))
-    gen = torch.Generator().manual_seed(16)
-    I = (0.05 * (0.8 + 0.4 * torch.rand((B, n - 1), generator=gen))).to(cuda)
+        udl=torch.full((B,), -1000.0)).map(lambda t: t.to(device))
+    gen = torch.Generator().manual_seed(seed)
+    I = (0.05 * (0.8 + 0.4 * torch.rand((B, n - 1), generator=gen))).to(
+        device)
+    beam = (I, torch.diff(sc.node_x, dim=-1),
+            (~constraint_mask(sc)).float(), sc.point_loads, sc.udl)
+    return beam, sc
+
+
+def _quasi_cantilever_lanes(device):
+    """tests/test_beam_kernel_dd.py's four lanes float32 cannot solve: one
+    roller 1-5 nodes from the pin, a ~195 m overhang, I a mild ripple."""
+    n = 101
+    node_x = torch.linspace(0.0, 200.0, n).repeat(4, 1)
+    roller = torch.zeros((4, n), dtype=torch.bool)
+    loads = torch.zeros((4, n))
+    for b, r in enumerate((1, 2, 3, 5)):
+        roller[b, r] = True
+        loads[b, 60 + 5 * b] = -3.5e5
+    sc = BeamScenario(node_x=node_x, roller_mask=roller, point_loads=loads,
+                      udl=torch.full((4,), -1000.0))
+    I = 0.05 * (0.8 + 0.4 * torch.from_numpy(
+        np.random.default_rng(4).random((4, n - 1))).float())
+    return [t.to(device) for t in (I, torch.diff(node_x, dim=-1),
+                                   (~constraint_mask(sc)).float(), loads,
+                                   sc.udl)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random_bridge", "quasi_cantilever",
+                                  "overhang"])
+def test_streamed_dd_fused_route(cuda, case):
+    """The fused route on random-bridge lanes (n = 101), on the four
+    quasi-cantilever lanes and on span-scaled overhang lanes at n = 1001:
+    bitwise the unfused route, within 1e-5 of the plain version's u and
+    1e-6 of its pivots, and within 1e-6 of the lane's scale of the float64
+    solve of the system assembled by fem.beam."""
+    if case == "random_bridge":
+        x = _inputs(300, 18, cuda, torch.float32,
+                    ScenarioConfig(random_bridge=True))
+        beam = [x[k] for k in ("I", "Le", "free", "loads", "udl")]
+    elif case == "quasi_cantilever":
+        beam = _quasi_cantilever_lanes(cuda)
+    else:
+        beam = list(_overhang_lanes(64, 1001, 19, cuda)[0])
+    fused, unfused, plain = _dd_routes(beam)
+    torch.cuda.synchronize()
+    _hold_dd_route(fused, unfused, plain)
+    assert torch.isfinite(fused[0]).all() and (fused[1] > 0).all()
+
+
+@pytest.mark.cuda
+def test_streamed_dd_non_finite_lanes(cuda):
+    """Lanes the system leaves singular or undefined come out non-finite
+    where the plain version's do, entry by entry, and in the pivot, in both
+    routes: a NaN I, an I = 0 on the first element (a zero diagonal) and
+    inside the beam, no support at all.  The other lanes are bitwise those
+    of a run without them (lanes are independent)."""
+    args = _beam_lanes(70, 101, 21, cuda)
+    beam = [args[i] for i in (0, 3, 4, 5, 6)]
+    clean = _dd_routes(beam)
+    beam[0][5, 40] = float("nan")
+    beam[0][9, 0] = 0.0
+    beam[0][12, 60] = 0.0
+    beam[2][20] = 1.0
+    routes = _dd_routes(beam)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(routes[0][0][5]).any()
+    assert torch.isnan(routes[0][1][5])
+    fused, unfused, plain = routes
+    for route in (fused, unfused):
+        for k, p in zip(route, plain):
+            assert torch.equal(torch.isfinite(k), torch.isfinite(p))
+    keep = torch.ones(70, dtype=torch.bool, device=cuda)
+    keep[[5, 9, 12, 20]] = False
+    for route, ref in zip(routes[:2], clean[:2]):
+        for k, c in zip(route, ref):
+            assert torch.equal(k[keep], c[keep])
+
+
+@pytest.mark.cuda
+def test_streamed_dd_rejects_what_it_does_not_take(cuda):
+    """#9 reads its inputs as they lie: float32 systems, a transposed view
+    and CPU tensors raise in the system launcher; float64, strided or CPU
+    beam inputs raise in the fused one; nothing is counted, and no plain
+    version runs."""
+    args = _beam_lanes(40, 101, 6, cuda)
+    beam = [args[i] for i in (0, 3, 4, 5, 6)]
+    sys_dd = tsd.assemble_beam_system_dd(*beam, E, A)[:3]
+    tsd.reset_counts()
+    with pytest.raises(TypeError):
+        tsd.launch_thomas_streamed_dd(*(t.float() for t in sys_dd))
+    with pytest.raises(TypeError):
+        tsd.solve_dd_streamed(*(t.float() for t in sys_dd))
+    for i in range(3):
+        bad = list(sys_dd)
+        bad[i] = sys_dd[i].movedim(0, 1).contiguous().movedim(1, 0)
+        assert not bad[i].is_contiguous() and torch.equal(bad[i], sys_dd[i])
+        with pytest.raises(ValueError, match="contiguous"):
+            tsd.solve_dd_streamed(*bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsd.launch_thomas_streamed_dd(*(t.cpu() for t in sys_dd))
+    for i in (0, 2):
+        bad = list(beam)
+        bad[i] = beam[i].movedim(0, -1).contiguous().movedim(-1, 0)
+        assert not bad[i].is_contiguous() and torch.equal(bad[i], beam[i])
+        with pytest.raises(ValueError, match="contiguous"):
+            tsd.solve_beam_dd_streamed(*bad, E, A)
+    with pytest.raises(TypeError):
+        tsd.solve_beam_dd_streamed(beam[0].double(), *beam[1:], E, A)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsd.launch_beam_streamed_dd(*(t.cpu() for t in beam), E, A)
+    assert not any(tsd.LAUNCHES.values())
+    assert not any(tsd.PLAIN_CALLS.values())
+
+
+@pytest.mark.cuda
+def test_solve_beam_checked_large_mesh_streams(cuda):
+    """A span-scaled mesh of DD_STREAM_FROM_N nodes (Le = 2 m, rollers
+    every 64 nodes, a 64 m tail overhang): the lanes escalate through the
+    fused streamed float64 route (#9) on the card, not the float64
+    analysis, and no plain version runs."""
+    beam, sc = _overhang_lanes(64, tacc.DD_STREAM_FROM_N, 16, cuda)
+    I = beam[0]
     mods = (tk, tkd, tbt, tbs, tsd)
     for m in mods:
         m.reset_counts()
     sol, info = solve_beam_checked(I, sc, E, A, tol=1e-4)
     assert info["used_dd"].all()
-    assert tsd.LAUNCHES["solve_dd_streamed"] == 1
+    assert tsd.LAUNCHES == {"solve_dd_streamed": 0,
+                            "solve_beam_dd_streamed": 1}
     assert tkd.LAUNCHES["beam_analysis_dd"] == 0
     for m in mods:
         assert not any(m.PLAIN_CALLS.values()), m.PLAIN_CALLS

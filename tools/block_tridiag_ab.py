@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """A/B the float32 block-Thomas kernels (#4, #5, #6) and the streamed
 float64 solve (#9) of two checkouts on one CUDA card: are their outputs
-equal, and how long do #4 and #6 take?
+equal, and how long do #4, #6 and #9 take?
 
     python tools/block_tridiag_ab.py run --tree DIR --out PREFIX
                                          [--layout lanes_first|lanes_last]
+                                         [--dd-layout lanes_first|lanes_last]
     python tools/block_tridiag_ab.py compare PREFIX_A PREFIX_B
 
 ``run`` imports the PyTorch port and ``chip_smoke.py`` of the checkout at
@@ -14,29 +15,41 @@ random bridge at n = 101 and 201, 16384 lanes, seed 0) it solves with #4
 (``block_tridiag_solve_streamed``); on phase 3d's float64 systems (phase
 3b's 16384 random-bridge lanes plus the four quasi-cantilever lanes at n =
 101, and 16384 span-scaled overhang lanes at n = 1001) with #9
-(``solve_dd_streamed``, x and pivot); and on the 300-lane systems of the
-checkout's ``tests/test_torch_cuda.py`` (``_systems``, seeds 7 and 8) with
-#4.  It writes a SHA-256 of each output and each float32 kernel's largest
-per-lane difference to the plain float32 version (``thomas_reference``)
-relative to the lane's largest |x| to PREFIX.json, and #4's and #6's
-outputs to PREFIX.npz.  Then CUDA-event medians of 20 launches of #4 and
+(``solve_dd_streamed``, x and pivot) and with the escalation route built on
+it (``solve_beam_dd_streamed`` on the same lanes, u and pivot: the float64
+assembly and #9, or #9 assembling the rows itself); and on the 300-lane
+systems of the checkout's ``tests/test_torch_cuda.py`` (``_systems``,
+seeds 7 and 8) with #4.  It writes a SHA-256 of each output, and another
+of it with every -0 made +0, and each float32 kernel's largest per-lane
+difference to the plain float32 version (``thomas_reference``) relative to
+the lane's largest |x| to PREFIX.json, and #4's and #6's outputs to
+PREFIX.npz.  Then CUDA-event medians of 20 launches of #4 and
 of #6 at B = 512, 2048, 8192 and 16384 lanes and n = 51 (random bridge),
 101, 201 and 1001 (fixed bridge): the wrapper (for #6
 ``block_tridiag_solve_streamed``, for #4 the call ``block_tridiag_solve``
 makes when it dispatches to #4) and the launcher alone
 (``launch_thomas_streamed``, ``launch_thomas``); and the device time per
 launch, the mean of 20 under torch.profiler (#6 by sweep, forward and
-backward; #4 its one kernel).  ``--layout`` names #4's launcher contract:
-``lanes_first`` (it takes the systems as they are) or ``lanes_last`` (it
-takes lane-innermost copies, as before its redesign; they are made outside
-the launcher's timing, inside the wrapper's).  #6 is taken lanes-first, so
-the tree is one from after #6's redesign.
+backward; #4 its one kernel).  Then #9 at B = 512, 2048, 8192 and 16384
+lanes and n = 101, 201 and 1001 (chip_smoke.py phase 6's fixed-span
+lanes): the wrapper ``solve_dd_streamed`` and the launcher
+``launch_thomas_streamed_dd`` on the float64-assembled systems (CUDA-event
+medians of 20, device us per launch by sweep), and the route
+``solve_beam_dd_streamed`` on the lanes (median of 20, device us of all its
+kernels).  ``--layout`` names #4's launcher contract: ``lanes_first`` (it
+takes the systems as they are) or ``lanes_last`` (it takes lane-innermost
+copies, as before its redesign; they are made outside the launcher's
+timing, inside the wrapper's); ``--dd-layout`` names #9's the same way
+(``lanes_last`` before its redesign).  #6 is taken lanes-first, so the
+tree is one from after #6's redesign.
 
-``compare`` prints each hash's verdict, #4's and #6's verdicts (bitwise
-equal, or the largest gap in float32 units in the last place), #4's
-layouts and the two runs' times side by side.  It exits 1 unless #4, #5
-and #9 hash equal: #6 is reported, not held to bits.  One process per
-checkout: both trees hold a package of the same name.
+``compare`` prints each hash's verdict (equal; equal but for the sign of
+zeros, "±0", reported apart and held equal; or differ), #4's and #6's
+verdicts (bitwise equal, or the largest gap in float32 units in the last
+place), the launchers' layouts and the two runs' times side by side.  It
+exits 1 unless #4, #5 and #9 (the route included) hash equal up to ±0: #6
+is reported, not held to bits.  One process per checkout: both trees hold
+a package of the same name.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ import numpy as np
 
 SWEEP_B = (512, 2048, 8192, 16384)
 SWEEP_N = (51, 101, 201, 1001)
+DD_SWEEP_N = (101, 201, 1001)
 HELD = ("#4", "#5", "#9")       # held to bits; #6 is reported
 DEVICE_US = ("fwd", "bwd", "kernel")   # device us fields, in print order
 
@@ -84,7 +98,8 @@ def _device_us(torch, fn, sweeps=("fwd", "bwd"), reps=20) -> dict:
     return out
 
 
-def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
+def run(tree: Path, out: Path, layout: str = "lanes_first",
+        dd_layout: str = "lanes_first", seed: int = 0,
         B: int = 16384) -> None:
     sys.path.insert(0, str(tree.resolve()))
     sys.path.insert(0, str(tree.resolve() / "tests"))
@@ -108,8 +123,15 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
     E, A = beam.E, beam.A
     dev = torch.device("cuda")
     result = dict(tree=str(tree), card=torch.cuda.get_device_name(0),
-                  layout=layout, hashes={}, errors={}, times={})
-    hashes, arrays = result["hashes"], {}
+                  layout=layout, dd_layout=dd_layout, hashes={},
+                  hashes_pm0={}, errors={}, times={})
+    arrays = {}
+
+    def put(key, t):
+        """Record the output's SHA-256, and one with every -0 made +0."""
+        result["hashes"][key] = _sha(t)
+        result["hashes_pm0"][key] = _sha(t + 0.0)
+
     rb_cfg = ScenarioConfig(random_bridge=True)
 
     def four(s):
@@ -135,7 +157,7 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
             torch.cuda.synchronize()
             key = f"{label}, n={n}"
             for tag, k in outs.items():
-                hashes[f"{tag} {key}"] = _sha(k)
+                put(f"{tag} {key}", k)
                 result["errors"][f"{tag} {key}"] = cs.lane_errors(
                     torch, k, plain).max().item()
             arrays[key] = outs["#6"].cpu().numpy()
@@ -157,14 +179,17 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
              cs.beam_args(torch, constraint_mask, I_o, sc_o))):
         x_dd, piv = tsd.solve_dd_streamed(
             *tsd.assemble_beam_system_dd(*args, E, A)[:3])
-        hashes[f"#9 {key} x"] = _sha(x_dd)
-        hashes[f"#9 {key} pivot"] = _sha(piv)
+        put(f"#9 {key} x", x_dd)
+        put(f"#9 {key} pivot", piv)
+        u, piv = tsd.solve_beam_dd_streamed(*args, E, A)
+        put(f"#9 route {key} u", u)
+        put(f"#9 route {key} pivot", piv)
     del rb, qc, I_o, sc_o
     from test_torch_cuda import _systems
 
     for test_seed, cfg in ((7, ScenarioConfig()), (8, rb_cfg)):
         x32 = _systems(300, test_seed, dev, torch.float32, cfg)
-        hashes[f"#4 card test systems, seed {test_seed}"] = _sha(four(x32))
+        put(f"#4 card test systems, seed {test_seed}", four(x32))
 
     for n in SWEEP_N:
         # the fixed bridge's roller tags need n >= 100
@@ -192,6 +217,34 @@ def run(tree: Path, out: Path, layout: str = "lanes_first", seed: int = 0,
                     torch, lambda: tbt.launch_thomas(*s4), sweeps=()))
             del s, s4
         del full
+
+    def nine(s):
+        """#9's launcher on lanes-first systems, through the tree's
+        contract; with lane-innermost copies made before the call."""
+        if dd_layout == "lanes_last":
+            t = [tbt.lanes_last(x) for x in s]
+            return lambda: tsd.launch_thomas_streamed_dd(*t)
+        return lambda: tsd.launch_thomas_streamed_dd(*s)
+
+    for n in DD_SWEEP_N:
+        full = cs.beam_args(torch, constraint_mask, *cs.fixed_span(
+            torch, BeamScenario, n, max(SWEEP_B), seed + 30 + n, dev))
+        for lanes in SWEEP_B:
+            args = [t[:lanes] for t in full]
+            s = tsd.assemble_beam_system_dd(*args, E, A)[:3]
+            launch = nine(s)
+            result["times"][f"#9 n={n} B={lanes}"] = dict(
+                wrapper=cs.time_ms(
+                    torch, lambda: tsd.solve_dd_streamed(*s), 20),
+                kernel=cs.time_ms(torch, launch, 20),
+                device_us=_device_us(torch, launch))
+            route = lambda: tsd.solve_beam_dd_streamed(*args, E, A)
+            result["times"][f"#9 route n={n} B={lanes}"] = dict(
+                route=cs.time_ms(torch, route, 20),
+                device_us=_device_us(torch, route, sweeps=()))
+            del args, s, launch, route
+            torch.cuda.empty_cache()
+        del full
     torch.cuda.synchronize()
     np.savez(out.with_suffix(".npz"), **arrays)
     out.with_suffix(".json").write_text(json.dumps(result, indent=1))
@@ -210,14 +263,24 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> int:
     return int(d.max()) if d.size else 0
 
 
+def _verdict(ja: dict, jb: dict, key: str) -> str:
+    """"equal", "±0" (equal once every -0 is made +0) or "differ"."""
+    if ja["hashes"][key] == jb["hashes"].get(key):
+        return "equal"
+    pa, pb = ja.get("hashes_pm0", {}), jb.get("hashes_pm0", {})
+    if key in pa and pa[key] == pb.get(key):
+        return "±0"
+    return "differ"
+
+
 def compare_dumps(a: Path, b: Path) -> dict:
-    """Per hash: equality; per #4 and #6 output (npz keys "#4 ..." and the
-    rest): bitwise equality and ulp gap.  ``equal`` is True when every #4,
-    #5 and #9 hash agrees."""
+    """Per hash: its verdict (``_verdict``); per #4 and #6 output (npz keys
+    "#4 ..." and the rest): bitwise equality and ulp gap.  ``equal`` is
+    True when every #4, #5 and #9 hash agrees, up to the sign of zeros."""
     ja, jb = (json.loads(p.with_suffix(".json").read_text()) for p in (a, b))
     na, nb = (np.load(p.with_suffix(".npz")) for p in (a, b))
-    hashes = {k: v == jb["hashes"].get(k) for k, v in ja["hashes"].items()}
-    held = [same for k, same in hashes.items() if k.startswith(HELD)]
+    hashes = {k: _verdict(ja, jb, k) for k in ja["hashes"]}
+    held = [v != "differ" for k, v in hashes.items() if k.startswith(HELD)]
     four, six = {}, {}
     for key in sorted(na.files):
         x, y = na[key], nb[key]
@@ -231,23 +294,28 @@ def compare_dumps(a: Path, b: Path) -> dict:
                 equal=bool(held) and all(held)
                 and set(na.files) == set(nb.files),
                 layouts=(ja.get("layout"), jb.get("layout")),
+                dd_layouts=(ja.get("dd_layout", "lanes_first"),
+                            jb.get("dd_layout", "lanes_first")),
                 errors=(ja.get("errors", {}), jb.get("errors", {})),
                 times=(ja.get("times", {}), jb.get("times", {})))
 
 
 def compare(a: Path, b: Path) -> int:
     r = compare_dumps(a, b)
-    for k, same in r["hashes"].items():
+    words = {"equal": "equal", "±0": "equal but for the sign of zeros (±0)",
+             "differ": "DIFFER"}
+    for k, verdict in r["hashes"].items():
         if not k.startswith("#6"):
-            print(f"{k}: {'equal' if same else 'DIFFER'}")
+            print(f"{k}: {words[verdict]}")
     for tag in ("four", "six"):
         for key, row in r[tag].items():
             print(f"#{4 if tag == 'four' else 6} {key}: " + (
                 "bitwise equal" if row["bitwise"] else
                 f"differs by up to {row['max_ulps']} ulp"))
-    print("#4 launcher takes {} / {} systems".format(*(
-        {"lanes_last": "lane-innermost copies of the"}.get(
-            lay, "the lanes-first") for lay in r["layouts"])))
+    for tag, lays in (("#4", r["layouts"]), ("#9", r["dd_layouts"])):
+        print(f"{tag} launcher takes " + " / ".join(
+            {"lanes_last": "lane-innermost copies of the"}.get(
+                lay, "the lanes-first") for lay in lays) + " systems")
     ea, eb = r["errors"]
     for k in ea:
         print(f"{k}: max per-lane diff to plain float32 {ea[k]:.3e} / "
@@ -256,7 +324,7 @@ def compare(a: Path, b: Path) -> int:
     for k in ta:
         print(f"{k}: " + " | ".join(
             f"{f} {ta[k][f]:.4f} / {tb.get(k, {}).get(f, float('nan')):.4f}"
-            for f in ("kernel", "wrapper")) + " ms")
+            for f in ("kernel", "wrapper", "route") if f in ta[k]) + " ms")
         da, db = (t.get(k, {}).get("device_us", {}) for t in (ta, tb))
         if da or db:
             print("  device us " + " | ".join(
@@ -267,7 +335,10 @@ def compare(a: Path, b: Path) -> int:
     print("#6 " + ("bitwise equal" if six else "differs in ulps (reported)"))
     if not all(row["bitwise"] for row in r["four"].values()):
         print("#4 differs")
-    print("#4, #5, #9 hashes equal" if r["equal"] else "outputs differ")
+    pm0 = [k for k, v in r["hashes"].items() if v == "±0"]
+    print(("#4, #5, #9 hashes equal" + (f" ({len(pm0)} up to ±0)" if pm0
+                                        else "")) if r["equal"]
+          else "outputs differ")
     return 0 if r["equal"] else 1
 
 
@@ -279,13 +350,15 @@ def main(argv=None) -> int:
     r.add_argument("--out", type=Path, required=True)
     r.add_argument("--layout", choices=("lanes_first", "lanes_last"),
                    default="lanes_first")
+    r.add_argument("--dd-layout", choices=("lanes_first", "lanes_last"),
+                   default="lanes_first")
     c = sub.add_parser("compare")
     c.add_argument("a", type=Path)
     c.add_argument("b", type=Path)
     args = ap.parse_args(argv)
     if args.cmd == "run":
         args.out.parent.mkdir(parents=True, exist_ok=True)
-        run(args.tree, args.out, args.layout)
+        run(args.tree, args.out, args.layout, args.dd_layout)
         return 0
     return compare(args.a, args.b)
 
