@@ -36,9 +36,9 @@ Phases, each of which raises on failure (exit code not 0):
    at the median, the 99th percentile and the worst lane (#3 at n = 51:
    the median and the 99th percentile, phase 3's rule; its worst lane is
    printed with its forward error and condition), with no more non-finite
-   lanes; then, under torch.profiler, one call of each wrapper that
-   copies no layout (#1, #2, #3, #4, #6, #7, #8, #9) launches its kernel
-   and no copy, and one of the fused float64 route
+   lanes; then, under torch.profiler, one call of each wrapper (#1-#9)
+   launches its kernel and no copy (``block_tridiag_solve(bidi=True)``
+   one kernel, #5), and one of the fused float64 route
    ``solve_beam_dd_streamed`` launches #9's two sweeps and nothing else;
 3d. the streamed float64 solve (#9) against its plain version on the
    float64-assembled systems of phase 3b's 16384 random-bridge lanes plus
@@ -94,20 +94,21 @@ Phases, each of which raises on failure (exit code not 0):
    host) on the same 256 rejected random-bridge lanes, 100 epochs: equal
    valid masks, equal epochs on the rescued lanes, I within 1e-3 relative
    (1e-7 absolute), deflections within 1e-3 of the lane's scale;
-6. times: CUDA events, median of 20 launches per kernel (wrapper, kernel
-   alone and, where the wrapper transposes, its layout copies; all but
-   #5 read lanes-first tensors and copy none), beside the plain
+6. times: CUDA events, median of 20 launches per kernel (wrapper and
+   kernel alone; every kernel reads lanes-first tensors and copies none),
+   beside the plain
    version's time and the kernel's bound (bytes read once and written
    once at 3.35 TB/s against the flops at 67 TFLOP/s float32 or 34 TFLOP/s
    float64, H100 SXM); for #3 (the masked K(I) x = rhs), #4, #5 and #6
    also the dense float32 ``torch.linalg.solve`` of the same systems, for
    #9 the dense float64 one
-   (the library yardsticks); #4 and #6 in turns at n = 51, 101, 201, 301
-   and 1001 and at 512, 2048, 4096, 8192 and 16384 lanes (the compaction
-   buckets and the full batch), launcher and wrapper, each output bitwise
-   equal to the other's, #4 only where one lane's C and y fit a block,
-   with the kernel each case's times imply beside the one
-   ``block_tridiag.uses_streamed`` picks;
+   (the library yardsticks); #4, #6 and #5 in turns (#4, #6, #5, #5, #6,
+   #4) at n = 51, 101, 201, 301 and 1001 and at 512, 2048, 4096, 8192 and
+   16384 lanes (the compaction buckets and the full batch), launcher and
+   wrapper, #4's and #6's outputs bitwise equal, #4 only where one lane's
+   C and y fit a block, with the kernel each case's times imply beside the
+   one ``block_tridiag.uses_streamed`` picks, and #5's time beside that
+   one's;
    and solve_beam_checked's two escalation routes in turns on 16384
    fixed-span lanes at n = 201, 501, 1001 and 2001 (the float64 analysis
    wrapper, #7, against the fused ``solve_beam_dd_streamed``, #9), each
@@ -592,11 +593,9 @@ def check_split_kernels(torch, tk, tbt, tbs, matvec, assemble_beam_system,
     errs = {}
     sys32 = x["sys"]
     sys64 = [t.double() for t in sys32]
-    sys_t = [tbt.lanes_last(t) for t in sys32]
     kern4 = tbt.launch_thomas(*sys32)
-    kern5 = tbt.lanes_first(tbt.launch_thomas_bidi(*sys_t))
+    kern5 = tbt.launch_thomas_bidi(*sys32)
     kern6 = tbs.block_tridiag_solve_streamed(*sys32)
-    del sys_t
     if not torch.equal(kern4, kern6):
         raise AssertionError(f"#4 and #6 differ ({label})")
     p32 = tbt.thomas_reference(*sys32)
@@ -1138,15 +1137,12 @@ def main(argv=None) -> int:
     rb_opt = [rb_inputs[k]
               for k in ("I", "mu", "nu", "Le", "free", "loads", "udl")]
     sys32 = split101["sys"]
-    lanes_last, lanes_first = tbt.lanes_last, tbt.lanes_first
     opt_kw = dict(grad_semi=True, refine=refine)
-    # #1, #2, #7 and #8: no layout, the kernels read the callers' tensors
-    # as they lie
+    # every kernel reads the callers' tensors as they lie
     cases = {
         "beam_analysis": dict(
             wrapper=lambda: tk.beam_analysis(*ana, E, A, refine),
             kernel=lambda: tk.launch_beam_analysis(*ana, E, A, refine),
-            layout=None,
             plain=lambda: tk.beam_analysis_reference(*ana, E, A, refine),
             kind="analysis"),
         "beam_opt_step": dict(
@@ -1154,7 +1150,6 @@ def main(argv=None) -> int:
                                              **opt_kw),
             kernel=lambda: tk.launch_beam_opt_step(*opt, *scalars, E, G,
                                                    **opt_kw),
-            layout=None,
             plain=lambda: tk.beam_opt_step_reference(*opt, *scalars, E, A,
                                                      G, **opt_kw),
             kind="semi"),
@@ -1162,49 +1157,40 @@ def main(argv=None) -> int:
         "beam_analysis_dd": dict(
             wrapper=lambda: tkd.beam_analysis_dd(*rb_ana, E, A),
             kernel=lambda: tkd.launch_beam_analysis_dd(*rb_ana, E, A),
-            layout=None,
             plain=lambda: tkd.beam_analysis_dd_reference(*rb_ana, E, A),
             kind="analysis_dd"),
         "beam_opt_step_dd": dict(
             wrapper=lambda: tkd.beam_opt_step_dd(*rb_opt, *scalars, E, A, G),
             kernel=lambda: tkd.launch_beam_opt_step_dd(*rb_opt, *scalars, E,
                                                        A, G),
-            layout=None,
             plain=lambda: tkd.beam_opt_step_dd_reference(*rb_opt, *scalars,
                                                          E, A, G),
             kind="opt_dd"),
     }
     # the split-path kernels on phase 3c's fixed-bridge n = 101 inputs
-    sys_t = [lanes_last(x) for x in sys32]
     sv = [split101[k] for k in ("I", "Le", "free", "rhs")]
     cases.update({
-        # #3 reads the lanes-first inputs as they lie
         "beam_solve": dict(
             wrapper=lambda: tk.beam_solve(*sv, E, A, refine),
             kernel=lambda: tk.launch_beam_solve(*sv, E, A, refine),
-            layout=None,
             plain=lambda: tk.beam_solve_reference(*sv, E, A, refine),
             kind="solve3"),
-        # #4 and #6 read the lanes-first systems as they lie; #4's wrapper
-        # is the call block_tridiag_solve makes when it dispatches to #4
+        # #4's wrapper is the call block_tridiag_solve makes when it
+        # dispatches to #4
         "block_tridiag_solve": dict(
             wrapper=lambda: tbt.launch_thomas(
                 *(x.contiguous() for x in sys32)),
             kernel=lambda: tbt.launch_thomas(*sys32),
-            layout=None,
             plain=lambda: tbt.thomas_reference(*sys32), kind="thomas"),
         "block_tridiag_solve_streamed": dict(
             wrapper=lambda: tbs.block_tridiag_solve_streamed(*sys32),
             kernel=lambda: tbs.launch_thomas_streamed(*sys32),
-            layout=None,
             plain=lambda: tbt.thomas_backward_reference(
                 *tbt.thomas_forward_reference(*sys32)),
             kind="thomas"),
         "block_tridiag_solve_bidi": dict(
             wrapper=lambda: tbt.block_tridiag_solve(*sys32, bidi=True),
-            kernel=lambda: tbt.launch_thomas_bidi(*sys_t),
-            layout=lambda: ([lanes_last(x) for x in sys32],
-                            [lanes_first(sys_t[2])]),
+            kernel=lambda: tbt.launch_thomas_bidi(*sys32),
             plain=lambda: tbt.thomas_bidi_reference(*sys32), kind="thomas"),
     })
     # #9 on the float64 systems of phase 3b's random-bridge lanes, read as
@@ -1214,16 +1200,13 @@ def main(argv=None) -> int:
     cases["solve_dd_streamed"] = dict(
         wrapper=lambda: tsd.solve_dd_streamed(*sys_dd),
         kernel=lambda: tsd.launch_thomas_streamed_dd(*sys_dd),
-        layout=None,
         plain=lambda: tsd.thomas_dd_reference(*sys_dd), kind="thomas_dd")
 
-    # ---- phase 3c: what one call of each wrapper that copies no layout
-    # launches: its kernel alone.  Traced before any longer profile (a
-    # trace after phase 4's windows has shown no kernel at all).
+    # ---- phase 3c: what one call of each wrapper launches: its kernel
+    # alone.  Traced before any longer profile (a trace after phase 4's
+    # windows has shown no kernel at all).
     launched = {}
     for name, c in cases.items():
-        if c["layout"] is not None:
-            continue
         launched[name] = device_kernels(torch, c["wrapper"])
         copies = [k for k in launched[name] if "at::" in k or "Copy" in k
                   or "Memcpy" in k or "Memset" in k]
@@ -1232,6 +1215,13 @@ def main(argv=None) -> int:
         if copies or not launched[name]:
             raise AssertionError(f"{name}'s wrapper launched "
                                  f"{copies or 'nothing the profiler saw'}")
+    # #5 is one launch: both chains, the meeting row and both back sweeps
+    if (sum(launched["block_tridiag_solve_bidi"].values()) != 1
+            or not all("bidi_kernel" in k
+                       for k in launched["block_tridiag_solve_bidi"])):
+        raise AssertionError("block_tridiag_solve(bidi=True) launched "
+                             f"{launched['block_tridiag_solve_bidi']}, not "
+                             "one bidi_kernel")
     # the fused float64 route: #9's two sweeps in their beam mode, nothing
     # else (no float64 assembly, no copy)
     fused_kernels = device_kernels(
@@ -1761,15 +1751,11 @@ def main(argv=None) -> int:
     for name, c in cases.items():
         t_wrap = time_ms(torch, c["wrapper"], 20)
         t_kern = time_ms(torch, c["kernel"], 20)
-        t_layout = (time_ms(torch, c["layout"], 20) if c["layout"] else
-                    None)
         t_plain = time_ms(torch, c["plain"], 5, warmup=1)
         b_ms, b_by = bound_ms(B, n, refine, c["kind"])
         lib_ms = library.get(c["kind"])
-        log(f"  {name}: wrapper {t_wrap:.3f} ms = kernel {t_kern:.3f} ms + "
-            + (f"layout ~{t_layout:.3f} ms" if t_layout is not None else
-               "no layout copy")
-            + f" | plain {t_plain:.3f} ms | bound "
+        log(f"  {name}: wrapper {t_wrap:.3f} ms, kernel {t_kern:.3f} ms, no "
+            f"layout copy | plain {t_plain:.3f} ms | bound "
             f"{1e3 * b_ms:.1f} us ({b_by}) | library "
             + (f"{lib_ms:.3f} ms" if lib_ms is not None else "none")
             + f" | {path_launches[name]} launches on its path")
@@ -1778,7 +1764,7 @@ def main(argv=None) -> int:
             replaces=REPLACES[name], launches=path_launches[name],
             max_abs_err=errs[name]["abs"], ms=t_wrap, plain_ms=t_plain,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            kernel_only_ms=t_kern, layout_ms=t_layout,
+            kernel_only_ms=t_kern,
             wrapper_device_kernels=launched.get(name),
             # per-lane errors against float64, of the lane's scale, p99
             rel_err_p99=errs[name]["rel_p99"],
@@ -1811,12 +1797,14 @@ def main(argv=None) -> int:
                 "beam_solve"].get("worst_lane")
     del sys_dd
 
-    # #4 against #6 in turns #4, #6, #6, #4 by mesh and lane count: the
-    # launchers and the wrappers block_tridiag_solve reaches, each x
-    # bitwise equal to the other's; #4 only where its resident set fits
-    log(f"phase 6: one-launch #4 vs streamed #6, n in {TURN_NS}, lanes in "
-        f"{TURN_LANES} (kernel and wrapper ms, mean of two medians of 20)")
-    turns46 = {}
+    # #4, #6 and #5 in turns #4, #6, #5, #5, #6, #4 by mesh and lane count:
+    # the launchers and the wrappers block_tridiag_solve reaches, #4's and
+    # #6's x bitwise equal; #4 only where its resident set fits; #5 beside
+    # the kernel uses_streamed picks
+    log(f"phase 6: one-launch #4 vs streamed #6 vs bidirectional #5, n in "
+        f"{TURN_NS}, lanes in {TURN_LANES} (kernel and wrapper ms, mean of "
+        "two medians of 20)")
+    turns_bt = {}
     for n_t in TURN_NS:
         # the fixed bridge's roller tags need n >= 100: the 51-node mesh
         # is phase 4d's random bridge (the kernels' work is data-blind)
@@ -1842,50 +1830,65 @@ def main(argv=None) -> int:
                 raise AssertionError(f"#4 differs from #6 at {lanes} lanes, "
                                      f"n={n_t}")
             kern = (lambda: tbt.launch_thomas(*s_l),
-                    lambda: tbs.launch_thomas_streamed(*s_l))
+                    lambda: tbs.launch_thomas_streamed(*s_l),
+                    lambda: tbt.launch_thomas_bidi(*s_l))
             wrap = (lambda: tbt.launch_thomas(*(x.contiguous()
                                                  for x in s_l)),
-                    lambda: tbs.block_tridiag_solve_streamed(*s_l))
+                    lambda: tbs.block_tridiag_solve_streamed(*s_l),
+                    lambda: tbt.block_tridiag_solve(*s_l, bidi=True))
             row = {}
             for what, fns in (("kernel", kern), ("wrapper", wrap)):
                 t = [time_ms(torch, fns[j], 20) if fits or j else None
-                     for j in (0, 1, 1, 0)]
-                row[what] = ((t[0] + t[3]) / 2 if fits else None,
-                             (t[1] + t[2]) / 2)
+                     for j in (0, 1, 2, 2, 1, 0)]
+                row[what] = ((t[0] + t[5]) / 2 if fits else None,
+                             (t[1] + t[4]) / 2, (t[2] + t[3]) / 2)
             row["bound"] = bound_ms(lanes, n_t, 0, "thomas")[0]
             row["implied"] = ("#4" if fits and row["kernel"][0]
                               <= row["kernel"][1] else "#6")
             row["rule"] = "#6" if tbt.uses_streamed(n_t, lanes, sms) else "#4"
             row["lanes_per_block"] = tbt.resident_lanes(lanes, n_t)
-            turns46[(n_t, lanes)] = row
-            k4, k6 = row["kernel"]
-            w4, w6 = row["wrapper"]
+            turns_bt[(n_t, lanes)] = row
+            k4, k6, k5 = row["kernel"]
+            w4, w6, w5 = row["wrapper"]
+            j_rule = 1 if row["rule"] == "#6" else 0
+            row["bidi_vs_rule"] = w5 / row["wrapper"][j_rule]
             log(f"  n={n_t} B={lanes}: #4 " + (
                 f"{k4:.4f} ms (wrapper {w4:.4f}, {row['lanes_per_block']} "
                 "lanes a block)" if fits else "does not fit")
-                + f" | #6 {k6:.4f} ms (wrapper {w6:.4f}) | bound "
-                f"{1e3 * row['bound']:.1f} us | this run implies "
-                f"{row['implied']}, uses_streamed sends to {row['rule']}"
+                + f" | #6 {k6:.4f} ms (wrapper {w6:.4f}) | #5 {k5:.4f} ms "
+                f"(wrapper {w5:.4f}, {row['bidi_vs_rule']:.3f}x "
+                f"{row['rule']}'s) | bound {1e3 * row['bound']:.1f} us | "
+                f"this run implies {row['implied']}, uses_streamed sends to "
+                f"{row['rule']}"
                 + ("" if row["implied"] == row["rule"] else "  <- differs"))
             del s_l, x6
         del sf
-    differ = [k for k, r in turns46.items() if r["implied"] != r["rule"]]
-    log(f"  dispatch: {len(turns46) - len(differ)} of {len(turns46)} cases "
+    differ = [k for k, r in turns_bt.items() if r["implied"] != r["rule"]]
+    log(f"  dispatch: {len(turns_bt) - len(differ)} of {len(turns_bt)} cases "
         f"as uses_streamed rules; differs at (n, B) {differ}")
-    turn_names = ("block_tridiag_solve", "block_tridiag_solve_streamed")
+    faster5 = [k for k, r in turns_bt.items() if r["bidi_vs_rule"] < 1.0]
+    log(f"  bidi=True's wrapper beats the default route's in "
+        f"{len(faster5)} of {len(turns_bt)} cases: (n, B) {faster5}")
+    turn_names = ("block_tridiag_solve", "block_tridiag_solve_streamed",
+                  "block_tridiag_solve_bidi")
     for k in kernels:
         if k["name"] in turn_names:
             j = turn_names.index(k["name"])
             k["kernel_ms_by_n_and_lanes"] = {
                 f"n={n_t} B={lanes}": r["kernel"][j]
-                for (n_t, lanes), r in turns46.items()}
+                for (n_t, lanes), r in turns_bt.items()}
             k["wrapper_ms_by_n_and_lanes"] = {
                 f"n={n_t} B={lanes}": r["wrapper"][j]
-                for (n_t, lanes), r in turns46.items()}
+                for (n_t, lanes), r in turns_bt.items()}
+            k[f"library_ms_n{min(TURN_NS)}"] = lib_small
+            if j == 2:
+                k["wrapper_vs_default_route_by_n_and_lanes"] = {
+                    f"n={n_t} B={lanes}": r["bidi_vs_rule"]
+                    for (n_t, lanes), r in turns_bt.items()}
+                continue
             k["launches_by_lanes"] = {
                 key[3:]: v for key, v in split_by_lanes.items()
                 if key.startswith(("#4", "#6")[j])}
-            k[f"library_ms_n{min(TURN_NS)}"] = lib_small
 
     # solve_beam_checked's escalation routes, each whole: the float64
     # analysis wrapper (#7) against the fused streamed route (#9); in turns

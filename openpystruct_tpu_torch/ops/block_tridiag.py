@@ -19,9 +19,9 @@
 ``block_tridiag_solve`` sends a CPU tensor to the plain version
 (``thomas_reference``, or ``thomas_bidi_reference`` with ``bidi``) and
 launches a CUDA kernel on a CUDA float32 tensor, or raises; there is no
-fallback.  The one-launch kernel (``csrc/block_resident.cu``) reads the
-lanes-first systems as they lie; the bidirectional one
-(``csrc/block_tridiag.cu``) takes lane-innermost copies.  ``LAUNCHES``
+fallback.  The one-launch kernel (``csrc/block_resident.cu``) and the
+bidirectional one (``csrc/block_tridiag.cu``) read the lanes-first systems
+as they lie and write x lanes-first: no layout copy.  ``LAUNCHES``
 counts kernel launches and ``PLAIN_CALLS`` the calls sent to the plain
 version.  The plain versions repeat the kernels' arithmetic in their order
 (the cofactor inverse times 1/det, 3x3 products summed over k = 0, 1, 2)
@@ -256,12 +256,14 @@ def check_system(diag, upper, b, dtype=torch.float32):
     return B, n
 
 
-def check_lanes_first(diag, upper, b, dtype=torch.float32):
+def check_lanes_first(diag, upper, b, dtype=torch.float32, min_n=1):
     """Raise unless (diag, upper, b) are contiguous ``dtype`` (B, n, 3, 3),
-    (B, n-1, 3, 3), (B, n, 3) on one CUDA device: kernels #4 and #6
-    (float32) and #9 (float64) read them as they lie and copy none.
-    Returns (B, n)."""
+    (B, n-1, 3, 3), (B, n, 3) on one CUDA device with n >= ``min_n``:
+    kernels #4, #5 and #6 (float32) and #9 (float64) read them as they lie
+    and copy none.  Returns (B, n)."""
     B, n = check_system(diag, upper, b, dtype)
+    if n < min_n:
+        raise ValueError(f"the kernel needs n >= {min_n} nodes, got {n}")
     for name, t in (("diag", diag), ("upper", upper), ("b", b)):
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous: the kernel reads the "
@@ -269,16 +271,6 @@ def check_lanes_first(diag, upper, b, dtype=torch.float32):
     if not diag.is_cuda:
         raise ValueError(f"the kernel takes CUDA tensors, got {diag.device}")
     return B, n
-
-
-def lanes_last(t):
-    """(B, ...) -> contiguous (..., B): neighbouring threads (lanes) read
-    neighbouring addresses."""
-    return t.movedim(0, -1).contiguous()
-
-
-def lanes_first(t):
-    return t.movedim(-1, 0).contiguous()
 
 
 def resident_lanes(B: int, n: int, device=None) -> int:
@@ -314,19 +306,23 @@ def launch_thomas(diag, upper, b):
     return x
 
 
-def launch_thomas_bidi(diag_t, upper_t, b_t):
-    """Launch kernel #5 on lane-innermost float32 systems: diag_t (n, 3, 3,
-    B), upper_t (n-1, 3, 3, B), b_t (n, 3, B), contiguous on one card, n >=
-    3.  Returns x_t (n, 3, B)."""
-    n, B = b_t.shape[0], b_t.shape[-1]
-    dev = b_t.device
-    x = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
-    ws = torch.empty((n, 3, 3, B), dtype=torch.float32, device=dev)
+def launch_thomas_bidi(diag, upper, b):
+    """Launch kernel #5 on lanes-first float32 systems as they lie: diag
+    (B, n, 3, 3), upper (B, n-1, 3, 3), b (B, n, 3), contiguous on one card,
+    n >= 3 (``check_lanes_first``, before any build).  The kernel picks its
+    lanes per block from B and the card.  Returns x (B, n, 3)."""
+    B, n = check_lanes_first(diag, upper, b, min_n=3)
+    dev = b.device
+    lib = _lib()
+    # C and y, (blocks, n, 12, lanes per block): lanes per block divide 32
+    ws = torch.empty(-(-B // 32) * 32 * n * 12, dtype=torch.float32,
+                     device=dev)
+    x = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().thomas_bidi_f32(diag_t.data_ptr(), upper_t.data_ptr(),
-                                    b_t.data_ptr(), x.data_ptr(),
-                                    ws.data_ptr(), B, n, stream)
+        rc = lib.thomas_bidi_f32(diag.data_ptr(), upper.data_ptr(),
+                                 b.data_ptr(), ws.data_ptr(), x.data_ptr(),
+                                 B, n, stream)
     if rc != 0:
         raise RuntimeError(f"block_tridiag_solve(bidi=True) launch failed: "
                            f"CUDA error {rc}")
@@ -349,9 +345,8 @@ def block_tridiag_solve(diag, upper, b, bidi=False):
         if not diag.is_cuda:
             PLAIN_CALLS["block_tridiag_solve_bidi"] += 1
             return thomas_bidi_reference(diag, upper, b)
-        check_system(diag, upper, b)
-        return lanes_first(launch_thomas_bidi(
-            lanes_last(diag), lanes_last(upper), lanes_last(b)))
+        return launch_thomas_bidi(diag.contiguous(), upper.contiguous(),
+                                  b.contiguous())
     if not diag.is_cuda:
         PLAIN_CALLS["block_tridiag_solve"] += 1
         return thomas_reference(diag, upper, b)

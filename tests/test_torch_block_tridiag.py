@@ -164,7 +164,8 @@ def test_streamed_matches_pallas():
 
 def _launcher_inputs(case):
     """Float32 systems (B = 2, n = 5) made wrong in one way."""
-    d, u, b = (torch.from_numpy(a).float() for a in _spd(2, 5, 4))
+    d, u, b = (torch.from_numpy(a).float()
+               for a in _spd(2, 2 if case == "two nodes" else 5, 4))
     if case == "strided diag":
         d = d.movedim(0, 1).contiguous().movedim(1, 0)
     elif case == "float64 b":
@@ -218,6 +219,31 @@ def test_resident_launcher_checks_before_building(monkeypatch, case, error,
     tbt.reset_counts()
     with pytest.raises(error, match=match):
         tbt.launch_thomas(*_launcher_inputs(case))
+    assert tbt.LAUNCHES == {"block_tridiag_solve": 0,
+                            "block_tridiag_solve_bidi": 0}
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("strided diag", ValueError, "contiguous"),
+    ("float64 b", TypeError, "float32"),
+    ("wrong upper shape", ValueError, "upper has shape"),
+    ("two devices", ValueError, "b is on meta"),
+    ("cpu tensors", ValueError, "CUDA"),
+    ("two nodes", ValueError, "n >= 3"),
+])
+def test_bidi_launcher_checks_before_building(monkeypatch, case, error,
+                                              match):
+    """``launch_thomas_bidi`` (kernel #5) reads lanes-first systems as they
+    lie: it raises on what the kernel does not take, n < 3 included, before
+    it builds anything, and counts no launch."""
+    def no_build(*_):
+        raise AssertionError("the launcher built the kernel library")
+
+    monkeypatch.setattr(tbt, "_lib", no_build)
+    monkeypatch.setattr(tbt._build, "load", no_build)
+    tbt.reset_counts()
+    with pytest.raises(error, match=match):
+        tbt.launch_thomas_bidi(*_launcher_inputs(case))
     assert tbt.LAUNCHES == {"block_tridiag_solve": 0,
                             "block_tridiag_solve_bidi": 0}
 

@@ -152,3 +152,34 @@ def test_compare_nine(tmp_path, case, capsys):
     assert "#9 route n=101 B=512: route 0.0700 / 0.0700 ms" in out
     assert "#9 n=101 B=512: kernel 0.0500 / 0.0500 | wrapper 0.0600" in out
     assert "device us kernel 55.5 / 55.5" in out
+
+
+@pytest.mark.parametrize("parent", ["lanes_last", "lanes_first", "unnamed"])
+def test_compare_five(tmp_path, parent, capsys):
+    """#5's launcher contract is named for each tree (a dump that names
+    none is from before ``--bidi-layout``, when #5 took lane-innermost
+    copies), its times print with their device us, and its hash is held
+    to bits."""
+    tool = _tool()
+    x = np.ones((2, 3, 3), np.float32)
+    times = {"#5 n=101 B=512": dict(kernel=0.04, wrapper=0.045,
+                                    device_us=dict(kernel=21.5))}
+    for prefix, bidi_layout in ((tmp_path / "a", parent),
+                                (tmp_path / "b", "lanes_first")):
+        dump = dict(layout="lanes_first", hashes={
+            "#5 fixed bridge, n=101": "b"}, errors={}, times=times)
+        if bidi_layout != "unnamed":
+            dump["bidi_layout"] = bidi_layout
+        np.savez(prefix.with_suffix(".npz"), **{"fixed bridge, n=101": x})
+        prefix.with_suffix(".json").write_text(json.dumps(dump))
+    r = tool.compare_dumps(tmp_path / "a", tmp_path / "b")
+    assert r["equal"]
+    assert r["bidi_layouts"] == (
+        "lanes_first" if parent == "lanes_first" else "lanes_last",
+        "lanes_first")
+    assert tool.compare(tmp_path / "a", tmp_path / "b") == 0
+    out = capsys.readouterr().out
+    assert ("#5 launcher takes lane-innermost copies of the / the "
+            "lanes-first systems" in out) == (parent != "lanes_first")
+    assert "#5 n=101 B=512: kernel 0.0400 / 0.0400 | wrapper 0.0450" in out
+    assert "device us kernel 21.5 / 21.5" in out

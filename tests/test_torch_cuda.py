@@ -828,9 +828,8 @@ def _spd_systems(B, n, seed, device):
 @pytest.mark.parametrize("n", [3, 4, 101])
 def test_bidi_kernel(cuda, n):
     """Kernel #5 against its plain version (the same two chains in
-    float32) by _hold's rule, on 300 lanes (not a multiple of the 64-thread
-    block): random SPD systems at n = 3 and 4, fixed-bridge beam systems at
-    n = 101."""
+    float32) by _hold's rule, on 300 lanes (a ragged last block): random
+    SPD systems at n = 3 and 4, fixed-bridge beam systems at n = 101."""
     x32 = (_systems(300, 15, cuda, torch.float32) if n == 101
            else _spd_systems(300, n, n, cuda))
     before = tbt.LAUNCHES["block_tridiag_solve_bidi"]
@@ -842,6 +841,65 @@ def test_bidi_kernel(cuda, n):
     d, u, b = _spd_systems(4, 2, 0, cuda)
     with pytest.raises(ValueError, match="n >= 3"):
         tbt.block_tridiag_solve(d, u, b, bidi=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 4, 5, 17, 18, 64, 65, 101, 1001])
+@pytest.mark.parametrize("B", [1, 33, 300, 2048, 16384])
+def test_bidi_kernel_shapes(cuda, B, n):
+    """Kernel #5 on lanes-first random SPD systems: both parities of n, one
+    row a side (n = 3), two on the left and one on the right (4), the edges
+    of its 8-row tiles on either side of the meeting row (17, 18: row m at a
+    left tile's first row; 64, 65; 1001: a partial first right tile), one
+    lane, ragged blocks (33, 300) and the lanes per block it picks on an
+    H100 (132 SMs): 4 (B = 1, 33, 300), 8 (2048) and 32 (16384).  Against
+    the plain float32 and float64 versions by _hold's rule, the plain
+    float32 one the same two chains."""
+    x32 = _spd_systems(B, n, 1000 * n + B + 11, cuda)
+    before = tbt.LAUNCHES["block_tridiag_solve_bidi"]
+    kern = tbt.launch_thomas_bidi(*x32)
+    assert tbt.LAUNCHES["block_tridiag_solve_bidi"] == before + 1
+    torch.cuda.synchronize()
+    assert kern.shape == (B, n, 3) and kern.is_contiguous()
+    _hold([kern], [tbt.thomas_reference(*(t.double() for t in x32))],
+          [tbt.thomas_bidi_reference(*x32)])
+
+
+@pytest.mark.cuda
+def test_bidi_kernel_keeps_nan_lanes(cuda):
+    """A lane with a NaN diagonal block, on each side of the meeting row,
+    goes NaN; every other lane, in its block and in others, is bitwise what
+    a clean run gives."""
+    x32 = list(_systems(300, 17, cuda, torch.float32))
+    clean = tbt.launch_thomas_bidi(*x32)
+    x32[0] = x32[0].clone()
+    x32[0][40, 20] = float("nan")
+    x32[0][41, 80] = float("nan")
+    kern = tbt.launch_thomas_bidi(*x32)
+    torch.cuda.synchronize()
+    assert torch.isnan(kern[40]).any() and torch.isnan(kern[41]).any()
+    assert torch.isfinite(clean).all()
+    keep = (torch.arange(300, device=cuda) != 40) & (
+        torch.arange(300, device=cuda) != 41)
+    assert torch.equal(kern[keep], clean[keep])
+
+
+@pytest.mark.cuda
+def test_bidi_kernel_rejects_what_it_does_not_take(cuda):
+    """The kernel reads the lanes-first systems as they lie: a transposed
+    view raises instead of being copied, and so does a mesh of fewer than
+    three nodes.  Nothing is counted."""
+    x32 = _spd_systems(40, 101, 4, cuda)
+    before = tbt.LAUNCHES["block_tridiag_solve_bidi"]
+    for i in range(3):
+        bad = list(x32)
+        bad[i] = x32[i].movedim(0, 1).contiguous().movedim(1, 0)
+        assert not bad[i].is_contiguous() and torch.equal(bad[i], x32[i])
+        with pytest.raises(ValueError, match="contiguous"):
+            tbt.launch_thomas_bidi(*bad)
+    with pytest.raises(ValueError, match="n >= 3"):
+        tbt.launch_thomas_bidi(*_spd_systems(40, 2, 4, cuda))
+    assert tbt.LAUNCHES["block_tridiag_solve_bidi"] == before
 
 
 @pytest.mark.cuda

@@ -118,7 +118,6 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
     )
     from openpystruct_tpu_torch.ops import beam_kernel as tk
     from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
-    from openpystruct_tpu_torch.ops.block_tridiag import lanes_last
     from openpystruct_tpu_torch.opt.beam_opt import _adam_scalars
 
     if not torch.cuda.is_available():
@@ -248,6 +247,11 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
     hashes["#3 fixed101"] = _sha_all(tk.beam_solve(
         *(s3[k] for k in ("I", "Le", "free", "rhs")), E, A, 1))
     del x, s3
+
+    def lanes_last(t):
+        """(B, ...) -> contiguous (..., B): the lane-innermost copy a
+        launcher took before its redesign."""
+        return t.movedim(0, -1).contiguous()
 
     def copies(opt):
         return ([lanes_last(t) for t in opt[:-1]] + [opt[-1]]

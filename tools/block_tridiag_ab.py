@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """A/B the float32 block-Thomas kernels (#4, #5, #6) and the streamed
 float64 solve (#9) of two checkouts on one CUDA card: are their outputs
-equal, and how long do #4, #6 and #9 take?
+equal, and how long do #4, #5, #6 and #9 take?
 
     python tools/block_tridiag_ab.py run --tree DIR --out PREFIX
                                          [--layout lanes_first|lanes_last]
+                                         [--bidi-layout lanes_first|lanes_last]
                                          [--dd-layout lanes_first|lanes_last]
     python tools/block_tridiag_ab.py compare PREFIX_A PREFIX_B
 
@@ -30,7 +31,9 @@ of #6 at B = 512, 2048, 8192 and 16384 lanes and n = 51 (random bridge),
 makes when it dispatches to #4) and the launcher alone
 (``launch_thomas_streamed``, ``launch_thomas``); and the device time per
 launch, the mean of 20 under torch.profiler (#6 by sweep, forward and
-backward; #4 its one kernel).  Then #9 at B = 512, 2048, 8192 and 16384
+backward; #4 its one kernel); the same for #5, the wrapper
+``block_tridiag_solve(bidi=True)`` and the launcher ``launch_thomas_bidi``
+(its device us of all its kernels).  Then #9 at B = 512, 2048, 8192 and 16384
 lanes and n = 101, 201 and 1001 (chip_smoke.py phase 6's fixed-span
 lanes): the wrapper ``solve_dd_streamed`` and the launcher
 ``launch_thomas_streamed_dd`` on the float64-assembled systems (CUDA-event
@@ -39,9 +42,10 @@ medians of 20, device us per launch by sweep), and the route
 kernels).  ``--layout`` names #4's launcher contract: ``lanes_first`` (it
 takes the systems as they are) or ``lanes_last`` (it takes lane-innermost
 copies, as before its redesign; they are made outside the launcher's
-timing, inside the wrapper's); ``--dd-layout`` names #9's the same way
-(``lanes_last`` before its redesign).  #6 is taken lanes-first, so the
-tree is one from after #6's redesign.
+timing, inside the wrapper's); ``--bidi-layout`` names #5's and
+``--dd-layout`` #9's the same way (``lanes_last`` before their
+redesigns).  #6 is taken lanes-first, so the tree is one from after #6's
+redesign.
 
 ``compare`` prints each hash's verdict (equal; equal but for the sign of
 zeros, "±0", reported apart and held equal; or differ), #4's and #6's
@@ -67,6 +71,16 @@ SWEEP_N = (51, 101, 201, 1001)
 DD_SWEEP_N = (101, 201, 1001)
 HELD = ("#4", "#5", "#9")       # held to bits; #6 is reported
 DEVICE_US = ("fwd", "bwd", "kernel")   # device us fields, in print order
+
+
+def _lanes_last(t):
+    """(B, ...) -> contiguous (..., B): the lane-innermost copy a launcher
+    took before its redesign."""
+    return t.movedim(0, -1).contiguous()
+
+
+def _lanes_first(t):
+    return t.movedim(-1, 0).contiguous()
 
 
 def _sha(t) -> str:
@@ -99,8 +113,8 @@ def _device_us(torch, fn, sweeps=("fwd", "bwd"), reps=20) -> dict:
 
 
 def run(tree: Path, out: Path, layout: str = "lanes_first",
-        dd_layout: str = "lanes_first", seed: int = 0,
-        B: int = 16384) -> None:
+        dd_layout: str = "lanes_first", bidi_layout: str = "lanes_first",
+        seed: int = 0, B: int = 16384) -> None:
     sys.path.insert(0, str(tree.resolve()))
     sys.path.insert(0, str(tree.resolve() / "tests"))
     import torch
@@ -123,7 +137,8 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
     E, A = beam.E, beam.A
     dev = torch.device("cuda")
     result = dict(tree=str(tree), card=torch.cuda.get_device_name(0),
-                  layout=layout, dd_layout=dd_layout, hashes={},
+                  layout=layout, dd_layout=dd_layout,
+                  bidi_layout=bidi_layout, hashes={},
                   hashes_pm0={}, errors={}, times={})
     arrays = {}
 
@@ -137,9 +152,17 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
     def four(s):
         """#4 on lanes-first systems, through the tree's launcher."""
         if layout == "lanes_last":
-            return tbt.lanes_first(tbt.launch_thomas(
-                *(tbt.lanes_last(t) for t in s)))
+            return _lanes_first(tbt.launch_thomas(
+                *(_lanes_last(t) for t in s)))
         return tbt.launch_thomas(*s)
+
+    def five(s):
+        """#5's launcher on lanes-first systems, through the tree's
+        contract; with lane-innermost copies made before the call."""
+        if bidi_layout == "lanes_last":
+            t = [_lanes_last(x) for x in s]
+            return lambda: tbt.launch_thomas_bidi(*t)
+        return lambda: tbt.launch_thomas_bidi(*s)
 
     for n in (101, 201):
         for label, cfg in (("fixed bridge", ScenarioConfig()),
@@ -149,9 +172,8 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
                                 assemble_beam_system, seed + 10 + n, B, n,
                                 cfg, E, A, dev)
             sys32 = x["sys"]
-            sys_t = [tbt.lanes_last(t) for t in sys32]
             outs = {"#4": four(sys32),
-                    "#5": tbt.lanes_first(tbt.launch_thomas_bidi(*sys_t)),
+                    "#5": tbt.block_tridiag_solve(*sys32, bidi=True),
                     "#6": tbs.block_tridiag_solve_streamed(*sys32)}
             plain = tbt.thomas_reference(*sys32).double()
             torch.cuda.synchronize()
@@ -162,7 +184,7 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
                     torch, k, plain).max().item()
             arrays[key] = outs["#6"].cpu().numpy()
             arrays[f"#4 {key}"] = outs["#4"].cpu().numpy()
-            del x, sys32, sys_t, outs, plain
+            del x, sys32, outs, plain
     # phase 3d's inputs: 3b's random-bridge lanes and the quasi-cantilever
     # ones at n = 101, the span-scaled overhang at n = 1001
     ana_keys = ("I", "Le", "free", "loads", "udl")
@@ -200,7 +222,7 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
                                A, dev)["sys"]
         for lanes in SWEEP_B:
             s = [t[:lanes] for t in full]
-            s4 = ([tbt.lanes_last(t) for t in s] if layout == "lanes_last"
+            s4 = ([_lanes_last(t) for t in s] if layout == "lanes_last"
                   else s)
             result["times"][f"n={n} B={lanes}"] = dict(
                 wrapper=cs.time_ms(
@@ -215,14 +237,20 @@ def run(tree: Path, out: Path, layout: str = "lanes_first",
                     torch, lambda: tbt.launch_thomas(*s4), 20),
                 device_us=_device_us(
                     torch, lambda: tbt.launch_thomas(*s4), sweeps=()))
-            del s, s4
+            launch5 = five(s)
+            result["times"][f"#5 n={n} B={lanes}"] = dict(
+                wrapper=cs.time_ms(torch, lambda: tbt.block_tridiag_solve(
+                    *s, bidi=True), 20),
+                kernel=cs.time_ms(torch, launch5, 20),
+                device_us=_device_us(torch, launch5, sweeps=()))
+            del s, s4, launch5
         del full
 
     def nine(s):
         """#9's launcher on lanes-first systems, through the tree's
         contract; with lane-innermost copies made before the call."""
         if dd_layout == "lanes_last":
-            t = [tbt.lanes_last(x) for x in s]
+            t = [_lanes_last(x) for x in s]
             return lambda: tsd.launch_thomas_streamed_dd(*t)
         return lambda: tsd.launch_thomas_streamed_dd(*s)
 
@@ -296,6 +324,8 @@ def compare_dumps(a: Path, b: Path) -> dict:
                 layouts=(ja.get("layout"), jb.get("layout")),
                 dd_layouts=(ja.get("dd_layout", "lanes_first"),
                             jb.get("dd_layout", "lanes_first")),
+                bidi_layouts=(ja.get("bidi_layout", "lanes_last"),
+                              jb.get("bidi_layout", "lanes_last")),
                 errors=(ja.get("errors", {}), jb.get("errors", {})),
                 times=(ja.get("times", {}), jb.get("times", {})))
 
@@ -312,7 +342,8 @@ def compare(a: Path, b: Path) -> int:
             print(f"#{4 if tag == 'four' else 6} {key}: " + (
                 "bitwise equal" if row["bitwise"] else
                 f"differs by up to {row['max_ulps']} ulp"))
-    for tag, lays in (("#4", r["layouts"]), ("#9", r["dd_layouts"])):
+    for tag, lays in (("#4", r["layouts"]), ("#5", r["bidi_layouts"]),
+                      ("#9", r["dd_layouts"])):
         print(f"{tag} launcher takes " + " / ".join(
             {"lanes_last": "lane-innermost copies of the"}.get(
                 lay, "the lanes-first") for lay in lays) + " systems")
@@ -352,13 +383,16 @@ def main(argv=None) -> int:
                    default="lanes_first")
     r.add_argument("--dd-layout", choices=("lanes_first", "lanes_last"),
                    default="lanes_first")
+    r.add_argument("--bidi-layout", choices=("lanes_first", "lanes_last"),
+                   default="lanes_first")
     c = sub.add_parser("compare")
     c.add_argument("a", type=Path)
     c.add_argument("b", type=Path)
     args = ap.parse_args(argv)
     if args.cmd == "run":
         args.out.parent.mkdir(parents=True, exist_ok=True)
-        run(args.tree, args.out, args.layout, args.dd_layout)
+        run(args.tree, args.out, args.layout, args.dd_layout,
+            args.bidi_layout)
         return 0
     return compare(args.a, args.b)
 
