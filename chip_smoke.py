@@ -2,8 +2,9 @@
 """Drive the PyTorch port's paths once on one CUDA card: datagen (the
 fixed bridge, the random bridge and the 201-node mesh with their float64
 rescue), the split solve path, the differentiable fused analysis, the
-accuracy autopilot with its streamed float64 large-mesh route, and the
-bidirectional block-Thomas experiment.
+accuracy autopilot with its streamed float64 large-mesh route, the
+bidirectional block-Thomas experiment, and the training path (features,
+preprocessing, the TFD surrogate's fit and R^2).
 
     python3 chip_smoke.py [--seed 0] [--quick]
 
@@ -112,7 +113,18 @@ Phases, each of which raises on failure (exit code not 0):
    and solve_beam_checked's two escalation routes in turns on 16384
    fixed-span lanes at n = 201, 501, 1001 and 2001 (the float64 analysis
    wrapper, #7, against the fused ``solve_beam_dd_streamed``, #9), each
-   route's peak device memory, and the ``DD_STREAM_FROM_N`` they imply.
+   route's peak device memory, and the ``DD_STREAM_FROM_N`` they imply;
+7. the training path, north star steps 5-6: ``generate_batch`` over
+   TRAIN_BATCHES x 16384 fixed-bridge lanes (kernels #1 and #2, no plain
+   version), ``batch_feature_arrays``, ``prepare_dataset_device`` with the
+   TFD family's n_cases, c and head padding, ``build_family("tfd")`` at its
+   bfloat16 default, ``fit`` for TRAIN_EPOCHS epochs (10 a host sync) and
+   ``evaluate_r2`` in chunks of 4096: every loss finite, the best val loss
+   below the first epoch's, R^2 finite and above 0, TF32 still off after
+   ``fit``; the best params saved and reloaded (``train/checkpoint.py``)
+   give a bitwise-equal ``predict``; the same weights' float32 R^2 and
+   gap are printed, and a one-epoch fit is profiled (device busy share,
+   top device and host ops).
 
 ``--quick`` stops after phase 3d.  Prints the card line, a JSON line of
 kernel results, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -125,6 +137,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -182,6 +195,8 @@ DD_ROUTE_NS = (201, 501, 1001, 2001)  # meshes that set DD_STREAM_FROM_N
 DD_ROUTE_DEFAULT = 788         # the JAX package's own escalation point
 DD_CHECK_N = 1001      # the span-scaled overhang lanes of phases 3d, 4e
 BACKWARD_FLOOR = 1e-6  # floor of phase 3c's backward-error rule
+TRAIN_BATCHES = 16     # 16384-lane fixed-bridge batches that feed phase 7
+TRAIN_EPOCHS = 30      # phase 7's fixed epoch count (the JAX capstone: 150)
 SPLIT_KERNELS = ("beam_solve", "block_tridiag_solve",
                  "block_tridiag_solve_streamed", "block_tridiag_solve_bidi")
 DATAGEN_KERNELS = ("beam_analysis", "beam_opt_step", "beam_analysis_dd",
@@ -929,8 +944,13 @@ def report_profile(prof, wall, label, top=6):
     host ops that take the most time."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    # one pass over the events (each key_averages() call walks all of them:
+    # ~10 s for a training epoch's); a user annotation (the optimizer's
+    # step range) spans kernels counted on their own
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) * 1e-6
     log(f"  {label}: wall {wall:.3f} s under the profiler, device busy "
         + (f"{busy:.3f} s ({busy / wall:.1%})" if busy > 0
@@ -938,8 +958,7 @@ def report_profile(prof, wall, label, top=6):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total * 1e-3:9.1f} ms  {e.count:6d}x  "
             f"{e.key[:70]}")
-    cpu = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CPU),
+    cpu = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: -e.self_cpu_time_total)[:top]
     for e in cpu:
         log(f"    host {e.self_cpu_time_total * 1e-3:9.1f} ms  {e.count:6d}x  "
@@ -981,6 +1000,127 @@ def profile_split_window(torch, sc, beam, opt, refine):
     report_profile(prof, wall, f"profiled split-path window ({B} lanes, "
                    f"n={n}, {opt.grad_mode}, epochs {epoch}-"
                    f"{epoch + PROFILE_EPOCHS - 1})", top=8)
+
+
+def training_path(torch, seed, mods):
+    """Phase 7: generate -> features -> device preprocessing -> TFD fit ->
+    R^2, all on the card.  Returns the kernels' launches on the path."""
+    import numpy as np
+
+    from openpystruct_tpu_torch.data import prepare_dataset_device
+    from openpystruct_tpu_torch.datagen import (
+        batch_feature_arrays,
+        generate_batch,
+    )
+    from openpystruct_tpu_torch.families import FAMILIES, build_family
+    from openpystruct_tpu_torch.train import (
+        evaluate_r2,
+        fit,
+        load_checkpoint,
+        predict,
+        save_checkpoint,
+    )
+
+    lanes = TRAIN_BATCHES * BATCH
+    log(f"phase 7: the training path: generate_batch {TRAIN_BATCHES} x "
+        f"{BATCH} fixed-bridge lanes -> batch_feature_arrays -> "
+        f"prepare_dataset_device -> TFD fit ({TRAIN_EPOCHS} epochs) -> R^2")
+    reset_counts(*mods)
+    gen = torch.Generator().manual_seed(seed + 70)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = [batch_feature_arrays(generate_batch(gen, BATCH, device="cuda"))
+             for _ in range(TRAIN_BATCHES)]
+    arrays = {k: torch.cat([f[k] for f in feats]) for k in feats[0]}
+    n_valid = int(arrays["valid"].sum())
+    t_gen = time.perf_counter() - t0
+    launches, plain = read_counts(*mods)
+    log(f"  generate + featurize: {t_gen:.2f} s, {lanes / t_gen:.1f} "
+        f"samples/s ({n_valid} valid of {lanes}) | launches "
+        f"{ {k: v for k, v in launches.items() if v} } plain calls "
+        f"{ {k: v for k, v in plain.items() if v} }")
+    if not (launches["beam_analysis"] > 0 and launches["beam_opt_step"] > 0):
+        raise AssertionError(f"a datagen kernel was not launched: {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"a plain version ran on the path: {plain}")
+    del feats
+
+    spec = FAMILIES["tfd"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = prepare_dataset_device(arrays, n_cases=spec.train.n_cases,
+                                c=spec.train.c, nheads_pad=spec.nheads_pad)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    if ds.X_train.device.type != "cuda" or not torch.isfinite(
+            ds.X_train).all():
+        raise AssertionError("preprocessing left the card or is not finite")
+    log(f"  preprocess: {t_prep:.3f} s ({ds.X_train.shape[0]} train / "
+        f"{ds.X_val.shape[0]} val groups, feat {ds.feat_dim})")
+
+    model, spec, fit_kwargs = build_family("tfd", ds.feat_dim)
+    cfg = dataclasses.replace(spec.train, num_epochs=TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit(model, ds.X_train, ds.Y_train, ds.X_val, ds.Y_val, cfg,
+              epochs_per_sync=10, device="cuda", **fit_kwargs)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    ep = len(res.train_losses)
+    if not (np.isfinite(res.train_losses).all()
+            and np.isfinite(res.val_losses).all()):
+        raise AssertionError(f"a non-finite loss: {res.train_losses} "
+                             f"{res.val_losses}")
+    if not res.val_losses.min() < res.val_losses[0]:
+        raise AssertionError(f"no val improvement: {res.val_losses}")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is on after fit")
+    log(f"  train: {ep} epochs in {t_train:.2f} s, "
+        f"{ep * ds.X_train.shape[0] / t_train:.1f} samples/s (epochs x "
+        f"train groups / s) | {model.dtype} | best epoch {res.best_epoch}, "
+        f"val loss {res.val_losses[0]:.4f} -> {res.val_losses.min():.4f}, "
+        f"train loss {res.train_losses[0]:.4f} -> {res.train_losses[-1]:.4f}")
+
+    t0 = time.perf_counter()
+    r2 = evaluate_r2(model, res.params, ds.X_val, ds.Y_val, ds.scaler_Y,
+                     batch_size=4096)
+    log(f"  validation R^2 {r2:.4f} ({time.perf_counter() - t0:.2f} s)")
+    if not (math.isfinite(r2) and r2 > 0):
+        raise AssertionError(f"R^2 {r2}")
+
+    tmp = REPO / ".smoke_tmp"
+    tmp.mkdir(exist_ok=True)
+    try:
+        save_checkpoint(str(tmp / "tfd_best.pt"), res.params)
+        back = load_checkpoint(str(tmp / "tfd_best.pt"), device="cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    X = ds.X_val[:4096]
+    same = torch.equal(predict(model, res.params, X, ds.scaler_Y, seed=1),
+                       predict(model, back, X, ds.scaler_Y, seed=1))
+    if not same:
+        raise AssertionError("the reloaded checkpoint predicts otherwise")
+    # the same weights in float32, whose diffusion step adds noise
+    m32 = build_family("tfd", ds.feat_dim, compute_dtype="float32")[0]
+    r2_32 = evaluate_r2(m32, res.params, ds.X_val, ds.Y_val, ds.scaler_Y,
+                        batch_size=4096)
+    y16 = predict(model, res.params, X, seed=1)
+    y32 = predict(m32, res.params, X, seed=1)
+    log(f"  checkpoint reloaded, predict bitwise equal | the same weights "
+        f"in float32 (its diffusion step adds noise): R^2 {r2_32:.4f}, "
+        f"bfloat16 - float32 max "
+        f"{(y16 - y32).abs().max().item() / y32.abs().max().item():.3e} "
+        f"of the output scale")
+
+    prof, wall = profiled(torch, lambda: fit(
+        model, ds.X_train, ds.Y_train, ds.X_val, ds.Y_val,
+        dataclasses.replace(cfg, num_epochs=1), epochs_per_sync=1,
+        device="cuda"))
+    steps = ds.X_train.shape[0] // cfg.batch_size
+    report_profile(prof, wall, f"profiled one-epoch fit ({steps} steps of "
+                   f"{cfg.batch_size}, val, set-up)", top=8)
+    return launches
 
 
 def make_inputs(torch, sample_scenarios, constraint_mask, seed, B, device,
@@ -1939,6 +2079,13 @@ def main(argv=None) -> int:
                 for n_r in route}
     if read_counts(*mods)[0] == counts_before:
         raise AssertionError("timing loop launched nothing")
+
+    # ---- phase 7: the training path on the card ---------------------------
+    t0 = time.perf_counter()
+    train_launches = training_path(torch, args.seed, mods)
+    for k in kernels:
+        k["launches_training_path"] = train_launches[k["name"]]
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

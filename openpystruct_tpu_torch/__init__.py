@@ -12,4 +12,5 @@ from openpystruct_tpu_torch.config import (  # noqa: F401
     BeamConfig,
     OptimizerConfig,
     ScenarioConfig,
+    TrainConfig,
 )

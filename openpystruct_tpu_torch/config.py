@@ -82,3 +82,27 @@ class ScenarioConfig:
     @property
     def min_force(self) -> float:
         return self.max_force / 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Shared surrogate-training knobs (reference OpenPyStruct_FNN_MultiCase.py:35-51)."""
+
+    n_cases: int = 6
+    nelem: int = 100
+    box_constraint_coeff: float = 5e-1
+    hidden_units: int = 128
+    dropout_rate: float = 0.5
+    num_epochs: int = 500
+    batch_size: int = 128
+    patience: int = 10
+    learning_rate: float = 2e-4
+    weight_decay: float = 1e-2
+    train_split: float = 0.8
+    sigma_0: float = 0.03            # initial Gaussian input-noise level
+    gamma_noise: float = 0.97        # per-epoch noise decay
+    lr_gamma: float = 0.99           # ExponentialLR decay
+    initial_alpha: float = 0.5       # initial L1/L2 blend
+    c: float = 1.0                   # label aggregation: mean + c*std
+    seed: int = 0
+    compute_dtype: str = "bfloat16"  # matmul/compute precision (AMP analog)

@@ -1,6 +1,10 @@
 """Random-scenario training-data generation: fixed and random bridges, any
 mesh size, with the float64 rescue of the lanes the float32 gate rejects."""
 
+from openpystruct_tpu_torch.datagen.features import (  # noqa: F401
+    batch_feature_arrays,
+    extract_padded,
+)
 from openpystruct_tpu_torch.datagen.generate import (  # noqa: F401
     DatagenBatch,
     generate_batch,

@@ -1,0 +1,183 @@
+"""Surrogate-family registry (port of ``families.py``): each reference
+training script's model and hyperparameters as one named recipe.
+
+The table is the JAX package's, field for field (plain data).  Provenance
+(file:line ranges):
+
+  fnn      OpenPyStruct_FNN_MultiCase.py:35-51
+  pinn     OpenPyStruct_PINN_MultiCase.py:34-58
+  fno      OpenPyStruct_FNO_MultiCase_Beta.py:36-62
+  gnn      OpenPyStruct_GNN_MultiCase_Beta.py:37-55
+  tfd      OpenPyStruct_TransformerDiffusionModule_MultiCase.py:36-60
+  bnn      OpenPyStruct_Bayesian_TFDModule_MultiCase_Beta.py:36-65
+  bnn-meta OpenPyStruct_Bayesian_TFDModule_Meta_MultiCase_Beta.py:36-65
+
+``build_family`` builds the TFD; the other six families are not ported yet
+(ROADMAP queue A item 3) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from openpystruct_tpu_torch.config import TrainConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilySpec:
+    name: str
+    train: TrainConfig
+    nheads_pad: Optional[int]          # pipeline feature padding
+    extra_label_keys: Tuple[str, ...]  # PINN appends deflections/rotations
+    model_rng_keys: Tuple[str, ...]
+    decoupled_weight_decay: bool       # AdamW (GNN) vs torch Adam-L2
+    agg: str = "mean_std"
+
+
+FAMILIES = {
+    "fnn": FamilySpec(
+        name="fnn",
+        train=TrainConfig(
+            n_cases=6, hidden_units=128, dropout_rate=0.5, num_epochs=500,
+            batch_size=128, patience=10, learning_rate=2e-4,
+            weight_decay=1e-2, sigma_0=0.03, gamma_noise=0.97, lr_gamma=0.99,
+            c=1.0, box_constraint_coeff=5e-1,
+        ),
+        nheads_pad=None, extra_label_keys=(), model_rng_keys=("dropout",),
+        decoupled_weight_decay=False,
+    ),
+    "pinn": FamilySpec(
+        name="pinn",
+        train=TrainConfig(
+            n_cases=6, hidden_units=350, dropout_rate=0.5, num_epochs=500,
+            batch_size=128, patience=10, learning_rate=5e-4,
+            weight_decay=1e-3, sigma_0=0.01, gamma_noise=0.99, lr_gamma=0.98,
+            c=0.5, box_constraint_coeff=1e-1,
+        ),
+        nheads_pad=None, extra_label_keys=("deflections", "rotations"),
+        model_rng_keys=("dropout",), decoupled_weight_decay=False,
+    ),
+    "fno": FamilySpec(
+        name="fno",
+        train=TrainConfig(
+            n_cases=6, hidden_units=512, dropout_rate=0.1, num_epochs=500,
+            batch_size=512, patience=10, learning_rate=3e-3,
+            weight_decay=1e-6, sigma_0=0.01, gamma_noise=0.95,
+            lr_gamma=0.975, c=0.5, box_constraint_coeff=5e-1,
+            # The reference disables AMP for the FNO — the spectral path is
+            # precision-sensitive (OpenPyStruct_FNO_MultiCase_Beta.py:576-578,
+            # 617-618); every other family autocasts
+            # (OpenPyStruct_FNN_MultiCase.py:490,543-554).
+            compute_dtype="float32",
+        ),
+        nheads_pad=None, extra_label_keys=(), model_rng_keys=("dropout",),
+        decoupled_weight_decay=False,
+    ),
+    "gnn": FamilySpec(
+        name="gnn",
+        train=TrainConfig(
+            n_cases=6, hidden_units=128, dropout_rate=0.5, num_epochs=500,
+            batch_size=512, patience=10, learning_rate=3e-3,
+            weight_decay=1e-2, sigma_0=0.01, gamma_noise=0.99,
+            lr_gamma=0.975, c=0.5, box_constraint_coeff=5e-1,
+        ),
+        nheads_pad=None, extra_label_keys=(), model_rng_keys=("dropout",),
+        decoupled_weight_decay=True,
+    ),
+    "tfd": FamilySpec(
+        name="tfd",
+        train=TrainConfig(
+            n_cases=6, hidden_units=256, dropout_rate=0.1, num_epochs=500,
+            batch_size=512, patience=10, learning_rate=3e-3,
+            weight_decay=1e-4, sigma_0=0.01, gamma_noise=0.90,
+            lr_gamma=0.95, c=0.5, box_constraint_coeff=5e-1,
+        ),
+        nheads_pad=8, extra_label_keys=(),
+        model_rng_keys=("dropout", "diffusion"),
+        decoupled_weight_decay=False,
+    ),
+    "bnn": FamilySpec(
+        name="bnn",
+        train=TrainConfig(
+            n_cases=6, hidden_units=512, dropout_rate=0.1, num_epochs=500,
+            batch_size=512, patience=10, learning_rate=3e-4,
+            weight_decay=1e-6, sigma_0=0.01, gamma_noise=0.95,
+            lr_gamma=0.99, c=0.5, box_constraint_coeff=5e-1,
+        ),
+        nheads_pad=24, extra_label_keys=(),
+        model_rng_keys=("dropout", "diffusion", "bayes"),
+        decoupled_weight_decay=False,
+    ),
+    "bnn-meta": FamilySpec(
+        name="bnn-meta",
+        train=TrainConfig(
+            n_cases=8, hidden_units=512, dropout_rate=0.01, num_epochs=500,
+            batch_size=512, patience=10, learning_rate=3e-4,
+            weight_decay=1e-6, sigma_0=0.01, gamma_noise=0.95,
+            lr_gamma=0.99, c=1.0, box_constraint_coeff=5e-1,
+        ),
+        nheads_pad=24, extra_label_keys=(),
+        model_rng_keys=("dropout", "diffusion", "bayes"),
+        decoupled_weight_decay=False,
+    ),
+}
+
+BNN_KL_SCALE = 1e-6      # OpenPyStruct_Bayesian_TFDModule_MultiCase_Beta.py:57
+PINN_PENALTY = 1.5e-6    # OpenPyStruct_PINN_MultiCase.py:58
+
+
+#: ``TrainConfig.compute_dtype`` values -> model compute dtypes (the analog
+#: of the reference's CUDA AMP autocast, OpenPyStruct_FNN_MultiCase.py:
+#: 490,543-554: matmuls and activations run in the low-precision dtype,
+#: LayerNorms and output heads stay float32, per the models' ``dtype``).
+COMPUTE_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float16": torch.float16,
+}
+
+
+def build_family(name: str, feat_dim: int, nelem: int = 100,
+                 label_dim: Optional[int] = None,
+                 compute_dtype: Optional[str] = None):
+    """Instantiate (model, spec, fit_kwargs) for a family.
+
+    ``feat_dim`` is the (padded) per-case feature width from the pipeline;
+    ``label_dim`` the full label width.  ``compute_dtype`` overrides the
+    family's ``TrainConfig.compute_dtype`` (bfloat16 everywhere but the FNO,
+    which the reference exempts from AMP and stays pinned float32,
+    OpenPyStruct_FNO_MultiCase_Beta.py:617-618).  The model is built on the
+    CPU; ``train.fit`` moves it to its device.  The TFD needs no extra
+    ``fit`` arguments: its eval-time diffusion draws come from the
+    generator every forward takes.
+    """
+    if name not in FAMILIES:
+        raise ValueError(f"unknown family {name!r}; options: {list(FAMILIES)}")
+    spec = FAMILIES[name]
+    cfg = spec.train
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+        spec = dataclasses.replace(spec, train=cfg)
+    if name == "fno" and cfg.compute_dtype != "float32":
+        # precision-sensitive spectral path: the reference's AMP exception
+        # (OpenPyStruct_FNO_MultiCase_Beta.py:576-578,617-618)
+        raise ValueError("the FNO family is pinned float32")
+    dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    label_dim = label_dim or nelem
+    if name != "tfd":
+        raise NotImplementedError(
+            f"family {name!r} is not ported to PyTorch yet (ROADMAP queue A "
+            "item 3); only 'tfd' is")
+    from openpystruct_tpu_torch.models import TransformerDiffusionModel
+
+    model = TransformerDiffusionModel(
+        n_cases=cfg.n_cases, feat_dim=feat_dim, n_elem=label_dim,
+        hidden_units=cfg.hidden_units, num_transformer_layers=2,
+        num_heads=8, dim_feedforward=256,
+        dropout_rate=cfg.dropout_rate, diffusion_hidden_dim=256,
+        dtype=dtype,
+    )
+    return model, spec, {}

@@ -9,7 +9,7 @@ from openpystruct_tpu_torch import config as torch_config
 
 
 @pytest.mark.parametrize("name", ["BeamConfig", "OptimizerConfig",
-                                  "ScenarioConfig"])
+                                  "ScenarioConfig", "TrainConfig"])
 def test_config_fields_match(name):
     j, t = getattr(jax_config, name), getattr(torch_config, name)
     fj = [(f.name, f.default) for f in dataclasses.fields(j)]

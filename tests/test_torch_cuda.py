@@ -1252,3 +1252,44 @@ def test_solve_beam_checked_large_mesh_streams(cuda):
     assert (info["pivot"] > 1e-12).all()
     for m in mods:
         m.reset_counts()
+
+
+@pytest.mark.cuda
+def test_tfd_fit_on_the_card(cuda, monkeypatch):
+    """The training path at full width on 2048 generated lanes: features,
+    device preprocessing, a two-epoch bfloat16 TFD fit, all on the card,
+    every loss finite.  On the trained weights the bfloat16 forward is
+    within 0.1 of the output's scale of the float32 forward with the
+    diffusion step dropped (the step bfloat16 makes an identity; the same
+    tolerance as the CPU test of the two packages' bfloat16 forwards,
+    tests/test_torch_tfd.py)."""
+    from openpystruct_tpu_torch.data import prepare_dataset_device
+    from openpystruct_tpu_torch.datagen import batch_feature_arrays
+    from openpystruct_tpu_torch.families import FAMILIES, build_family
+    from openpystruct_tpu_torch.models import DiffusionModule
+    from openpystruct_tpu_torch.train import fit, predict
+
+    gen = torch.Generator().manual_seed(11)
+    arrays = batch_feature_arrays(generate_batch(gen, 2048, device="cuda"))
+    cfg = FAMILIES["tfd"].train
+    ds = prepare_dataset_device(arrays, n_cases=cfg.n_cases, c=cfg.c,
+                                nheads_pad=FAMILIES["tfd"].nheads_pad)
+    model, spec, kw = build_family("tfd", ds.feat_dim)
+    assert ds.feat_dim == 120 and model.dtype == torch.bfloat16
+    res = fit(model, ds.X_train, ds.Y_train, ds.X_val, ds.Y_val,
+              dataclasses.replace(spec.train, num_epochs=2), device="cuda",
+              **kw)
+    assert len(res.val_losses) == 2
+    assert np.isfinite(res.train_losses).all()
+    assert np.isfinite(res.val_losses).all()
+    assert res.params["alpha"].is_cuda
+    assert not torch.backends.cuda.matmul.allow_tf32
+    m32 = build_family("tfd", ds.feat_dim, compute_dtype="float32")[0]
+    y16 = predict(model, res.params, ds.X_val, seed=1)
+    monkeypatch.setattr(DiffusionModule, "forward",
+                        lambda self, x, generator: x)
+    assert torch.equal(y16, predict(model, res.params, ds.X_val, seed=1))
+    y32 = predict(m32, res.params, ds.X_val, seed=1)
+    assert y16.is_cuda and y16.dtype == torch.float32
+    gap = (y16 - y32).abs().max() / y32.abs().max()
+    assert gap <= 0.1, gap
