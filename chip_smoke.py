@@ -3,8 +3,10 @@
 fixed bridge, the random bridge and the 201-node mesh with their float64
 rescue), the split solve path, the differentiable fused analysis, the
 accuracy autopilot with its streamed float64 large-mesh route, the
-bidirectional block-Thomas experiment, and the training path (features,
-preprocessing, the TFD surrogate's fit and R^2).
+bidirectional block-Thomas experiment, the training path (features,
+preprocessing, the TFD surrogate's fit and R^2), and the file-based
+workflow (crash-safe shards, the 13-key JSON through the native writer and
+reader, the FNN and the PINN trained from that file).
 
     python3 chip_smoke.py [--seed 0] [--quick]
 
@@ -124,7 +126,28 @@ Phases, each of which raises on failure (exit code not 0):
    ``fit``; the best params saved and reloaded (``train/checkpoint.py``)
    give a bitwise-equal ``predict``; the same weights' float32 R^2 and
    gap are printed, and a one-epoch fit is profiled (device busy share,
-   top device and host ops).
+   top device and host ops);
+8. the file-based workflow: ``generate_to_shards`` writes SHARDS x
+   SHARD_LANES random-bridge lanes (#2, #1 and the rescue's #8, #7, no
+   plain version) as ``.npz`` shards to ``.smoke_tmp/``; shard SHARD_LOST
+   is deleted and a second call regenerates exactly that one (one final
+   analysis launched), bitwise the lost one; ``shards_to_json`` writes the
+   13-key JSON through the native C++ writer and ``read_json_dataset``
+   reads it through the native reader (the phase fails if either did not
+   build and load), every column bitwise the shards' valid lanes, and
+   ``json.load`` of shard 0's JSON gives the same columns; one 16384-lane
+   fixed-bridge batch through ``generate_dataset`` (phase 4's route, the
+   columnar lists) and through ``generate_dataset_json`` (the file written
+   by the native writer), their valid samples/s printed (no gate on
+   speed), the file's I, deflections and L equal to the lists'; then for the
+   FNN (n_cases 6, c 1.0) and the PINN (c 0.5, label 302 with the
+   deflections and rotations) ``prepare_dataset`` on the read-back file,
+   ``build_family`` at the published width in bfloat16, ``fit`` for
+   FILE_EPOCHS epochs and ``evaluate_r2`` (the PINN's on the I slice): every
+   loss finite, the best val loss below the first epoch's, R^2 finite and
+   above 0, TF32 off; ``save_preprocessing`` -> ``load_preprocessing`` ->
+   ``build_user_input`` -> ``predict`` bitwise the in-memory scalers'.
+   ``.smoke_tmp/`` is removed at the end.
 
 ``--quick`` stops after phase 3d.  Prints the card line, a JSON line of
 kernel results, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -197,6 +220,10 @@ DD_CHECK_N = 1001      # the span-scaled overhang lanes of phases 3d, 4e
 BACKWARD_FLOOR = 1e-6  # floor of phase 3c's backward-error rule
 TRAIN_BATCHES = 16     # 16384-lane fixed-bridge batches that feed phase 7
 TRAIN_EPOCHS = 30      # phase 7's fixed epoch count (the JAX capstone: 150)
+SHARDS = 4             # phase 8: random-bridge shards of SHARD_LANES lanes
+SHARD_LANES = 8192
+SHARD_LOST = 2         # the shard phase 8 deletes and regenerates
+FILE_EPOCHS = 30       # phase 8's fixed epoch count for the FNN and the PINN
 SPLIT_KERNELS = ("beam_solve", "block_tridiag_solve",
                  "block_tridiag_solve_streamed", "block_tridiag_solve_bidi")
 DATAGEN_KERNELS = ("beam_analysis", "beam_opt_step", "beam_analysis_dd",
@@ -1123,6 +1150,298 @@ def training_path(torch, seed, mods):
     return launches
 
 
+def ragged_rows(values, mask, order):
+    """Each row's values where ``mask`` holds, in ``order``'s rank (ascending
+    node order without one), as the writer lists them: (the concatenated
+    values, the selected node indices, the row lengths)."""
+    import numpy as np
+
+    n = mask.shape[1]
+    rank = np.broadcast_to(np.arange(n), mask.shape) if order is None \
+        else order
+    idx = np.argsort(np.where(mask, rank, np.iinfo(np.int64).max), axis=1,
+                     kind="stable")
+    sel = np.take_along_axis(mask, idx, axis=1)
+    return (np.take_along_axis(values, idx, axis=1)[sel], idx[sel],
+            mask.sum(axis=1))
+
+
+def hold_columns(data, arrays, rows=None, bitwise=True):
+    """Every column of a dataset read back against the shards' valid lanes:
+    the float columns bitwise (the writer prints float32 values' shortest
+    round trip), node tags and counts exactly.  ``rows`` limits the check to
+    the first rows.  ``bitwise=False`` holds values equal instead, for
+    ``json.load``, which reads the writer's "-0" as the integer 0."""
+    import numpy as np
+
+    def same(got, a):
+        if bitwise:
+            return got.shape == a.shape and got.tobytes() == a.tobytes()
+        return np.array_equal(got, a)
+
+    v = arrays["valid"]
+    take = (lambda a: a[v][:rows])
+    node_x, loads = take(arrays["node_x"]), take(arrays["point_loads"])
+    ro = arrays.get("roller_order")
+    fo = arrays.get("force_order")
+    ro = None if ro is None else take(ro)
+    fo = None if fo is None else take(fo)
+    rmask, fmask = take(arrays["roller_mask"]), loads != 0.0
+    want = {
+        "I_values": take(arrays["I"]),
+        "shear_forces": take(arrays["shear_forces"]),
+        "bending_moments": take(arrays["bending_moments"]),
+        "node_positions": node_x,
+        "deflections": take(arrays["deflections"]),
+        "rotations": take(arrays["rotations"]),
+    }
+    rx, r_idx, r_len = ragged_rows(node_x, rmask, ro)
+    fx, f_idx, f_len = ragged_rows(node_x, fmask, fo)
+    fv = ragged_rows(loads, fmask, fo)[0]
+    ragged = {"roller_x_locations": (rx, r_len),
+              "force_x_locations": (fx, f_len),
+              "force_values": (fv, f_len),
+              "roller_nodes": ((r_idx + 1).astype(np.float32), r_len),
+              "force_nodes": ((f_idx + 1).astype(np.float32), f_len)}
+    for key, a in want.items():
+        got = np.asarray(data[key], dtype=np.float32)[:rows]
+        if not same(got, a):
+            raise AssertionError(f"column {key} differs from the shards")
+    for key, (a, lengths) in ragged.items():
+        col = list(data[key])[:rows]
+        got = np.concatenate([np.asarray(r, dtype=np.float32) for r in col])
+        if ([len(r) for r in col] != lengths.tolist()
+                or not same(got, a.astype(np.float32))):
+            raise AssertionError(f"column {key} differs from the shards")
+    if not (np.array_equal(np.asarray(data["L"], np.float64)[:rows],
+                           node_x[:, -1].astype(np.float64))
+            and (np.asarray(data["num_nodes"])[:rows]
+                 == node_x.shape[1]).all()):
+        raise AssertionError("columns L / num_nodes differ from the shards")
+
+
+def file_workflow(torch, seed, mods):
+    """Phase 8: shards -> kill and resume -> JSON through the native writer
+    -> the native reader -> preprocessing -> the FNN and the PINN -> R^2 ->
+    persisted scalers -> predict.  Returns the kernels' launches in the
+    phase."""
+    import os
+
+    import numpy as np
+
+    from openpystruct_tpu_torch.config import ScenarioConfig
+    from openpystruct_tpu_torch.data import (
+        build_user_input,
+        load_preprocessing,
+        prepare_dataset,
+        save_preprocessing,
+    )
+    from openpystruct_tpu_torch.data.pipeline import FEATURE_KEYS
+    from openpystruct_tpu_torch.datagen import (
+        generate_dataset,
+        generate_dataset_json,
+        generate_to_shards,
+        native_available,
+        read_json_dataset,
+        read_npz_shards,
+        reader_available,
+        shards_to_json,
+    )
+    from openpystruct_tpu_torch.datagen import native as tnative
+    from openpystruct_tpu_torch.families import FAMILIES, build_family
+    from openpystruct_tpu_torch.train import evaluate_r2, fit, predict
+
+    lanes = SHARDS * SHARD_LANES
+    log(f"phase 8: the file-based workflow: generate_to_shards {SHARDS} x "
+        f"{SHARD_LANES} random-bridge lanes -> shard {SHARD_LOST} deleted "
+        "and regenerated -> shards_to_json (native) -> read_json_dataset "
+        f"(native) -> prepare_dataset -> FNN and PINN fit ({FILE_EPOCHS} "
+        "epochs) -> R^2 -> save/load_preprocessing -> predict")
+    t0 = time.perf_counter()
+    if not (native_available() and reader_available()):
+        raise AssertionError("the native JSON writer or reader did not build "
+                             "and load (no fallback on the card)")
+    libs = [tnative.library_path(src, flags).name for src, flags in (
+        ("dataset_writer.cpp", tnative.WRITER_FLAGS),
+        ("dataset_reader.cpp", tnative.READER_FLAGS))]
+    log(f"  native writer and reader built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s: {libs}")
+
+    tmp = REPO / ".smoke_tmp" / "files"
+    shutil.rmtree(tmp, ignore_errors=True)
+    shard_dir = tmp / "shards"
+    rb = ScenarioConfig(random_bridge=True)
+    reset_counts(*mods)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = generate_to_shards(seed + 80, lanes, str(shard_dir),
+                                   batch_size=SHARD_LANES, scen_cfg=rb,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        t_shards = time.perf_counter() - t0
+        first, plain = read_counts(*mods)
+        if any(plain.values()):
+            raise AssertionError(f"a plain version ran on the path: {plain}")
+        arrays = read_npz_shards(paths)
+        n_valid = int(arrays["valid"].sum())
+        log(f"  generate_to_shards: {t_shards:.2f} s, {n_valid} valid of "
+            f"{lanes} ({n_valid / t_shards:.1f} valid samples/s, .npz "
+            f"{sum(os.path.getsize(p) for p in paths) / 2**20:.1f} MiB) | "
+            f"launches { {k: v for k, v in first.items() if v} }")
+
+        with np.load(paths[SHARD_LOST]) as z:
+            lost = {k: z[k] for k in z.files}
+        os.remove(paths[SHARD_LOST])
+        seen = []
+        t0 = time.perf_counter()
+        again = generate_to_shards(seed + 80, lanes, str(shard_dir),
+                                   batch_size=SHARD_LANES, scen_cfg=rb,
+                                   device="cuda", on_batch=seen.append)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+        after = read_counts(*mods)[0]
+        resumed = {k: after[k] - first[k] for k in after}
+        if again != paths or len(seen) != 1 or resumed["beam_analysis"] != 1:
+            raise AssertionError(f"the resume regenerated {len(seen)} shards "
+                                 f"({resumed['beam_analysis']} final "
+                                 "analyses), not one")
+        with np.load(paths[SHARD_LOST]) as z:
+            same = set(z.files) == set(lost) and all(
+                z[k].tobytes() == lost[k].tobytes() for k in lost)
+        if not same:
+            raise AssertionError(f"shard {SHARD_LOST} regenerated otherwise")
+        log(f"  shard {SHARD_LOST} deleted and regenerated in "
+            f"{t_resume:.2f} s, bitwise the lost one; launches "
+            f"{ {k: v for k, v in resumed.items() if v} }")
+
+        path = tmp / "dataset.json"
+        t0 = time.perf_counter()
+        written = shards_to_json(paths, str(path))
+        t_json = time.perf_counter() - t0
+        size = path.stat().st_size
+        t0 = time.perf_counter()
+        data = read_json_dataset(str(path), native=True)
+        t_read = time.perf_counter() - t0
+        if written != n_valid or len(data["L"]) != n_valid or not isinstance(
+                data["I_values"], np.ndarray):
+            raise AssertionError("the native JSON round trip lost rows or "
+                                 "fell back to json.load")
+        hold_columns(data, arrays)
+        log(f"  shards_to_json: {size / 2**30:.3f} GiB in {t_json:.2f} s "
+            f"({size / 2**20 / t_json:.1f} MiB/s) | read_json_dataset "
+            f"(native) {t_read:.2f} s ({size / 2**20 / t_read:.1f} MiB/s) | "
+            f"every column bitwise the shards' {n_valid} valid lanes")
+        path0 = tmp / "shard0.json"
+        n0 = shards_to_json(paths[:1], str(path0))
+        t0 = time.perf_counter()
+        with open(path0) as f:
+            doc = json.load(f)
+        t_load0 = time.perf_counter() - t0
+        hold_columns(doc, read_npz_shards(paths[:1]), bitwise=False)
+        hold_columns(data, arrays, rows=n0)
+        log(f"  json.load of shard 0's JSON ({n0} rows, "
+            f"{path0.stat().st_size / 2**20:.1f} MiB) {t_load0:.2f} s: the "
+            "same columns (equal in value: json.load reads -0 as 0)")
+        del doc, arrays, lost
+
+        # the streamed route against phase 4's on one fixed-bridge batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cols = generate_dataset(seed + 81, BATCH, batch_size=BATCH,
+                                device="cuda")
+        t_lists = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_stream = generate_dataset_json(seed + 81, BATCH, str(tmp /
+                                         "stream.json"), batch_size=BATCH,
+                                         device="cuda")
+        t_stream = time.perf_counter() - t0
+        stream = read_json_dataset(str(tmp / "stream.json"))
+        if n_stream != len(cols["I_values"]) or not all(
+                np.array_equal(np.asarray(cols[k], np.float32),
+                               np.asarray(stream[k], np.float32))
+                for k in ("I_values", "deflections", "L")):
+            raise AssertionError("the streamed JSON differs from the "
+                                 "columnar lists")
+        log(f"  one {BATCH}-lane fixed-bridge batch: generate_dataset "
+            f"(phase 4's route, columnar lists, no file) {t_lists:.2f} s, "
+            f"{n_stream / t_lists:.1f} valid samples/s | "
+            f"generate_dataset_json (native writer, the file written) "
+            f"{t_stream:.2f} s, {n_stream / t_stream:.1f} valid samples/s "
+            f"| {(tmp / 'stream.json').stat().st_size / 2**20:.1f} MiB, "
+            "I, deflections and L equal to the lists'")
+        del cols, stream
+        launches, plain = read_counts(*mods)
+        if any(plain.values()):
+            raise AssertionError(f"a plain version ran on the path: {plain}")
+        missing = [k for k in DATAGEN_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"not launched in phase 8: {missing}")
+
+        for name in ("fnn", "pinn"):
+            spec = FAMILIES[name]
+            t0 = time.perf_counter()
+            ds = prepare_dataset(data, n_cases=spec.train.n_cases,
+                                 c=spec.train.c,
+                                 extra_label_keys=spec.extra_label_keys)
+            t_prep = time.perf_counter() - t0
+            model, spec, fit_kwargs = build_family(name, ds.feat_dim,
+                                                   label_dim=ds.label_dim)
+            cfg = dataclasses.replace(spec.train, num_epochs=FILE_EPOCHS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fit(model, ds.X_train, ds.Y_train, ds.X_val, ds.Y_val, cfg,
+                      epochs_per_sync=10, device="cuda", **fit_kwargs)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            ep = len(res.train_losses)
+            if not (np.isfinite(res.train_losses).all()
+                    and np.isfinite(res.val_losses).all()):
+                raise AssertionError(f"{name}: a non-finite loss")
+            if not res.val_losses.min() < res.val_losses[0]:
+                raise AssertionError(f"{name}: no val improvement: "
+                                     f"{res.val_losses}")
+            if (torch.backends.cuda.matmul.allow_tf32
+                    or torch.get_float32_matmul_precision() != "highest"):
+                raise AssertionError("TF32 is on after fit")
+            sl = slice(0, 100) if name == "pinn" else None
+            r2 = evaluate_r2(model, res.params, ds.X_val, ds.Y_val,
+                             ds.scaler_Y, label_slice=sl, batch_size=4096,
+                             device="cuda")
+            if not (math.isfinite(r2) and r2 > 0):
+                raise AssertionError(f"{name}: R^2 {r2}")
+            pre = tmp / f"{name}_preprocessing.npz"
+            save_preprocessing(ds, str(pre), nelem=100)
+            back = load_preprocessing(str(pre))
+            lists = [list(data[k][:ds.n_cases]) for k in FEATURE_KEYS]
+            x_mem = build_user_input(*lists, ds.scalers, ds.n_cases,
+                                     ds.max_lengths)
+            x_disk = build_user_input(*lists, back["scalers"],
+                                      back["n_cases"], back["max_lengths"])
+            y_mem = predict(model, res.params, x_mem, ds.scaler_Y,
+                            device="cuda")
+            y_disk = predict(model, res.params, x_disk, back["scaler_Y"],
+                             device="cuda")
+            if not torch.equal(y_mem, y_disk) or back["nelem"] != 100:
+                raise AssertionError(f"{name}: the persisted scalers predict "
+                                     "otherwise")
+            stats = [k for k in res.params["model"] if "running_" in k]
+            log(f"  {name}: prepare_dataset {t_prep:.2f} s ({ds.X_train.shape[0]} "
+                f"train / {ds.X_val.shape[0]} val groups, feat {ds.feat_dim}, "
+                f"label {ds.label_dim}) | fit {ep} epochs in {t_train:.2f} s, "
+                f"{ep * ds.X_train.shape[0] / t_train:.1f} samples/s (epochs "
+                f"x train groups / s) | {model.dtype} | best epoch "
+                f"{res.best_epoch}, val loss {res.val_losses[0]:.4f} -> "
+                f"{res.val_losses.min():.4f} | R^2 "
+                f"{'(I slice) ' if sl else ''}{r2:.4f} | "
+                f"{len(stats)} BatchNorm buffers carried | persisted "
+                "scalers: predict bitwise equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def make_inputs(torch, sample_scenarios, constraint_mask, seed, B, device,
                 cfg=None):
     gen = torch.Generator().manual_seed(seed)
@@ -1447,7 +1766,7 @@ def main(argv=None) -> int:
         write_json_dataset(cols, str(path))
         t_write = time.perf_counter() - t0
         t0 = time.perf_counter()
-        back = read_json_dataset(str(path))
+        back = read_json_dataset(str(path), native=False)
         t_read = time.perf_counter() - t0
         size_mb = path.stat().st_size / 2**20
     finally:
@@ -2086,6 +2405,13 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_training_path"] = train_launches[k["name"]]
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 8: the file-based workflow on the card ---------------------
+    t0 = time.perf_counter()
+    file_launches = file_workflow(torch, args.seed, mods)
+    for k in kernels:
+        k["launches_file_workflow"] = file_launches[k["name"]]
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -1,8 +1,13 @@
 """Shared preprocessing pipeline (the reference's L3 layer): the host numpy
-pipeline and its on-device mirror."""
+pipeline, its on-device mirror, and the scalers saved to and loaded from
+disk."""
 
 from openpystruct_tpu_torch.data.device_pipeline import (  # noqa: F401
     prepare_dataset_device,
+)
+from openpystruct_tpu_torch.data.persist import (  # noqa: F401
+    load_preprocessing,
+    save_preprocessing,
 )
 from openpystruct_tpu_torch.data.pipeline import (  # noqa: F401
     DatasetSplits,

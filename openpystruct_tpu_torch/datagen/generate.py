@@ -27,16 +27,24 @@ there is no float64 adjoint kernel to keep the rescue on the card.
 
 Rescued lanes are valid when finite with a pivot above ``RESCUE_PIVOT_TOL``.
 The JAX package's multi-host rescue (each process rescuing its own shard)
-waits for the port's distribution slice; the native JSON writer is not
-ported.
+waits for the port's distribution slice.
+
+Three routes write a dataset to disk: ``generate_dataset`` returns the
+columnar lists (``io.write_json_dataset`` dumps them);
+``generate_dataset_json`` streams each batch's arrays through the native
+writer (``native.JsonStreamWriter``), peak host memory one batch; and
+``generate_to_shards`` writes one crash-safe ``.npz`` shard a batch, which
+``shards_to_json`` turns into the same JSON.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable, Optional
+import os
+from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from openpystruct_tpu_torch.config import (
@@ -45,7 +53,12 @@ from openpystruct_tpu_torch.config import (
     OptimizerConfig,
     ScenarioConfig,
 )
-from openpystruct_tpu_torch.datagen.io import batch_to_columnar, merge_columnar
+from openpystruct_tpu_torch.datagen.io import (
+    _json_fields,
+    batch_to_columnar,
+    merge_columnar,
+    write_npz_shard,
+)
 from openpystruct_tpu_torch.datagen.sampler import sample_scenarios
 from openpystruct_tpu_torch.device import resolve_device
 from openpystruct_tpu_torch.fem.beam import (
@@ -282,28 +295,119 @@ def generate_batch(generator: torch.Generator, batch_size: int,
     return batch
 
 
-def generate_dataset(seed: int, num_samples: int, batch_size: int = 1024,
-                     scen_cfg: ScenarioConfig = ScenarioConfig(),
-                     beam_cfg: Optional[BeamConfig] = None,
-                     opt_cfg: OptimizerConfig = DATAGEN_OPT, refine: int = 1,
-                     pivot_tol: float = 1e-9, compact: Optional[bool] = None,
-                     rescue=None, device="cuda", dtype=torch.float32,
-                     on_batch: Optional[Callable[[DatagenBatch], None]] = None,
-                     ) -> dict:
-    """Generate ``num_samples`` scenarios in batches and return the valid
-    ones as a host-side columnar dict in the reference's 13-key schema
-    (OpenPyStruct_BeamOpt_training_SingleCore.py:73-87).  ``on_batch``, if
-    given, sees every DatagenBatch (progress, statistics)."""
-    generator = torch.Generator().manual_seed(seed)
-    chunks = []
-    done = 0
-    while done < num_samples:
-        b = min(batch_size, num_samples - done)
-        batch = generate_batch(generator, b, scen_cfg, beam_cfg, opt_cfg,
-                               refine, pivot_tol, compact, rescue, device,
-                               dtype)
+def _batches(num_samples: int, batch_size: int,
+             generator_of: Callable[[int], torch.Generator], batch_kw: dict,
+             on_batch: Optional[Callable[[DatagenBatch], None]],
+             skip: Callable[[int], bool] = lambda i: False):
+    """Yield ``(i, batch)`` for the ``ceil(num_samples / batch_size)``
+    batches of a run, batch i drawn from ``generator_of(i)`` through
+    ``generate_batch(..., **batch_kw)``; batches with ``skip(i)`` are not
+    generated.  ``on_batch``, if given, sees every generated batch."""
+    for i in range(-(-num_samples // batch_size)):
+        if skip(i):
+            continue
+        b = min(batch_size, num_samples - i * batch_size)
+        batch = generate_batch(generator_of(i), b, **batch_kw)
         if on_batch is not None:
             on_batch(batch)
-        chunks.append(batch_to_columnar(batch))
-        done += b
-    return merge_columnar(chunks)
+        yield i, batch
+
+
+def generate_dataset(seed: int, num_samples: int, batch_size: int = 1024,
+                     on_batch: Optional[Callable[[DatagenBatch], None]] = None,
+                     **batch_kw) -> dict:
+    """Generate ``num_samples`` scenarios in batches and return the valid
+    ones as a host-side columnar dict in the reference's 13-key schema
+    (OpenPyStruct_BeamOpt_training_SingleCore.py:73-87).  ``batch_kw`` goes
+    to ``generate_batch`` (``scen_cfg``, ``beam_cfg``, ``opt_cfg``,
+    ``refine``, ``pivot_tol``, ``compact``, ``rescue``, ``device``,
+    ``dtype``); one ``torch.Generator(seed)`` runs across the batches.
+    ``on_batch``, if given, sees every DatagenBatch (progress,
+    statistics)."""
+    generator = torch.Generator().manual_seed(seed)
+    return merge_columnar([
+        batch_to_columnar(batch) for _, batch in _batches(
+            num_samples, batch_size, lambda i: generator, batch_kw,
+            on_batch)])
+
+
+def generate_dataset_json(seed: int, num_samples: int, path: str,
+                          batch_size: int = 8192,
+                          on_batch: Optional[Callable[[DatagenBatch], None]]
+                          = None, **batch_kw) -> int:
+    """Generate ``num_samples`` scenarios and stream the 13-key JSON to
+    ``path`` batch by batch through ``native.JsonStreamWriter`` (the native
+    C++ writer, or its Python fragments without a toolchain), serializing
+    straight from each batch's arrays: peak host memory is one batch, and
+    no per-sample Python lists are built.  ``batch_kw`` and the one
+    ``torch.Generator(seed)`` across the batches are ``generate_dataset``'s,
+    so the same seed and ``batch_size`` give the same samples.  Returns the
+    number of valid samples written."""
+    from openpystruct_tpu_torch.datagen.native import JsonStreamWriter
+
+    generator = torch.Generator().manual_seed(seed)
+    writer = JsonStreamWriter(path)
+    for _, batch in _batches(num_samples, batch_size, lambda i: generator,
+                             batch_kw, on_batch):
+        writer.append(_json_fields(batch))
+    return writer.finalize()
+
+
+def shard_generator(seed: int, index: int) -> torch.Generator:
+    """The generator of shard ``index``: seeded from
+    ``np.random.SeedSequence([seed, index])``, the counterpart of the JAX
+    package's ``fold_in(key, index)``.  A pure function of (seed, index), so
+    a shard regenerated after a crash draws what the lost one drew."""
+    s = np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(s[0]) >> 1)
+
+
+def generate_to_shards(seed: int, num_samples: int, shard_dir: str,
+                       batch_size: int = 8192,
+                       on_batch: Optional[Callable[[DatagenBatch], None]]
+                       = None, **batch_kw) -> List[str]:
+    """Crash-safe generation: one ``.npz`` shard (``io.write_npz_shard``)
+    per batch, ``shard_{i:05d}.npz`` in ``shard_dir``; ``batch_kw`` as in
+    ``generate_dataset``.
+
+    Shard i draws from ``shard_generator(seed, i)``, so it does not depend on
+    the other shards.  Each shard is written to ``.tmp.npz`` and renamed
+    into place, so a shard on disk is whole; a restart skips the shards
+    already there and generates only the missing ones (the reference writes
+    its JSON once at the end, and a crash loses everything,
+    OpenPyStruct_BeamOpt_training_SingleCore.py:263-264).  ``on_batch``
+    sees each generated batch.  Returns every shard's path, in order.
+    """
+    os.makedirs(shard_dir, exist_ok=True)
+    paths = [os.path.join(shard_dir, f"shard_{i:05d}.npz")
+             for i in range(-(-num_samples // batch_size))]
+    for i, batch in _batches(num_samples, batch_size,
+                             lambda i: shard_generator(seed, i), batch_kw,
+                             on_batch, skip=lambda i: os.path.exists(paths[i])):
+        # np.savez appends .npz to a name without it: keep it explicit
+        tmp = paths[i][: -len(".npz")] + ".tmp.npz"
+        write_npz_shard(batch, tmp)
+        os.replace(tmp, paths[i])
+    return paths
+
+
+def shards_to_json(shard_paths, path: str) -> int:
+    """Convert ``.npz`` shards (``generate_to_shards``) to the 13-key JSON
+    through ``native.JsonStreamWriter``, one shard in memory at a time.
+    Returns the number of valid samples written."""
+    from openpystruct_tpu_torch.datagen.native import JsonStreamWriter
+
+    writer = JsonStreamWriter(path)
+    for p in shard_paths:
+        with np.load(p) as z:
+            fields = dict(
+                node_x=z["node_x"], roller=z["roller_mask"],
+                loads=z["point_loads"], I=z["I"], shear=z["shear_forces"],
+                moment=z["bending_moments"], defl=z["deflections"],
+                rot=z["rotations"], valid=z["valid"],
+            )
+            for k in ("roller_order", "force_order"):
+                if k in z.files:
+                    fields[k] = z[k]
+            writer.append(fields)
+    return writer.finalize()

@@ -6,14 +6,17 @@
   lists, 1-based node tags;
 - array-native ``.npz`` shards of the masked fixed-size representation.
 
-The JAX package also has a native C++ JSON writer and reader
-(``native/*.cpp``); the port writes and reads with the standard library.
+``write_json_dataset`` dumps a columnar dict with ``json.dump``;
+``read_json_dataset`` parses with the native C++ reader by default and
+falls back to ``json.load`` (``datagen/native.py``).  The streamed writer
+that serializes straight from the arrays is ``native.JsonStreamWriter``
+(``generate.generate_dataset_json``, ``generate.shards_to_json``).
 """
 
 from __future__ import annotations
 
 import json
-from typing import Iterable
+from typing import Iterable, List
 
 import numpy as np
 
@@ -38,11 +41,10 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def batch_to_columnar(batch) -> dict:
-    """One DatagenBatch -> the 13-key columnar schema on the host, dropping
-    invalid samples (the reference's None-filtering,
-    OpenPyStruct_BeamOpt_training_MultiCore.py:264-265).  Only the fields
-    the schema needs leave the device."""
+def _json_fields(batch) -> dict:
+    """The arrays of a DatagenBatch that the 13-key schema needs, on the
+    host as numpy: one ``.cpu()`` per field and nothing else (the batch
+    carries ~4x more: displacements, the optimizer state)."""
     sc, res = batch.scenario, batch.result
     fields = dict(
         node_x=_np(sc.node_x), roller=_np(sc.roller_mask),
@@ -56,7 +58,15 @@ def batch_to_columnar(batch) -> dict:
         fields["roller_order"] = _np(sc.roller_order)
     if sc.force_order is not None:
         fields["force_order"] = _np(sc.force_order)
-    return columnar_from_fields(fields)
+    return fields
+
+
+def batch_to_columnar(batch) -> dict:
+    """One DatagenBatch -> the 13-key columnar schema on the host, dropping
+    invalid samples (the reference's None-filtering,
+    OpenPyStruct_BeamOpt_training_MultiCore.py:264-265).  Only the fields
+    the schema needs leave the device."""
+    return columnar_from_fields(_json_fields(batch))
 
 
 def columnar_from_fields(fields: dict) -> dict:
@@ -115,10 +125,27 @@ def write_json_dataset(columnar: dict, path: str) -> None:
         json.dump(columnar, f)
 
 
-def read_json_dataset(path: str) -> dict:
-    """Load a 13-key schema dataset with ``json.load``."""
-    with open(path, "r") as f:
-        data = json.load(f)
+def read_json_dataset(path: str, native: bool = True) -> dict:
+    """Load a 13-key schema dataset.
+
+    With ``native=True`` (the default) the C++ single-pass reader parses the
+    file when it can be built: columns come back as numpy arrays, (rows,
+    width) float32 where the rows are uniform, a list of float32 row arrays
+    where they are ragged, and (rows,) float64 for the scalar columns
+    (num_nodes, L).  ``prepare_dataset`` takes either form.  Without the
+    reader, or on a file it does not parse, ``json.load`` reads it (nested
+    Python lists, ints where the file has ints).
+    """
+    data = None
+    if native:
+        from openpystruct_tpu_torch.datagen.native import (
+            read_json_dataset_native,
+        )
+
+        data = read_json_dataset_native(path, SCHEMA_KEYS)
+    if data is None:
+        with open(path, "r") as f:
+            data = json.load(f)
     missing = [k for k in SCHEMA_KEYS if k not in data]
     if missing:
         raise ValueError(f"dataset at {path} missing keys: {missing}")
@@ -149,3 +176,14 @@ def write_npz_shard(batch, path: str) -> None:
         valid=_np(batch.valid),
         residual=_np(batch.residual),
     )
+
+
+def read_npz_shards(paths: List[str]) -> dict:
+    """Concatenate ``.npz`` shards (``write_npz_shard``) field by field along
+    the lane axis."""
+    arrays = {}
+    for p in paths:
+        with np.load(p) as z:
+            for k in z.files:
+                arrays.setdefault(k, []).append(z[k])
+    return {k: np.concatenate(v, axis=0) for k, v in arrays.items()}

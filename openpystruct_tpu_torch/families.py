@@ -12,8 +12,9 @@ The table is the JAX package's, field for field (plain data).  Provenance
   bnn      OpenPyStruct_Bayesian_TFDModule_MultiCase_Beta.py:36-65
   bnn-meta OpenPyStruct_Bayesian_TFDModule_Meta_MultiCase_Beta.py:36-65
 
-``build_family`` builds the TFD; the other six families are not ported yet
-(ROADMAP queue A item 3) and raise ``NotImplementedError``.
+``build_family`` builds the FNN, the PINN and the TFD; the GNN, the FNO
+and the Bayesian TFDs are not ported yet (ROADMAP queue A item 3) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -146,13 +147,14 @@ def build_family(name: str, feat_dim: int, nelem: int = 100,
     """Instantiate (model, spec, fit_kwargs) for a family.
 
     ``feat_dim`` is the (padded) per-case feature width from the pipeline;
-    ``label_dim`` the full label width.  ``compute_dtype`` overrides the
-    family's ``TrainConfig.compute_dtype`` (bfloat16 everywhere but the FNO,
-    which the reference exempts from AMP and stays pinned float32,
-    OpenPyStruct_FNO_MultiCase_Beta.py:617-618).  The model is built on the
-    CPU; ``train.fit`` moves it to its device.  The TFD needs no extra
-    ``fit`` arguments: its eval-time diffusion draws come from the
-    generator every forward takes.
+    ``label_dim`` the full label width (the PINN's nelem + 2 (nelem + 1)).
+    ``compute_dtype`` overrides the family's ``TrainConfig.compute_dtype``
+    (bfloat16 everywhere but the FNO, which the reference exempts from AMP
+    and stays pinned float32, OpenPyStruct_FNO_MultiCase_Beta.py:617-618).
+    The model is built on the CPU; ``train.fit`` moves it to its device.
+    ``fit_kwargs`` holds what ``fit`` needs beyond the data: the PINN's
+    ``loss_fn_builder``; the FNN and the TFD need nothing (the TFD's
+    eval-time diffusion draws come from the generator every forward takes).
     """
     if name not in FAMILIES:
         raise ValueError(f"unknown family {name!r}; options: {list(FAMILIES)}")
@@ -167,17 +169,55 @@ def build_family(name: str, feat_dim: int, nelem: int = 100,
         raise ValueError("the FNO family is pinned float32")
     dtype = COMPUTE_DTYPES[cfg.compute_dtype]
     label_dim = label_dim or nelem
-    if name != "tfd":
+    fit_kwargs = {}
+    if name in ("gnn", "fno", "bnn", "bnn-meta"):
         raise NotImplementedError(
             f"family {name!r} is not ported to PyTorch yet (ROADMAP queue A "
-            "item 3); only 'tfd' is")
-    from openpystruct_tpu_torch.models import TransformerDiffusionModel
-
-    model = TransformerDiffusionModel(
-        n_cases=cfg.n_cases, feat_dim=feat_dim, n_elem=label_dim,
-        hidden_units=cfg.hidden_units, num_transformer_layers=2,
-        num_heads=8, dim_feedforward=256,
-        dropout_rate=cfg.dropout_rate, diffusion_hidden_dim=256,
-        dtype=dtype,
+            "item 3: the GNN with AdamW, the FNO, the Bayesian TFDs with "
+            "param_loss_fn)")
+    from openpystruct_tpu_torch.models import (
+        FNNWithResidual,
+        PINNWithResidual,
+        TransformerDiffusionModel,
+        composite_pinn_loss,
     )
-    return model, spec, {}
+
+    if name == "fnn":
+        model = FNNWithResidual(
+            input_dim=cfg.n_cases * feat_dim, hidden_dim=cfg.hidden_units,
+            num_blocks=4, output_dim=label_dim,
+            dropout_rate=cfg.dropout_rate, dtype=dtype,
+        )
+    elif name == "pinn":
+        model = PINNWithResidual(
+            input_dim=cfg.n_cases * feat_dim, hidden_dim=cfg.hidden_units,
+            num_blocks=2, output_dim=label_dim,
+            dropout_rate=cfg.dropout_rate, dtype=dtype,
+        )
+
+        def pinn_loss_builder(Y_train):
+            # box bounds at the min and max of the STANDARDIZED train
+            # labels' I slice (OpenPyStruct_PINN_MultiCase.py:377-378,
+            # applied at 556-558,588-597), on the device; one process
+            min_c, max_c = Y_train[:, :nelem].min(), Y_train[:, :nelem].max()
+
+            def pinn_loss(alpha, preds, targets):
+                return composite_pinn_loss(
+                    alpha, preds, targets, nelem=nelem,
+                    min_constraint=min_c, max_constraint=max_c,
+                    box_constraint_coeff=cfg.box_constraint_coeff,
+                    penalty_pinn=PINN_PENALTY,
+                )
+
+            return pinn_loss
+
+        fit_kwargs["loss_fn_builder"] = pinn_loss_builder
+    else:
+        model = TransformerDiffusionModel(
+            n_cases=cfg.n_cases, feat_dim=feat_dim, n_elem=label_dim,
+            hidden_units=cfg.hidden_units, num_transformer_layers=2,
+            num_heads=8, dim_feedforward=256,
+            dropout_rate=cfg.dropout_rate, diffusion_hidden_dim=256,
+            dtype=dtype,
+        )
+    return model, spec, fit_kwargs

@@ -1,7 +1,7 @@
 """State carried between the JAX package and the port as numpy arrays.
 
-What crosses over is scenarios, optimizer state and the TFD surrogate's
-weights.  The tests draw scenarios with the JAX sampler and initialize
+What crosses over is scenarios, optimizer state and the surrogates'
+weights (the TFD, the FNN and the PINN, with its BatchNorm statistics).  The tests draw scenarios with the JAX sampler and initialize
 weights with flax (torch draws cannot match ``jax.random``), pass them
 through here, and hold the port's results against the JAX package's on the
 same inputs.
@@ -145,3 +145,132 @@ def tfd_params_to_flax(state: dict, num_heads: int) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(a)
     return tree
+
+
+# flax module names in the FNN's and the PINN's trees -> the port's
+# (models/fnn.py, models/pinn.py)
+_MLP_MODULES = (("Dense_", "dense_"), ("LayerNorm_", "norm_"),
+                ("BatchNorm_", "norm_"), ("PINNResidualBlock_", "blocks."),
+                ("ResidualBlock_", "blocks."), ("Conv_", "conv"))
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _mlp_name(mods) -> str:
+    out = []
+    for m in mods:
+        for flax_prefix, port in _MLP_MODULES:
+            if m.startswith(flax_prefix):
+                out.append(port if port == "conv"
+                           else port + m[len(flax_prefix):])
+                break
+        else:
+            raise ValueError(f"unknown flax module {m!r}")
+    return ".".join(out)
+
+
+def _mlp_from_flax(params: dict, batch_stats, device) -> dict:
+    """Dense kernels (in, out) -> (out, in) weights; the conv kernel (k,
+    in, out) -> (out, in, k); norm scales -> weights; batch_stats mean /
+    var -> running_mean / running_var buffers."""
+    device = resolve_device(device)
+    out = {}
+    for path, a in _flatten(params):
+        a = np.asarray(a)
+        *mods, leaf = path
+        if leaf == "kernel":
+            a, leaf = (a.T if a.ndim == 2 else a.transpose(2, 1, 0)), "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        out[f"{_mlp_name(mods)}.{leaf}"] = torch.tensor(
+            np.ascontiguousarray(a), device=device)
+    for path, a in _flatten(batch_stats or {}):
+        *mods, leaf = path
+        out[f"{_mlp_name(mods)}.{_STATS[leaf]}"] = torch.tensor(
+            np.ascontiguousarray(np.asarray(a)), device=device)
+    return out
+
+
+def _mlp_to_flax(state: dict, block: str):
+    """The inverse of ``_mlp_from_flax``: (params, batch_stats) trees of
+    numpy arrays; ``block`` is the flax name of the residual block."""
+    bn = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
+    params, stats = {}, {}
+    for name, t in state.items():
+        a = t.detach().cpu().numpy()
+        *mods, leaf = name.split(".")
+        path, prefix, i = [], [], 0
+        while i < len(mods):
+            m = mods[i]
+            if m == "blocks":
+                path.append(f"{block}_{mods[i + 1]}")
+                prefix += mods[i:i + 2]
+                i += 2
+                continue
+            prefix.append(m)
+            if m == "conv":
+                path.append("Conv_0")
+            elif m.startswith("dense_"):
+                path.append("Dense_" + m[len("dense_"):])
+            else:
+                kind = ("BatchNorm_" if ".".join(prefix) in bn
+                        else "LayerNorm_")
+                path.append(kind + m[len("norm_"):])
+            i += 1
+        if leaf in ("running_mean", "running_var"):
+            node, leaf = stats, leaf[len("running_"):]
+        else:
+            node = params
+            if leaf == "weight" and path[-1].startswith(("LayerNorm_",
+                                                          "BatchNorm_")):
+                leaf = "scale"
+            elif leaf == "weight":
+                a, leaf = (a.T if a.ndim == 2
+                           else a.transpose(2, 1, 0)), "kernel"
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return params, stats
+
+
+def fnn_params_from_flax(params: dict, device="cuda") -> dict:
+    """The flax params tree of ``FNNWithResidual`` (numpy arrays) -> the
+    port's ``state_dict``; a ``{"model": ..., "alpha": ...}`` tree -> ``{"model":
+    state_dict, "alpha": tensor}``."""
+    if "model" in params:
+        return {"model": fnn_params_from_flax(params["model"], device),
+                "alpha": torch.as_tensor(np.asarray(params["alpha"]),
+                                         device=resolve_device(device))}
+    return _mlp_from_flax(params, None, device)
+
+
+def fnn_params_to_flax(state: dict) -> dict:
+    """The inverse of ``fnn_params_from_flax``."""
+    if "model" in state:
+        return {"model": fnn_params_to_flax(state["model"]),
+                "alpha": state["alpha"].detach().cpu().numpy()}
+    return _mlp_to_flax(state, "ResidualBlock")[0]
+
+
+def pinn_params_from_flax(params: dict, batch_stats: dict,
+                          device="cuda") -> dict:
+    """The flax params and batch_stats trees of ``PINNWithResidual`` (numpy
+    arrays) -> the port's ``state_dict``, the running statistics as
+    buffers; a ``{"model": ..., "alpha": ...}`` params tree -> ``{"model":
+    state_dict, "alpha": tensor}`` (``FitResult.params``'s layout)."""
+    if "model" in params:
+        return {"model": pinn_params_from_flax(params["model"], batch_stats,
+                                               device),
+                "alpha": torch.as_tensor(np.asarray(params["alpha"]),
+                                         device=resolve_device(device))}
+    return _mlp_from_flax(params, batch_stats, device)
+
+
+def pinn_params_to_flax(state: dict):
+    """The inverse of ``pinn_params_from_flax``: (params, batch_stats); a
+    ``{"model": ..., "alpha": ...}`` dict gives the params as ``{"model":
+    ..., "alpha": ...}``."""
+    if "model" in state:
+        params, stats = pinn_params_to_flax(state["model"])
+        return ({"model": params,
+                 "alpha": state["alpha"].detach().cpu().numpy()}, stats)
+    return _mlp_to_flax(state, "PINNResidualBlock")

@@ -33,10 +33,16 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-LN_EPS = 1e-6   # flax.linen.LayerNorm's default (torch's is 1e-5)
+from openpystruct_tpu_torch.models.layers import (
+    LN_EPS,
+    dense,
+    dropout,
+    layer_norm,
+    maybe_dropout,
+    reset_flax_,
+)
 
 
 def sincos_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -50,36 +56,6 @@ def sincos_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
     pe[:, 0 : 2 * n_pairs : 2] = np.sin(position * div_term)
     pe[:, 1 : 2 * n_pairs : 2] = np.cos(position * div_term)
     return pe  # odd d_model: last column stays zero
-
-
-def _dense(x, lin: nn.Linear, dtype):
-    """flax ``Dense(dtype=dtype)``: input and float32 parameters cast to
-    ``dtype``."""
-    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
-
-
-def _layer_norm(x, ln: nn.LayerNorm, dtype):
-    """flax ``LayerNorm(dtype=float32)(x).astype(dtype)``."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        LN_EPS).to(dtype)
-
-
-def _dropout(x, rate: float, generator, shape=None):
-    """flax ``Dropout``: keep with probability 1 - rate, kept values divided
-    by it; ``shape`` broadcasts one mask over the dimensions of size 1."""
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape if shape is None else shape,
-                      generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, generator):
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), 0.0, std,
-                                      -2.0 * std, 2.0 * std,
-                                      generator=generator))
 
 
 class DiffusionModule(nn.Module):
@@ -110,8 +86,8 @@ class DiffusionModule(nn.Module):
         sac = torch.sqrt(alpha_cumprod[t])[..., None]
         somac = torch.sqrt(1.0 - alpha_cumprod[t])[..., None]
         x_noisy = sac * x + somac * eps
-        h = torch.relu(_dense(x_noisy, self.dense_0, self.dtype))
-        eps_pred = _dense(h, self.dense_1, self.dtype)
+        h = torch.relu(dense(x_noisy, self.dense_0, self.dtype))
+        eps_pred = dense(h, self.dense_1, self.dtype)
         return (x_noisy - somac * eps_pred) / sac
 
 
@@ -140,16 +116,16 @@ class MultiHeadDotProductAttention(nn.Module):
         D = d // H
 
         def heads(lin):
-            return _dense(x, lin, self.dtype).reshape(B, L, H, D)
+            return dense(x, lin, self.dtype).reshape(B, L, H, D)
 
         q = heads(self.query) / torch.tensor(math.sqrt(D), dtype=self.dtype)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, heads(self.key))
         weights = torch.softmax(logits, dim=-1)
         if train and self.dropout_rate > 0.0:
-            weights = _dropout(weights, self.dropout_rate, generator,
-                               shape=(1, 1, L, L))
+            weights = dropout(weights, self.dropout_rate, generator,
+                              shape=(1, 1, L, L))
         o = torch.einsum("bhqk,bkhd->bqhd", weights, heads(self.value))
-        return _dense(o.reshape(B, L, d), self.out, self.dtype)
+        return dense(o.reshape(B, L, d), self.out, self.dtype)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -168,19 +144,16 @@ class TransformerEncoderLayer(nn.Module):
         self.dense_1 = nn.Linear(dim_feedforward, d_model)
         self.norm_1 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def _drop(self, x, train, generator):
-        if train and self.dropout_rate > 0.0:
-            return _dropout(x, self.dropout_rate, generator)
-        return x
-
     def forward(self, x, *, train: bool, generator):
+        rate = self.dropout_rate
         attn = self.attn(x, train=train, generator=generator)
-        attn = self._drop(attn, train, generator)
-        x = _layer_norm(x + attn, self.norm_0, self.dtype)
-        ff = torch.relu(_dense(x, self.dense_0, self.dtype))
-        ff = self._drop(ff, train, generator)
-        ff = self._drop(_dense(ff, self.dense_1, self.dtype), train, generator)
-        return _layer_norm(x + ff, self.norm_1, self.dtype)
+        attn = maybe_dropout(attn, rate, train, generator)
+        x = layer_norm(x + attn, self.norm_0, self.dtype)
+        ff = torch.relu(dense(x, self.dense_0, self.dtype))
+        ff = maybe_dropout(ff, rate, train, generator)
+        ff = maybe_dropout(dense(ff, self.dense_1, self.dtype), rate, train,
+                           generator)
+        return layer_norm(x + ff, self.norm_1, self.dtype)
 
 
 class TransformerDiffusionModel(nn.Module):
@@ -217,13 +190,7 @@ class TransformerDiffusionModel(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         """Draw every parameter from flax's initializers with ``generator``
         (a CPU generator: the draws do not depend on the device)."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                _lecun_normal_(m.weight, m.in_features, generator)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.LayerNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
+        reset_flax_(self, generator)
         with torch.no_grad():
             self.cls_token.copy_(0.02 * torch.randn(self.cls_token.shape,
                                                     generator=generator))
@@ -239,8 +206,7 @@ class TransformerDiffusionModel(nn.Module):
         x = x + self.pe[: x.shape[1]].to(self.dtype)
         for layer in self.layers:
             x = layer(x, train=train, generator=generator)
-        h = _dense(x[:, 0, :], self.dense_0, self.dtype)
-        h = torch.relu(_layer_norm(h, self.norm_0, self.dtype))
-        if train and self.dropout_rate > 0.0:
-            h = _dropout(h, self.dropout_rate, generator)
-        return _dense(h, self.dense_1, torch.float32)
+        h = dense(x[:, 0, :], self.dense_0, self.dtype)
+        h = torch.relu(layer_norm(h, self.norm_0, self.dtype))
+        h = maybe_dropout(h, self.dropout_rate, train, generator)
+        return dense(h, self.dense_1, torch.float32)

@@ -27,12 +27,19 @@ for any ``epochs_per_sync`` (the JAX contract, harness.py:183-197).  Epochs
 after the stopping one inside the last chunk still run; the state they
 would change is frozen at the stopping epoch.
 
+BatchNorm running statistics (the PINN's) are the model's persistent
+buffers: training steps update them, the val pass and ``predict`` read
+them, and they travel with the parameters, selected for the best epoch and
+frozen at the stopping one in the same device-side ``_select_``, so
+``FitResult.params["model"]`` holds them (the JAX package's
+``batch_stats``, harness.py:292-358) and ``functional_call`` sees them.
+
 Torch draws cannot match ``jax.random``, so a port's training trajectory
 differs from the JAX package's for the same seed; its parameters start from
 the same distributions (``reset_parameters``).  Not ported yet (ROADMAP
 queue A): ``mesh``/``shuffle_scope="per_shard"``, ``checkpoint_dir``/
-``resume_from``, ``live_plot``, ``loss_fn_builder``/``param_loss_fn``,
-AdamW (``decoupled_weight_decay``) and BatchNorm statistics.
+``resume_from``, ``live_plot``, ``param_loss_fn`` and AdamW
+(``decoupled_weight_decay``).
 """
 
 from __future__ import annotations
@@ -134,6 +141,7 @@ def fit(
     cfg: TrainConfig = TrainConfig(),
     seed: Optional[int] = None,
     loss_fn: Optional[Callable] = None,
+    loss_fn_builder: Optional[Callable] = None,
     train_alpha: bool = True,
     epochs_per_sync: int = 8,
     verbose: bool = False,
@@ -148,10 +156,15 @@ def fit(
     ``cfg.seed``), and the module's parameters are trained in place.
     loss_fn(alpha, preds, targets) -> scalar; defaults to TrainableL1L2 with
     scalar box bounds at the train labels' global min/max
-    (OpenPyStruct_FNN_MultiCase.py:313-314).  ``metrics``: a
+    (OpenPyStruct_FNN_MultiCase.py:313-314).  ``loss_fn_builder(Y_train)``
+    returns the loss from the train labels on the device (the PINN's box
+    bounds on its I slice, ``families.build_family``); it excludes
+    ``loss_fn``.  ``metrics``: a
     ``utils.MetricsLogger`` receiving one entry per epoch (train_loss,
     val_loss).  ``FitResult.params`` holds the best params as
-    ``{"model": {name: tensor}, "alpha": tensor}``; ``FitResult.state`` the
+    ``{"model": {name: tensor}, "alpha": tensor}``, the model's persistent
+    buffers (BatchNorm statistics) among the model's tensors;
+    ``FitResult.state`` the
     params after the stopping (or last) epoch and the optimizer's step count.
     """
     device = resolve_device(device)
@@ -161,6 +174,10 @@ def fit(
         for a in (X_train, Y_train, X_val, Y_val))
 
     min_c, max_c = Y_train.min(), Y_train.max()
+    if loss_fn_builder is not None:
+        if loss_fn is not None:
+            raise ValueError("pass loss_fn OR loss_fn_builder, not both")
+        loss_fn = loss_fn_builder(Y_train)
     if loss_fn is None:
         def loss_fn(alpha, preds, targets):
             return trainable_l1l2_loss(alpha, preds, targets, min_c, max_c,
@@ -170,7 +187,9 @@ def fit(
     model.reset_parameters(torch.Generator().manual_seed(seed))
     alpha = torch.tensor(cfg.initial_alpha, dtype=torch.float32,
                          device=device, requires_grad=train_alpha)
-    live = dict(model.named_parameters(), alpha=alpha)
+    persistent = model.state_dict(keep_vars=True)
+    stats = {k: v for k, v in model.named_buffers() if k in persistent}
+    live = dict(model.named_parameters(), **stats, alpha=alpha)
 
     n_tr = X_train.shape[0]
     batch = min(cfg.batch_size, n_tr)

@@ -1293,3 +1293,106 @@ def test_tfd_fit_on_the_card(cuda, monkeypatch):
     assert y16.is_cuda and y16.dtype == torch.float32
     gap = (y16 - y32).abs().max() / y32.abs().max()
     assert gap <= 0.1, gap
+
+
+@pytest.mark.cuda
+def test_shards_resume_and_native_json_on_the_card(cuda, tmp_path):
+    """Three random-bridge shards of 256 lanes on the card (#2, #1 and the
+    rescue's #8, #7); one deleted and regenerated alone, bitwise; the
+    shards through the native writer and reader, every I row the shards'
+    valid lanes, bitwise."""
+    import os
+
+    from openpystruct_tpu_torch.datagen import (
+        generate_to_shards,
+        native_available,
+        read_json_dataset,
+        read_npz_shards,
+        reader_available,
+        shards_to_json,
+    )
+
+    assert native_available() and reader_available()
+    opt = dataclasses.replace(DATAGEN_OPT, max_epochs=60)
+    kw = dict(batch_size=256, scen_cfg=ScenarioConfig(random_bridge=True),
+              opt_cfg=opt, device="cuda")
+    shard_dir = str(tmp_path / "shards")
+    paths = generate_to_shards(7, 3 * 256, shard_dir, **kw)
+    with np.load(paths[1]) as z:
+        lost = {k: z[k] for k in z.files}
+    os.remove(paths[1])
+    tk.reset_counts()
+    tkd.reset_counts()
+    seen = []
+    assert generate_to_shards(7, 3 * 256, shard_dir, on_batch=seen.append,
+                              **kw) == paths
+    assert len(seen) == 1 and tk.LAUNCHES["beam_analysis"] == 1
+    assert tk.LAUNCHES["beam_opt_step"] > 0
+    assert not any(tk.PLAIN_CALLS.values())
+    assert not any(tkd.PLAIN_CALLS.values())
+    with np.load(paths[1]) as z:
+        assert set(z.files) == set(lost)
+        for k in lost:
+            assert z[k].tobytes() == lost[k].tobytes(), k
+    path = str(tmp_path / "d.json")
+    arrays = read_npz_shards(paths)
+    assert shards_to_json(paths, path) == int(arrays["valid"].sum()) > 0
+    data = read_json_dataset(path)
+    assert data["I_values"].tobytes() == arrays["I"][arrays["valid"]].tobytes()
+
+
+@pytest.mark.cuda
+def test_generate_dataset_json_on_the_card(cuda, tmp_path):
+    """The streamed JSON of two 150-lane batches is what generate_dataset
+    returns for the same seed."""
+    import json
+
+    from openpystruct_tpu_torch.datagen import (
+        generate_dataset,
+        generate_dataset_json,
+    )
+
+    opt = dataclasses.replace(DATAGEN_OPT, max_epochs=60)
+    path = tmp_path / "d.json"
+    n = generate_dataset_json(4, 300, str(path), batch_size=150,
+                              opt_cfg=opt, device="cuda")
+    cols = generate_dataset(4, 300, batch_size=150, opt_cfg=opt,
+                            device="cuda")
+    with open(path) as f:
+        assert json.load(f) == cols
+    assert n == len(cols["I_values"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fnn", "pinn"])
+def test_fnn_pinn_fit_on_the_card(cuda, name):
+    """The FNN and the PINN at their published widths in bfloat16 on the
+    card: ``fit`` bitwise across ``epochs_per_sync`` (the PINN's BatchNorm
+    statistics included), every loss finite, R^2 finite."""
+    from openpystruct_tpu_torch.data import Scaler
+    from openpystruct_tpu_torch.families import build_family
+    from openpystruct_tpu_torch.train import evaluate_r2, fit
+
+    label = 302 if name == "pinn" else 100
+    rng = np.random.default_rng(0)
+    W = rng.normal(size=(6 * 8, label)) / np.sqrt(6 * 8)
+    X = rng.normal(size=(300, 6, 8)).astype(np.float32)
+    Y = (X.reshape(300, -1) @ W).astype(np.float32)
+    runs = []
+    for sync in (1, 3):
+        model, spec, kw = build_family(name, 8, label_dim=label)
+        cfg = dataclasses.replace(spec.train, num_epochs=4, batch_size=32)
+        runs.append(fit(model, X[:240], Y[:240], X[240:], Y[240:], cfg,
+                        epochs_per_sync=sync, device="cuda", **kw))
+    a, b = runs
+    assert np.isfinite(a.train_losses).all()
+    np.testing.assert_array_equal(a.train_losses, b.train_losses)
+    np.testing.assert_array_equal(a.val_losses, b.val_losses)
+    for k, v in a.params["model"].items():
+        assert v.is_cuda and torch.equal(v, b.params["model"][k]), k
+    assert (name == "pinn") == any("running_" in k for k in a.params["model"])
+    scaler = Scaler(mean=np.zeros(label, np.float32),
+                    scale=np.ones(label, np.float32))
+    r2 = evaluate_r2(model, a.params, X[240:], Y[240:], scaler,
+                     label_slice=slice(0, 100), device="cuda")
+    assert np.isfinite(r2)

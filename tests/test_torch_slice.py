@@ -49,7 +49,7 @@ def test_slice_end_to_end_cpu_f64(tmp_path):
 
     path = str(tmp_path / "data.json")
     write_json_dataset(cols, path)
-    back = read_json_dataset(path)
+    back = read_json_dataset(path, native=False)
     assert set(back) == set(SCHEMA_KEYS)
     assert all(len(back[k]) == n_valid for k in SCHEMA_KEYS)
     I = np.asarray(back["I_values"])
@@ -132,7 +132,7 @@ def test_random_bridge_json_round_trip(tmp_path):
                             scen_cfg=ScenarioConfig(random_bridge=True))
     path = str(tmp_path / "rb.json")
     write_json_dataset(cols, path)
-    back = read_json_dataset(path)
+    back = read_json_dataset(path, native=False)
     assert back == cols and len(back["L"]) == 8
     assert len(set(back["L"])) == 8
     for L, x, rollers, nodes in zip(back["L"], back["node_positions"],

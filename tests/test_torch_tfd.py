@@ -211,8 +211,7 @@ def test_family_table_matches_jax():
     assert set(tfam.COMPUTE_DTYPES) == set(jfam.COMPUTE_DTYPES)
 
 
-@pytest.mark.parametrize("name", ["fnn", "pinn", "fno", "gnn", "bnn",
-                                  "bnn-meta"])
+@pytest.mark.parametrize("name", ["fno", "gnn", "bnn", "bnn-meta"])
 def test_other_families_raise(name):
     with pytest.raises(NotImplementedError, match="queue A item 3"):
         tfam.build_family(name, 120)
