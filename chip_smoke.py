@@ -147,7 +147,20 @@ Phases, each of which raises on failure (exit code not 0):
    loss finite, the best val loss below the first epoch's, R^2 finite and
    above 0, TF32 off; ``save_preprocessing`` -> ``load_preprocessing`` ->
    ``build_user_input`` -> ``predict`` bitwise the in-memory scalers'.
-   ``.smoke_tmp/`` is removed at the end.
+   ``.smoke_tmp/`` is removed at the end;
+9. the other surrogate families from phase 8's file (the columns its
+   native reader read; no data of its own): the FNO's ``SpectralConv1d``
+   on the card against tests/test_models.py's numpy complex-FFT oracle on
+   its six cases within 1e-5 of scale; then for the GNN (AdamW), the FNO
+   (float32), ``bnn`` and ``bnn-meta`` (n_cases 8; the scaled KL through
+   ``param_loss_fn``) ``prepare_dataset`` with the family's n_cases, c
+   and head padding, ``build_family`` at the published widths, ``fit`` for
+   FILE_EPOCHS epochs and ``evaluate_r2``: phase 8's gates (losses finite,
+   the best val loss below the first epoch's, R^2 > 0, TF32 off), the KL
+   term finite and positive, its value at the first and the last epoch
+   printed; for ``bnn-meta`` ``mc_output_stats`` with MC_SAMPLES samples
+   on the val groups, the mean and std finite, every std positive, the MC
+   mean's R^2 and the median std printed.
 
 ``--quick`` stops after phase 3d.  Prints the card line, a JSON line of
 kernel results, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -224,6 +237,12 @@ SHARDS = 4             # phase 8: random-bridge shards of SHARD_LANES lanes
 SHARD_LANES = 8192
 SHARD_LOST = 2         # the shard phase 8 deletes and regenerates
 FILE_EPOCHS = 30       # phase 8's fixed epoch count for the FNN and the PINN
+# phase 9's families, each trained FILE_EPOCHS epochs from phase 8's file
+SURROGATES = ("gnn", "fno", "bnn", "bnn-meta")
+MC_SAMPLES = 50        # mc_output_stats' samples (the Meta script's, :864)
+# tests/test_models.py's spectral-conv oracle cases: (n, modes, degenerate)
+SPECTRAL_CASES = ((6, 4, False), (6, 4, True), (8, 4, False), (7, 4, False),
+                  (9, 5, True), (6, 10, False))
 SPLIT_KERNELS = ("beam_solve", "block_tridiag_solve",
                  "block_tridiag_solve_streamed", "block_tridiag_solve_bidi")
 DATAGEN_KERNELS = ("beam_analysis", "beam_opt_step", "beam_analysis_dd",
@@ -1224,7 +1243,7 @@ def file_workflow(torch, seed, mods):
     """Phase 8: shards -> kill and resume -> JSON through the native writer
     -> the native reader -> preprocessing -> the FNN and the PINN -> R^2 ->
     persisted scalers -> predict.  Returns the kernels' launches in the
-    phase."""
+    phase and the columns the native reader read (phase 9's data)."""
     import os
 
     import numpy as np
@@ -1439,7 +1458,142 @@ def file_workflow(torch, seed, mods):
                 "scalers: predict bitwise equal")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches
+    return launches, data
+
+
+def spectral_oracle(x, wr, wi, n, modes, degen):
+    """tests/test_models.py's complex rfft -> truncate -> mix -> zero-pad ->
+    irfft formulation of the FNO's spectral conv (numpy, complex128)."""
+    import numpy as np
+
+    m_eff = min(modes, n // 2 + 1)
+    w = (wr + 1j * wi)[:, :, :m_eff]
+    xm = np.fft.rfft(x, n=n, axis=-1)[:, :, :m_eff]
+    if degen:
+        out_m = xm.sum(axis=1)[:, None, :] * w.sum(axis=1)[None, :, :]
+    else:
+        out_m = np.einsum("bim,iom->bom", xm, w)
+    out_ft = np.zeros((x.shape[0], wr.shape[1], n // 2 + 1), np.complex128)
+    out_ft[:, :, :m_eff] = out_m
+    return np.fft.irfft(out_ft, n=n, axis=-1)
+
+
+def surrogate_families(torch, data, seed):
+    """Phase 9: the GNN, the FNO and the Bayesian TFDs trained on the card
+    from phase 8's file (``data``, the columns its native reader read), the
+    FNO's spectral conv against the complex-FFT oracle, ``mc_output_stats``
+    for ``bnn-meta``."""
+    import numpy as np
+
+    from openpystruct_tpu_torch.data import prepare_dataset
+    from openpystruct_tpu_torch.families import FAMILIES, build_family
+    from openpystruct_tpu_torch.models import SpectralConv1d, mc_output_stats
+    from openpystruct_tpu_torch.train import evaluate_r2, fit
+
+    log(f"phase 9: the GNN, the FNO and the Bayesian TFDs from phase 8's "
+        f"file ({len(data['L'])} samples): prepare_dataset -> fit "
+        f"({FILE_EPOCHS} epochs) -> R^2; mc_output_stats({MC_SAMPLES}) for "
+        "bnn-meta; the spectral conv vs the complex-FFT oracle")
+    rng = np.random.default_rng(seed + 90)
+    for n, modes, degen in SPECTRAL_CASES:
+        x = rng.normal(size=(3, 5, n)).astype(np.float32)
+        conv = SpectralConv1d(5, 5, modes, degenerate_mixing=degen).cuda()
+        with torch.no_grad():
+            y = conv(torch.from_numpy(x).cuda()).cpu().numpy()
+        ref = spectral_oracle(x.astype(np.float64), *(
+            w.detach().cpu().numpy().astype(np.float64)
+            for w in (conv.weights_real, conv.weights_imag)), n, modes, degen)
+        err = float(np.abs(y - ref).max() / np.abs(ref).max())
+        if not err <= 1e-5:
+            raise AssertionError(f"spectral conv (n={n}, modes={modes}, "
+                                 f"degenerate={degen}): {err:.3e} of scale")
+    log(f"  SpectralConv1d on the card = the numpy complex-FFT oracle on "
+        f"{len(SPECTRAL_CASES)} cases (n 6-9, Nyquist, modes past it, "
+        "degenerate) within 1e-5 of scale")
+
+    for name in SURROGATES:
+        spec = FAMILIES[name]
+        t0 = time.perf_counter()
+        ds = prepare_dataset(data, n_cases=spec.train.n_cases,
+                             c=spec.train.c, nheads_pad=spec.nheads_pad,
+                             extra_label_keys=spec.extra_label_keys)
+        t_prep = time.perf_counter() - t0
+        model, spec, fit_kwargs = build_family(name, ds.feat_dim,
+                                               label_dim=ds.label_dim)
+        kl_terms = []
+        if "param_loss_fn" in fit_kwargs:
+            term = fit_kwargs["param_loss_fn"]
+
+            def recorded(params, term=term):
+                value = term(params)
+                if torch.is_grad_enabled():   # the train steps' terms
+                    kl_terms.append(value.detach())
+                return value
+
+            fit_kwargs["param_loss_fn"] = recorded
+        cfg = dataclasses.replace(spec.train, num_epochs=FILE_EPOCHS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(model, ds.X_train, ds.Y_train, ds.X_val, ds.Y_val, cfg,
+                  epochs_per_sync=10, device="cuda", **fit_kwargs)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        ep = len(res.train_losses)
+        if not (np.isfinite(res.train_losses).all()
+                and np.isfinite(res.val_losses).all()):
+            raise AssertionError(f"{name}: a non-finite loss")
+        if not res.val_losses.min() < res.val_losses[0]:
+            raise AssertionError(f"{name}: no val improvement: "
+                                 f"{res.val_losses}")
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise AssertionError("TF32 is on after fit")
+        r2 = evaluate_r2(model, res.params, ds.X_val, ds.Y_val, ds.scaler_Y,
+                         batch_size=4096, device="cuda")
+        if not (math.isfinite(r2) and r2 > 0):
+            raise AssertionError(f"{name}: R^2 {r2}")
+        line = (f"  {name}: prepare_dataset {t_prep:.2f} s "
+                f"({ds.X_train.shape[0]} train / {ds.X_val.shape[0]} val "
+                f"groups, n_cases {ds.n_cases}, feat {ds.feat_dim}) | fit "
+                f"{ep} epochs in {t_train:.2f} s, "
+                f"{ep * ds.X_train.shape[0] / t_train:.1f} samples/s (epochs "
+                f"x train groups / s) | {model.dtype} | best epoch "
+                f"{res.best_epoch}, val loss {res.val_losses[0]:.4f} -> "
+                f"{res.val_losses.min():.4f} | R^2 {r2:.4f}")
+        if kl_terms:
+            # fit's train steps an epoch (the partial batch dropped)
+            n_tr = ds.X_train.shape[0]
+            steps = max(n_tr // min(cfg.batch_size, n_tr), 1)
+            kl = torch.stack(kl_terms).cpu().numpy()
+            if not (np.isfinite(kl).all() and (kl > 0).all()):
+                raise AssertionError(f"{name}: the KL term {kl}")
+            line += (f" | KL term (BNN_KL_SCALE x KL, mean of the epoch's "
+                     f"steps) epoch 1 {kl[:steps].mean():.4f}, epoch {ep} "
+                     f"{kl[(ep - 1) * steps:ep * steps].mean():.4f}")
+        log(line)
+        if name == "bnn-meta":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, std = mc_output_stats(model, res.params, ds.X_val,
+                                        n_samples=MC_SAMPLES,
+                                        scaler_Y=ds.scaler_Y, device="cuda")
+            torch.cuda.synchronize()
+            t_mc = time.perf_counter() - t0
+            if not (torch.isfinite(mean).all() and torch.isfinite(std).all()
+                    and (std > 0).all()):
+                raise AssertionError("mc_output_stats: a non-finite mean or "
+                                     "std, or no spread")
+            labels = (torch.as_tensor(ds.Y_val, device="cuda")
+                      * torch.as_tensor(ds.scaler_Y.scale, device="cuda")
+                      + torch.as_tensor(ds.scaler_Y.mean, device="cuda"))
+            labels = labels.clamp(0.0, 1e10).double()
+            preds = mean.clamp(0.0, 1e10).double()
+            r2_mc = float(1.0 - ((labels - preds) ** 2).sum()
+                          / ((labels - labels.mean()) ** 2).sum())
+            log(f"  bnn-meta: mc_output_stats({MC_SAMPLES} samples, "
+                f"{ds.X_val.shape[0]} val groups) {t_mc:.2f} s | R^2 of the "
+                f"MC mean {r2_mc:.4f} | median std "
+                f"{float(std.median()):.4g} (un-standardized)")
 
 
 def make_inputs(torch, sample_scenarios, constraint_mask, seed, B, device,
@@ -2408,10 +2562,16 @@ def main(argv=None) -> int:
 
     # ---- phase 8: the file-based workflow on the card ---------------------
     t0 = time.perf_counter()
-    file_launches = file_workflow(torch, args.seed, mods)
+    file_launches, file_data = file_workflow(torch, args.seed, mods)
     for k in kernels:
         k["launches_file_workflow"] = file_launches[k["name"]]
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 9: the other surrogate families from phase 8's file -------
+    t0 = time.perf_counter()
+    surrogate_families(torch, file_data, args.seed)
+    del file_data
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -12,9 +12,8 @@ The table is the JAX package's, field for field (plain data).  Provenance
   bnn      OpenPyStruct_Bayesian_TFDModule_MultiCase_Beta.py:36-65
   bnn-meta OpenPyStruct_Bayesian_TFDModule_Meta_MultiCase_Beta.py:36-65
 
-``build_family`` builds the FNN, the PINN and the TFD; the GNN, the FNO
-and the Bayesian TFDs are not ported yet (ROADMAP queue A item 3) and raise
-``NotImplementedError``.
+``build_family`` builds all seven with the JAX package's arguments
+(families.py:209-241).
 """
 
 from __future__ import annotations
@@ -153,8 +152,10 @@ def build_family(name: str, feat_dim: int, nelem: int = 100,
     and stays pinned float32, OpenPyStruct_FNO_MultiCase_Beta.py:617-618).
     The model is built on the CPU; ``train.fit`` moves it to its device.
     ``fit_kwargs`` holds what ``fit`` needs beyond the data: the PINN's
-    ``loss_fn_builder``; the FNN and the TFD need nothing (the TFD's
-    eval-time diffusion draws come from the generator every forward takes).
+    ``loss_fn_builder``, the GNN's ``decoupled_weight_decay`` (AdamW), the
+    Bayesian TFDs' ``param_loss_fn`` (``BNN_KL_SCALE * bayes_kl``); the
+    other families need nothing (eval-time diffusion and "bayes" draws come
+    from the generator every forward takes).
     """
     if name not in FAMILIES:
         raise ValueError(f"unknown family {name!r}; options: {list(FAMILIES)}")
@@ -170,15 +171,14 @@ def build_family(name: str, feat_dim: int, nelem: int = 100,
     dtype = COMPUTE_DTYPES[cfg.compute_dtype]
     label_dim = label_dim or nelem
     fit_kwargs = {}
-    if name in ("gnn", "fno", "bnn", "bnn-meta"):
-        raise NotImplementedError(
-            f"family {name!r} is not ported to PyTorch yet (ROADMAP queue A "
-            "item 3: the GNN with AdamW, the FNO, the Bayesian TFDs with "
-            "param_loss_fn)")
     from openpystruct_tpu_torch.models import (
+        BayesianTransformerDiffusionModel,
+        ChainGNN,
         FNNWithResidual,
+        FNO1dModel,
         PINNWithResidual,
         TransformerDiffusionModel,
+        bayes_kl,
         composite_pinn_loss,
     )
 
@@ -212,6 +212,28 @@ def build_family(name: str, feat_dim: int, nelem: int = 100,
             return pinn_loss
 
         fit_kwargs["loss_fn_builder"] = pinn_loss_builder
+    elif name == "fno":
+        model = FNO1dModel(
+            n_cases=cfg.n_cases, feat_dim=feat_dim, n_elem=label_dim,
+            fno_modes=4, fno_width=128, num_fno_layers=4,
+            hidden_units=cfg.hidden_units, dropout_rate=cfg.dropout_rate,
+        )
+    elif name == "gnn":
+        model = ChainGNN(
+            input_dim=cfg.n_cases * feat_dim, n_elem=label_dim,
+            encoder_hidden_dim=128, gnn_hidden_dim=128, num_gnn_layers=2,
+            dropout_rate=cfg.dropout_rate, dtype=dtype,
+        )
+        fit_kwargs["decoupled_weight_decay"] = spec.decoupled_weight_decay
+    elif name in ("bnn", "bnn-meta"):
+        model = BayesianTransformerDiffusionModel(
+            n_cases=cfg.n_cases, feat_dim=feat_dim, n_elem=label_dim,
+            hidden_units=cfg.hidden_units, num_transformer_layers=4,
+            num_heads=24, dim_feedforward=512,
+            dropout_rate=cfg.dropout_rate, diffusion_hidden_dim=512,
+            use_output_scales=(name == "bnn-meta"), dtype=dtype,
+        )
+        fit_kwargs["param_loss_fn"] = lambda p: BNN_KL_SCALE * bayes_kl(p)
     else:
         model = TransformerDiffusionModel(
             n_cases=cfg.n_cases, feat_dim=feat_dim, n_elem=label_dim,

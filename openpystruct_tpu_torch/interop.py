@@ -1,7 +1,8 @@
 """State carried between the JAX package and the port as numpy arrays.
 
 What crosses over is scenarios, optimizer state and the surrogates'
-weights (the TFD, the FNN and the PINN, with its BatchNorm statistics).  The tests draw scenarios with the JAX sampler and initialize
+weights (all seven families; the PINN's and the FNO's with their BatchNorm
+statistics).  The tests draw scenarios with the JAX sampler and initialize
 weights with flax (torch draws cannot match ``jax.random``), pass them
 through here, and hold the port's results against the JAX package's on the
 same inputs.
@@ -68,8 +69,17 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _torch_module(flax_name: str) -> str:
-    for flax_prefix, name in _FLAX_MODULES:
+# the Bayesian TFDs' tree (models/bayesian.py): the TFD's trunk, the
+# Bayesian diffusion module and output head; BayesLinear leaves keep
+# flax's names and layout
+_BNN_MODULES = (("BayesianDiffusionModule_", "diffusion"),
+                ("BayesianDiffusionMLP_", "mlp"),
+                ("BayesianOutputMLP_", "head"),
+                ("BayesLinear_", "bayes_")) + _FLAX_MODULES
+
+
+def _torch_module(flax_name: str, modules=_FLAX_MODULES) -> str:
+    for flax_prefix, name in modules:
         if flax_name.startswith(flax_prefix):
             idx = flax_name[len(flax_prefix):]
             return name + idx if name.endswith(("_", ".")) else name
@@ -86,11 +96,39 @@ def tfd_params_from_flax(params: dict, device="cuda") -> dict:
     d), their biases (heads, head_dim) flat, the out kernel (heads,
     head_dim, d) becomes (d, heads * head_dim); LayerNorm scale/bias become
     weight/bias."""
+    return _tfd_from_flax(params, device, _FLAX_MODULES)
+
+
+def tfd_params_to_flax(state: dict, num_heads: int) -> dict:
+    """The inverse of ``tfd_params_from_flax``: a ``state_dict`` (or a
+    ``{"model": ..., "alpha": ...}`` dict) -> the flax params tree as numpy
+    arrays; ``num_heads`` unfolds the attention's head axes."""
+    return _tfd_to_flax(state, num_heads, _FLAX_MODULES)
+
+
+def bnn_params_from_flax(params: dict, device="cuda") -> dict:
+    """The flax params tree of ``BayesianTransformerDiffusionModel`` ->
+    the port's ``state_dict`` (or ``{"model": ..., "alpha": ...}``): the
+    trunk as ``tfd_params_from_flax`` carries it, the ``BayesLinear``
+    parameters, the class token and the output scales as they are."""
+    return _tfd_from_flax(params, device, _BNN_MODULES)
+
+
+def bnn_params_to_flax(state: dict, num_heads: int = 24) -> dict:
+    """The inverse of ``bnn_params_from_flax``."""
+    return _tfd_to_flax(state, num_heads, _BNN_MODULES)
+
+
+def _alpha(params, device):
+    return torch.as_tensor(np.asarray(params["alpha"]),
+                           device=resolve_device(device))
+
+
+def _tfd_from_flax(params: dict, device, modules) -> dict:
     device = resolve_device(device)
     if "model" in params:
-        return {"model": tfd_params_from_flax(params["model"], device),
-                "alpha": torch.as_tensor(np.asarray(params["alpha"]),
-                                         device=device)}
+        return {"model": _tfd_from_flax(params["model"], device, modules),
+                "alpha": _alpha(params, device)}
     out = {}
     for path, a in _flatten(params):
         a = np.asarray(a)
@@ -104,17 +142,14 @@ def tfd_params_from_flax(params: dict, device="cuda") -> dict:
             leaf = "weight"
         elif leaf == "bias":
             a = a.reshape(-1)
-        name = ".".join([_torch_module(m) for m in mods] + [leaf])
+        name = ".".join([_torch_module(m, modules) for m in mods] + [leaf])
         out[name] = torch.tensor(np.ascontiguousarray(a), device=device)
     return out
 
 
-def tfd_params_to_flax(state: dict, num_heads: int) -> dict:
-    """The inverse of ``tfd_params_from_flax``: a ``state_dict`` (or a
-    ``{"model": ..., "alpha": ...}`` dict) -> the flax params tree as numpy
-    arrays; ``num_heads`` unfolds the attention's head axes."""
+def _tfd_to_flax(state: dict, num_heads: int, modules) -> dict:
     if "model" in state:
-        return {"model": tfd_params_to_flax(state["model"], num_heads),
+        return {"model": _tfd_to_flax(state["model"], num_heads, modules),
                 "alpha": state["alpha"].detach().cpu().numpy()}
     tree = {}
     for name, t in state.items():
@@ -122,7 +157,7 @@ def tfd_params_to_flax(state: dict, num_heads: int) -> dict:
         *mods, leaf = name.replace("layers.", "layers_").split(".")
         path = []
         for m in mods:
-            for flax_prefix, port in _FLAX_MODULES:
+            for flax_prefix, port in modules:
                 port = port.replace(".", "_")
                 if m == port or (port.endswith("_") and m.startswith(port)):
                     m = flax_prefix + (m[len(port):] or "0")
@@ -148,10 +183,14 @@ def tfd_params_to_flax(state: dict, num_heads: int) -> dict:
 
 
 # flax module names in the FNN's and the PINN's trees -> the port's
-# (models/fnn.py, models/pinn.py)
+# (models/fnn.py, models/pinn.py), the GNN's (models/gnn.py) and the FNO's
+# (models/fno.py); a port name without an index suffix names the module's
+# only child of that kind
 _MLP_MODULES = (("Dense_", "dense_"), ("LayerNorm_", "norm_"),
                 ("BatchNorm_", "norm_"), ("PINNResidualBlock_", "blocks."),
-                ("ResidualBlock_", "blocks."), ("Conv_", "conv"))
+                ("ResidualBlock_", "blocks."), ("FNOBlock1d_", "blocks."),
+                ("Conv_", "conv"), ("SpectralConv1d_", "spectral"))
+_SINGLE = {"conv": "Conv_0", "spectral": "SpectralConv1d_0"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -160,7 +199,7 @@ def _mlp_name(mods) -> str:
     for m in mods:
         for flax_prefix, port in _MLP_MODULES:
             if m.startswith(flax_prefix):
-                out.append(port if port == "conv"
+                out.append(port if port in _SINGLE
                            else port + m[len(flax_prefix):])
                 break
         else:
@@ -207,8 +246,8 @@ def _mlp_to_flax(state: dict, block: str):
                 i += 2
                 continue
             prefix.append(m)
-            if m == "conv":
-                path.append("Conv_0")
+            if m in _SINGLE:
+                path.append(_SINGLE[m])
             elif m.startswith("dense_"):
                 path.append("Dense_" + m[len("dense_"):])
             else:
@@ -238,8 +277,7 @@ def fnn_params_from_flax(params: dict, device="cuda") -> dict:
     state_dict, "alpha": tensor}``."""
     if "model" in params:
         return {"model": fnn_params_from_flax(params["model"], device),
-                "alpha": torch.as_tensor(np.asarray(params["alpha"]),
-                                         device=resolve_device(device))}
+                "alpha": _alpha(params, device)}
     return _mlp_from_flax(params, None, device)
 
 
@@ -260,8 +298,7 @@ def pinn_params_from_flax(params: dict, batch_stats: dict,
     if "model" in params:
         return {"model": pinn_params_from_flax(params["model"], batch_stats,
                                                device),
-                "alpha": torch.as_tensor(np.asarray(params["alpha"]),
-                                         device=resolve_device(device))}
+                "alpha": _alpha(params, device)}
     return _mlp_from_flax(params, batch_stats, device)
 
 
@@ -274,3 +311,42 @@ def pinn_params_to_flax(state: dict):
         return ({"model": params,
                  "alpha": state["alpha"].detach().cpu().numpy()}, stats)
     return _mlp_to_flax(state, "PINNResidualBlock")
+
+
+def gnn_params_from_flax(params: dict, device="cuda") -> dict:
+    """The flax params tree of ``ChainGNN`` -> the port's ``state_dict``
+    (or ``{"model": ..., "alpha": ...}``)."""
+    if "model" in params:
+        return {"model": gnn_params_from_flax(params["model"], device),
+                "alpha": _alpha(params, device)}
+    return _mlp_from_flax(params, None, device)
+
+
+def gnn_params_to_flax(state: dict) -> dict:
+    """The inverse of ``gnn_params_from_flax``."""
+    if "model" in state:
+        return {"model": gnn_params_to_flax(state["model"]),
+                "alpha": state["alpha"].detach().cpu().numpy()}
+    return _mlp_to_flax(state, None)[0]
+
+
+def fno_params_from_flax(params: dict, batch_stats: dict,
+                         device="cuda") -> dict:
+    """The flax params and batch_stats trees of ``FNO1dModel`` -> the
+    port's ``state_dict``, the running statistics as buffers; the spectral
+    weights (in, out, modes) as they are.  A ``{"model": ..., "alpha":
+    ...}`` params tree gives ``{"model": state_dict, "alpha": tensor}``."""
+    if "model" in params:
+        return {"model": fno_params_from_flax(params["model"], batch_stats,
+                                              device),
+                "alpha": _alpha(params, device)}
+    return _mlp_from_flax(params, batch_stats, device)
+
+
+def fno_params_to_flax(state: dict):
+    """The inverse of ``fno_params_from_flax``: (params, batch_stats)."""
+    if "model" in state:
+        params, stats = fno_params_to_flax(state["model"])
+        return ({"model": params,
+                 "alpha": state["alpha"].detach().cpu().numpy()}, stats)
+    return _mlp_to_flax(state, "FNOBlock1d")

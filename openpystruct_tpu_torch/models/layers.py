@@ -22,8 +22,9 @@ BN_EPS = 1e-5   # flax.linen.BatchNorm's default
 
 def dense(x, lin: nn.Linear, dtype):
     """flax ``Dense(dtype=dtype)``: input and float32 parameters cast to
-    ``dtype``."""
-    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+    ``dtype`` (``use_bias=False`` is a Linear without bias)."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
 def layer_norm(x, ln: nn.LayerNorm, dtype):
@@ -32,9 +33,10 @@ def layer_norm(x, ln: nn.LayerNorm, dtype):
                         LN_EPS).to(dtype)
 
 
-def leaky_relu(x):
-    """flax ``nn.leaky_relu(x, negative_slope=0.01)``."""
-    return F.leaky_relu(x, 0.01)
+def leaky_relu(x, negative_slope: float = 0.01):
+    """flax ``nn.leaky_relu(x, negative_slope)``; the FNO's head and the
+    Bayesian MLPs pass 0.1."""
+    return F.leaky_relu(x, negative_slope)
 
 
 def dropout(x, rate: float, generator, shape=None):
@@ -116,7 +118,8 @@ def reset_flax_(module: nn.Module, generator: torch.Generator):
         if isinstance(m, (nn.Linear, nn.Conv1d)):
             fan_in = m.weight[0].numel()
             lecun_normal_(m.weight, fan_in, generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

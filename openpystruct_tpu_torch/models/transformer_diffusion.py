@@ -58,6 +58,18 @@ def sincos_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
     return pe  # odd d_model: last column stays zero
 
 
+def diffusion_noise(x, t, eps, T: int, beta_start: float, beta_end: float):
+    """The forward noise at steps ``t`` (B, case) of the linear beta
+    schedule, built in x's dtype: (x_noisy, sqrt(ac_t), sqrt(1 - ac_t)),
+    x_noisy = sqrt(ac_t) x + sqrt(1 - ac_t) eps."""
+    beta = torch.linspace(beta_start, beta_end, T, dtype=x.dtype,
+                          device=x.device)
+    alpha_cumprod = torch.cumprod(1.0 - beta, dim=0)
+    sac = torch.sqrt(alpha_cumprod[t])[..., None]
+    somac = torch.sqrt(1.0 - alpha_cumprod[t])[..., None]
+    return sac * x + somac * eps, sac, somac
+
+
 class DiffusionModule(nn.Module):
     """Single-pass stochastic noise/denoise (reference TFD:428-476)."""
 
@@ -79,13 +91,9 @@ class DiffusionModule(nn.Module):
         return t, eps
 
     def forward(self, x, generator):
-        beta = torch.linspace(self.beta_start, self.beta_end, self.T,
-                              dtype=x.dtype, device=x.device)
-        alpha_cumprod = torch.cumprod(1.0 - beta, dim=0)
         t, eps = self._draw(x, generator)
-        sac = torch.sqrt(alpha_cumprod[t])[..., None]
-        somac = torch.sqrt(1.0 - alpha_cumprod[t])[..., None]
-        x_noisy = sac * x + somac * eps
+        x_noisy, sac, somac = diffusion_noise(x, t, eps, self.T,
+                                              self.beta_start, self.beta_end)
         h = torch.relu(dense(x_noisy, self.dense_0, self.dtype))
         eps_pred = dense(h, self.dense_1, self.dtype)
         return (x_noisy - somac * eps_pred) / sac

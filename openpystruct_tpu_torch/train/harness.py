@@ -5,9 +5,10 @@ shuffled batches -> per-epoch decaying Gaussian input noise
 (sigma_0 * gamma_noise^epoch, epochs counted from 1) -> the model's forward
 in its compute dtype -> TrainableL1L2 loss + (alpha_0 - alpha)^2 regularizer
 -> global-norm gradient clip 1.0 (optax's rule) -> Adam with L2 weight decay
-(torch style: decay added to the gradient before the Adam update) ->
-per-epoch exponential learning-rate decay -> early stopping on the val loss
-with best-params retention -> R^2 on un-standardized, clipped predictions.
+(torch style: decay added to the gradient before the Adam update;
+``decoupled_weight_decay=True`` gives the GNN script's AdamW) -> per-epoch
+exponential learning-rate decay -> early stopping on the val loss with
+best-params retention -> R^2 on un-standardized, clipped predictions.
 
 As in the JAX package: the whole train set is shuffled every epoch and the
 partial trailing train batch is dropped; the val set is evaluated in full,
@@ -38,8 +39,7 @@ Torch draws cannot match ``jax.random``, so a port's training trajectory
 differs from the JAX package's for the same seed; its parameters start from
 the same distributions (``reset_parameters``).  Not ported yet (ROADMAP
 queue A): ``mesh``/``shuffle_scope="per_shard"``, ``checkpoint_dir``/
-``resume_from``, ``live_plot``, ``param_loss_fn`` and AdamW
-(``decoupled_weight_decay``).
+``resume_from``/``checkpoint_every`` and ``live_plot``.
 """
 
 from __future__ import annotations
@@ -77,19 +77,24 @@ class _Optimizer:
     harness.py:96-132) over ``.grad``: ``clip_by_global_norm(1.0)`` (g left
     as is below norm 1, else g / norm), L2 decay on the model's parameters
     added to the gradient, Adam (eps 1e-8), learning rate
-    lr * lr_gamma^(step // steps_per_epoch) from the first update.  With
+    lr * lr_gamma^(step // steps_per_epoch) from the first update.
+    ``decoupled=True`` is the chain's AdamW: the decay leaves the gradient
+    and is applied to the model's parameters beside the Adam step (torch's
+    ``AdamW`` computes p (1 - lr wd) - lr adam, optax p - lr (adam + wd p):
+    equal in exact arithmetic).  Alpha is never decayed.  With
     ``train_alpha=False`` alpha is outside the clipped set and never moves
     (optax's ``set_to_zero``)."""
 
     def __init__(self, cfg: TrainConfig, steps_per_epoch: int, model_params,
-                 alpha, train_alpha: bool):
+                 alpha, train_alpha: bool, decoupled: bool = False):
         model_params = list(model_params)
         groups = [{"params": model_params, "weight_decay": cfg.weight_decay}]
         if train_alpha:
             groups.append({"params": [alpha], "weight_decay": 0.0})
         self.params = model_params + ([alpha] if train_alpha else [])
-        self.adam = torch.optim.Adam(groups, lr=cfg.learning_rate,
-                                     betas=(0.9, 0.999), eps=1e-8)
+        adam = torch.optim.AdamW if decoupled else torch.optim.Adam
+        self.adam = adam(groups, lr=cfg.learning_rate, betas=(0.9, 0.999),
+                         eps=1e-8)
         self.cfg, self.steps_per_epoch, self.count = cfg, steps_per_epoch, 0
 
     def zero_grad(self):
@@ -142,7 +147,9 @@ def fit(
     seed: Optional[int] = None,
     loss_fn: Optional[Callable] = None,
     loss_fn_builder: Optional[Callable] = None,
+    param_loss_fn: Optional[Callable] = None,
     train_alpha: bool = True,
+    decoupled_weight_decay: bool = False,
     epochs_per_sync: int = 8,
     verbose: bool = False,
     metrics=None,
@@ -159,7 +166,11 @@ def fit(
     (OpenPyStruct_FNN_MultiCase.py:313-314).  ``loss_fn_builder(Y_train)``
     returns the loss from the train labels on the device (the PINN's box
     bounds on its I slice, ``families.build_family``); it excludes
-    ``loss_fn``.  ``metrics``: a
+    ``loss_fn``.  ``param_loss_fn(params) -> scalar``, ``params`` the
+    model's parameters by name (``dict(model.named_parameters())``), adds a
+    term to the train and the val loss (the Bayesian families' scaled KL).
+    ``decoupled_weight_decay=True`` decays as AdamW does (the GNN's).
+    ``metrics``: a
     ``utils.MetricsLogger`` receiving one entry per epoch (train_loss,
     val_loss).  ``FitResult.params`` holds the best params as
     ``{"model": {name: tensor}, "alpha": tensor}``, the model's persistent
@@ -194,7 +205,9 @@ def fit(
     n_tr = X_train.shape[0]
     batch = min(cfg.batch_size, n_tr)
     steps = max(n_tr // batch, 1)
-    opt = _Optimizer(cfg, steps, model.parameters(), alpha, train_alpha)
+    opt = _Optimizer(cfg, steps, model.parameters(), alpha, train_alpha,
+                     decoupled_weight_decay)
+    model_params = dict(model.named_parameters())
     val_batch = min(cfg.batch_size, X_val.shape[0])
     full = max(X_val.shape[0] // val_batch, 1) * val_batch
     # the ragged val remainder is one extra batch, so the early-stop metric
@@ -209,8 +222,10 @@ def fit(
         preds = model(Xb, generator=generator, train=train)
         # mild penalty on alpha deviating from its initial value
         # (OpenPyStruct_FNN_MultiCase.py:546-547)
-        return (loss_fn(alpha, preds, Yb)
-                + (cfg.initial_alpha - alpha) ** 2)
+        loss = loss_fn(alpha, preds, Yb) + (cfg.initial_alpha - alpha) ** 2
+        if param_loss_fn is not None:
+            loss = loss + param_loss_fn(model_params)
+        return loss
 
     def run_epoch(epoch):
         g = _generator(device, seed, epoch)

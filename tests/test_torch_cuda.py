@@ -1396,3 +1396,75 @@ def test_fnn_pinn_fit_on_the_card(cuda, name):
     r2 = evaluate_r2(model, a.params, X[240:], Y[240:], scaler,
                      label_slice=slice(0, 100), device="cuda")
     assert np.isfinite(r2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gnn", "fno", "bnn", "bnn-meta"])
+def test_surrogate_families_fit_on_the_card(cuda, name):
+    """The GNN (AdamW), the FNO (float32) and the Bayesian TFDs (the KL
+    through ``param_loss_fn``) at their published widths on the card:
+    ``fit`` bitwise across ``epochs_per_sync``, every loss finite, TF32
+    off, R^2 finite; ``mc_output_stats`` finite with a positive spread."""
+    from openpystruct_tpu_torch.data import Scaler
+    from openpystruct_tpu_torch.families import build_family
+    from openpystruct_tpu_torch.models import mc_output_stats
+    from openpystruct_tpu_torch.train import evaluate_r2, fit
+
+    n_cases = 8 if name == "bnn-meta" else 6
+    rng = np.random.default_rng(0)
+    W = rng.normal(size=(n_cases * 24, 100)) / np.sqrt(n_cases * 24)
+    X = rng.normal(size=(300, n_cases, 24)).astype(np.float32)
+    Y = (X.reshape(300, -1) @ W).astype(np.float32)
+    runs = []
+    for sync in (1, 3):
+        model, spec, kw = build_family(name, 24)
+        cfg = dataclasses.replace(spec.train, num_epochs=4, batch_size=32)
+        runs.append(fit(model, X[:240], Y[:240], X[240:], Y[240:], cfg,
+                        epochs_per_sync=sync, device="cuda", **kw))
+    a, b = runs
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert np.isfinite(a.train_losses).all()
+    np.testing.assert_array_equal(a.train_losses, b.train_losses)
+    np.testing.assert_array_equal(a.val_losses, b.val_losses)
+    for k, v in a.params["model"].items():
+        assert v.is_cuda and torch.equal(v, b.params["model"][k]), k
+    scaler = Scaler(mean=np.zeros(100, np.float32),
+                    scale=np.ones(100, np.float32))
+    r2 = evaluate_r2(model, a.params, X[240:], Y[240:], scaler,
+                     device="cuda")
+    assert np.isfinite(r2)
+    if name.startswith("bnn"):
+        mean, std = mc_output_stats(model, a.params, X[240:], n_samples=8,
+                                    scaler_Y=scaler, device="cuda")
+        assert mean.is_cuda and torch.isfinite(mean).all()
+        assert (std > 0).all() and torch.isfinite(std).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,modes,degen", [
+    (6, 4, False), (6, 4, True), (8, 4, False), (7, 4, False), (9, 5, True),
+    (6, 10, False)])
+def test_spectral_conv_on_the_card(cuda, n, modes, degen):
+    """The FNO's spectral conv on the card against the numpy complex-FFT
+    oracle of tests/test_models.py (even and odd lengths, the Nyquist bin,
+    modes past Nyquist, the degenerate mixing), within 1e-5 of scale."""
+    from openpystruct_tpu_torch.models import SpectralConv1d
+
+    rng = np.random.default_rng(n * 100 + modes)
+    x = rng.normal(size=(3, 5, n)).astype(np.float32)
+    conv = SpectralConv1d(5, 5, modes, degenerate_mixing=degen).to(cuda)
+    with torch.no_grad():
+        y = conv(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    wr, wi = (w.detach().cpu().numpy().astype(np.float64)
+              for w in (conv.weights_real, conv.weights_imag))
+    m_eff = min(modes, n // 2 + 1)
+    w = (wr + 1j * wi)[:, :, :m_eff]
+    x_ft = np.fft.rfft(x.astype(np.float64), n=n, axis=-1)[:, :, :m_eff]
+    if degen:
+        out_m = x_ft.sum(axis=1)[:, None, :] * w.sum(axis=1)[None, :, :]
+    else:
+        out_m = np.einsum("bim,iom->bom", x_ft, w)
+    out_ft = np.zeros((3, 5, n // 2 + 1), np.complex128)
+    out_ft[:, :, :m_eff] = out_m
+    ref = np.fft.irfft(out_ft, n=n, axis=-1)
+    assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()

@@ -43,6 +43,16 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These models are small: one intra-op thread runs them several times
+    faster than many, above all beside other test processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _draws(B, n_cases, feat, seed):
     rng = np.random.default_rng(seed)
     return (rng.integers(0, 512, size=(B, n_cases)),
@@ -212,9 +222,17 @@ def test_family_table_matches_jax():
 
 
 @pytest.mark.parametrize("name", ["fno", "gnn", "bnn", "bnn-meta"])
-def test_other_families_raise(name):
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        tfam.build_family(name, 120)
+def test_other_families_build(name):
+    """Every family builds: the JAX package's model class, and what ``fit``
+    needs beyond the data as JAX's ``fit_kwargs`` says."""
+    model, spec, fit_kwargs = tfam.build_family(name, 120)
+    jmodel, _, jkw = jfam.build_family(name, 120)
+    assert type(model).__name__ == type(jmodel).__name__
+    assert fit_kwargs.get("decoupled_weight_decay", False) == jkw[
+        "decoupled_weight_decay"]
+    assert ("param_loss_fn" in fit_kwargs) == ("param_loss_fn" in jkw)
+    assert model.dtype == (torch.float32 if name == "fno"
+                           else torch.bfloat16)
 
 
 def test_family_errors():

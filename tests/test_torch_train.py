@@ -46,6 +46,16 @@ SMALL = dict(n_cases=3, feat_dim=16, n_elem=5, hidden_units=8, num_heads=4,
              dim_feedforward=12, diffusion_hidden_dim=10)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These models are small: one intra-op thread runs them several times
+    faster than many, above all beside other test processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _data(n_tr=24, n_va=9, seed=1):
     rng = np.random.default_rng(seed)
 
