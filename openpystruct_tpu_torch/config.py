@@ -106,3 +106,27 @@ class TrainConfig:
     c: float = 1.0                   # label aggregation: mean + c*std
     seed: int = 0
     compute_dtype: str = "bfloat16"  # matmul/compute precision (AMP analog)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameConfig:
+    """2D frame setup (reference OpenPyStruct_FrameOpt_Discrete_Beta.py:17-44)."""
+
+    E: float = 200e9          # FrameOpt_Discrete_Beta.py:26
+    nu: float = 0.3           # :27
+    A: float = 0.02           # :29
+    bay_width: float = 6.0    # :22
+    story_height: float = 3.0  # :23
+    num_bays: int = 3          # randomized 1..10 in the reference (:50-52)
+    num_stories: int = 3       # randomized 1..10 in the reference (:50-52)
+    I0: float = 5e-4          # :30
+    udl: float = -1e4         # vertical_load, :38
+    lateral_load: float = 1e4  # :37
+    lr: float = 0.005         # :42
+    max_epochs: int = 5000    # :41
+    tolerance: float = 1e-3   # :43
+    patience: int = 10        # :44
+
+    @property
+    def G(self) -> float:
+        return self.E / (2.0 * (1.0 + self.nu))

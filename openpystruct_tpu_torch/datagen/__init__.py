@@ -1,11 +1,19 @@
 """Random-scenario training-data generation: fixed and random bridges, any
 mesh size, with the float64 rescue of the lanes the float32 gate rejects;
 the 13-key JSON through the native writer and reader, and crash-safe
-``.npz`` shards."""
+``.npz`` shards; batched frame datasets over random topologies."""
 
 from openpystruct_tpu_torch.datagen.features import (  # noqa: F401
     batch_feature_arrays,
     extract_padded,
+)
+from openpystruct_tpu_torch.datagen.frames import (  # noqa: F401
+    FrameBatch,
+    frame_batch_to_columnar,
+    generate_frame_batch,
+    generate_frame_dataset,
+    sample_frame_loads,
+    sample_topologies,
 )
 from openpystruct_tpu_torch.datagen.generate import (  # noqa: F401
     DatagenBatch,

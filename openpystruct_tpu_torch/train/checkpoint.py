@@ -4,8 +4,10 @@ The reference only ``torch.save``'s a best model state_dict
 (OpenPyStruct_FNN_MultiCase.py:577-580).  Here a nested dict of tensors
 (``FitResult.params``: ``{"model": state_dict, "alpha": tensor}``) is
 written with ``torch.save`` to a temporary file beside ``path`` and renamed
-over it, so a reader never sees a partial file.  Resuming a fit from a
-checkpoint is not ported yet (ROADMAP queue A).
+over it, so a reader never sees a partial file.  ``fit(checkpoint_dir=)``
+writes its whole training state through it and ``fit(resume_from=)`` reads
+it back (``train/harness.py``); orbax files of the JAX package are not
+read.
 """
 
 from __future__ import annotations

@@ -37,14 +37,21 @@ frozen at the stopping one in the same device-side ``_select_``, so
 
 Torch draws cannot match ``jax.random``, so a port's training trajectory
 differs from the JAX package's for the same seed; its parameters start from
-the same distributions (``reset_parameters``).  Not ported yet (ROADMAP
-queue A): ``mesh``/``shuffle_scope="per_shard"``, ``checkpoint_dir``/
-``resume_from``/``checkpoint_every`` and ``live_plot``.
+the same distributions (``reset_parameters``).
+
+``checkpoint_dir`` saves the whole training state every
+``checkpoint_every`` sync chunks and at the stop or the last epoch;
+``resume_from`` restores it and continues.  A resumed run equals the
+uninterrupted one bitwise: every epoch's draws are a function of (seed,
+epoch) and every piece of state that carries across epochs is in the
+checkpoint.  Not ported yet (ROADMAP queue A): ``mesh``/
+``shuffle_scope="per_shard"`` and ``live_plot``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -54,6 +61,13 @@ from torch.func import functional_call
 from openpystruct_tpu_torch.config import TrainConfig
 from openpystruct_tpu_torch.device import resolve_device
 from openpystruct_tpu_torch.models.losses import trainable_l1l2_loss
+from openpystruct_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
+
+#: The file ``fit(checkpoint_dir=)`` writes and ``fit(resume_from=)`` reads.
+STATE_FILE = "state.pt"
 
 
 @dataclasses.dataclass
@@ -153,6 +167,9 @@ def fit(
     epochs_per_sync: int = 8,
     verbose: bool = False,
     metrics=None,
+    checkpoint_dir: Optional[str] = None,
+    resume_from: Optional[str] = None,
+    checkpoint_every: int = 1,
     device="cuda",
 ) -> FitResult:
     """Train ``model`` with the shared reference recipe on ``device``.
@@ -177,6 +194,18 @@ def fit(
     buffers (BatchNorm statistics) among the model's tensors;
     ``FitResult.state`` the
     params after the stopping (or last) epoch and the optimizer's step count.
+
+    ``checkpoint_dir``: save the full training state to
+    ``checkpoint_dir/state.pt`` (``train/checkpoint.py``'s atomic
+    ``torch.save``) every ``checkpoint_every`` sync chunks and after the
+    stopping or the last epoch: the live parameters, BatchNorm buffers and
+    alpha, the optimizer's moments, steps and schedule count, the best
+    tensors and best val loss, the early-stop counter and flag, the epoch,
+    the loss histories and the seed.  ``resume_from``: a directory so
+    written; the run continues from its state, and its seed wins over
+    ``seed``, as the JAX package's checkpointed rng does.  With the same
+    data and config the resumed run reproduces the uninterrupted one
+    bitwise, for any ``epochs_per_sync`` on either side.
     """
     device = resolve_device(device)
     seed = cfg.seed if seed is None else seed
@@ -255,6 +284,32 @@ def fit(
     stopped = torch.zeros((), dtype=torch.bool, device=device)
     train_hist, val_hist = [], []
     best_epoch, stopped_host, epoch0 = 0, False, 0
+
+    def full_state():
+        return {"live": live, "final": final, "best": best,
+                "best_val": best_val, "no_improve": no_improve,
+                "stopped": stopped, "optimizer": opt.adam.state_dict(),
+                "count": opt.count, "epoch0": epoch0,
+                "best_epoch": best_epoch, "stopped_host": stopped_host,
+                "train_hist": train_hist, "val_hist": val_hist,
+                "seed": seed}
+
+    if resume_from:
+        ck = load_checkpoint(os.path.join(resume_from, STATE_FILE))
+        with torch.no_grad():
+            for name, dst in (("live", live), ("final", final),
+                              ("best", best)):
+                for k, v in dst.items():
+                    v.copy_(ck[name][k])
+        best_val, no_improve, stopped = (
+            ck[k].to(device) for k in ("best_val", "no_improve", "stopped"))
+        opt.adam.load_state_dict(ck["optimizer"])
+        opt.count = ck["count"]
+        epoch0, best_epoch = ck["epoch0"], ck["best_epoch"]
+        stopped_host, seed = ck["stopped_host"], ck["seed"]
+        train_hist, val_hist = list(ck["train_hist"]), list(ck["val_hist"])
+
+    chunks_done = 0
     while epoch0 < cfg.num_epochs and not stopped_host:
         chunk = min(epochs_per_sync, cfg.num_epochs - epoch0)
         rows = []
@@ -290,6 +345,13 @@ def fit(
         stopped_host = bool(rows[-1, 4])
         if verbose and stopped_host:
             print(f"Early stopping at epoch {epoch0}")
+        chunks_done += 1
+        if checkpoint_dir and (chunks_done % checkpoint_every == 0
+                               or stopped_host
+                               or epoch0 >= cfg.num_epochs):
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            save_checkpoint(os.path.join(checkpoint_dir, STATE_FILE),
+                            full_state())
 
     return FitResult(
         params={"model": {k: v for k, v in best.items() if k != "alpha"},

@@ -9,7 +9,8 @@ from openpystruct_tpu_torch import config as torch_config
 
 
 @pytest.mark.parametrize("name", ["BeamConfig", "OptimizerConfig",
-                                  "ScenarioConfig", "TrainConfig"])
+                                  "ScenarioConfig", "TrainConfig",
+                                  "FrameConfig"])
 def test_config_fields_match(name):
     j, t = getattr(jax_config, name), getattr(torch_config, name)
     fj = [(f.name, f.default) for f in dataclasses.fields(j)]
@@ -19,6 +20,7 @@ def test_config_fields_match(name):
 
 
 @pytest.mark.parametrize("prop,cls", [("G", "BeamConfig"),
+                                      ("G", "FrameConfig"),
                                       ("num_elements", "BeamConfig"),
                                       ("min_force", "ScenarioConfig")])
 def test_config_properties_match(prop, cls):

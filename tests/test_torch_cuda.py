@@ -1468,3 +1468,176 @@ def test_spectral_conv_on_the_card(cuda, n, modes, degen):
     out_ft[:, :, :m_eff] = out_m
     ref = np.fft.irfft(out_ft, n=n, axis=-1)
     assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,ns", [(3, 3), (10, 1), (1, 10), (10, 10),
+                                   (20, 20)])
+def test_frame_banded_vs_dense_on_the_card(cuda, nb, ns):
+    """The banded float32 solve against the dense float64 one on the card
+    on healthy lognormal I: per-lane displacement error within 2e-4 of the
+    lane's scale at the median and 1e-3 at the worst lane (the JAX
+    package's own float32 banded solve reaches a median of 1.0e-4 and
+    4.2e-4 at 20x20, 2.6e-4 at 1x10), pivots
+    within 1e-3 relative of the float64 banded ones and above the validity
+    gate; float64 banded within 1e-10 of dense."""
+    from openpystruct_tpu_torch.config import FrameConfig
+    from openpystruct_tpu_torch.fem import (
+        build_frame,
+        solve_frame,
+        solve_frame_banded,
+    )
+    from openpystruct_tpu_torch.fem.frame_banded import FRAME_VALID_PIVOT
+
+    cfg = FrameConfig()
+    st = build_frame(nb, ns, cfg, device="cuda")
+    gen = torch.Generator().manual_seed(nb * 64 + ns)
+    I = (torch.exp(0.5 * torch.randn(64, st.num_elems, generator=gen))
+         * cfg.I0).to(cuda)
+    sol32, piv32 = solve_frame_banded(I, st, cfg)
+    sol64, piv64 = solve_frame_banded(I.double(), st, cfg, torch.float64)
+    ref = solve_frame(I.double(), st, cfg, torch.float64, method="dense")
+    scale = ref.displacements.flatten(1).abs().amax(1)
+
+    def err(x):
+        return ((x.double() - ref.displacements).flatten(1).abs().amax(1)
+                / scale)
+
+    assert float(err(sol32.displacements).median()) <= 2e-4
+    assert float(err(sol32.displacements).max()) <= 1e-3
+    assert float(err(sol64.displacements).max()) <= 1e-10
+    assert float(((piv32.double() - piv64).abs() / piv64).max()) <= 1e-3
+    assert bool((piv32 > FRAME_VALID_PIVOT).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["banded", "dense"])
+def test_frame_solve_ignores_caller_tf32_on_the_card(cuda, method):
+    """With TF32 asked for by the caller, the frame solve and its gradient
+    give the bits of full float32, and the caller's setting is kept."""
+    from openpystruct_tpu_torch.config import FrameConfig
+    from openpystruct_tpu_torch.fem import build_frame, solve_frame
+
+    cfg = FrameConfig()
+    st = build_frame(10, 10, cfg, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    I0 = (torch.exp(0.5 * torch.randn(32, st.num_elems, generator=gen))
+          * cfg.I0).to(cuda)
+    prev = torch.get_float32_matmul_precision()
+    out = []
+    try:
+        for prec in ("highest", "high"):
+            torch.set_float32_matmul_precision(prec)
+            I = I0.clone().requires_grad_(True)
+            sol = solve_frame(I, st, cfg, method=method)
+            (sol.end_forces ** 2).sum().backward()
+            assert torch.get_float32_matmul_precision() == prec
+            out.append((sol.displacements, sol.end_forces, I.grad))
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_mode", ["semi", "adjoint"])
+def test_frame_optimizer_deterministic_on_the_card(cuda, grad_mode):
+    """``optimize_frame_batched`` twice on the same inputs: the same bits
+    (assembly sums in a fixed order, no atomics); ``chunk_size`` equal in
+    value to the whole batch; every I finite and at least the clamp."""
+    from openpystruct_tpu_torch.config import FrameConfig
+    from openpystruct_tpu_torch.datagen.frames import sample_frame_loads
+    from openpystruct_tpu_torch.fem import build_frame
+    from openpystruct_tpu_torch.opt import optimize_frame_batched
+
+    cfg = FrameConfig(max_epochs=60)
+    st = build_frame(4, 3, cfg, device="cuda")
+    udl, lat = sample_frame_loads(torch.Generator().manual_seed(1), 48, cfg,
+                                  device="cuda")
+    a, b = (optimize_frame_batched(st, udl, lat, cfg, grad_mode=grad_mode)
+            for _ in range(2))
+    for x, y in ((a.I, b.I), (a.n_epochs, b.n_epochs),
+                 (a.solution.end_forces, b.solution.end_forces),
+                 (a.loss.total, b.loss.total)):
+        assert torch.equal(x, y)
+    assert bool(torch.isfinite(a.I).all()) and bool((a.I >= 1e-8).all())
+    c = optimize_frame_batched(st, udl, lat, cfg, grad_mode=grad_mode,
+                               chunk_size=20)
+    assert torch.equal(a.n_epochs, c.n_epochs)
+    torch.testing.assert_close(c.I, a.I, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_frame_checked_and_datagen_on_the_card(cuda):
+    """``solve_frame_checked`` escalates in float64 on the card and its
+    certified lanes are within tol of the float64 dense solve;
+    ``generate_frame_dataset`` keeps every row's lengths its topology's."""
+    from openpystruct_tpu_torch.config import FrameConfig
+    from openpystruct_tpu_torch.datagen import generate_frame_dataset
+    from openpystruct_tpu_torch.fem import (
+        build_frame,
+        solve_frame,
+        solve_frame_checked,
+    )
+
+    cfg = FrameConfig()
+    st = build_frame(3, 4, cfg, device="cuda")
+    rng = np.random.default_rng(1)
+    I = np.exp(rng.normal(size=(4, st.num_elems)) * 0.5) * cfg.I0
+    I[3, rng.choice(st.num_elems, size=int(0.8 * st.num_elems),
+                    replace=False)] = 1e-8
+    sol, info = solve_frame_checked(torch.tensor(I, dtype=torch.float32,
+                                                 device=cuda), st, cfg)
+    assert sol.displacements.is_cuda
+    np.testing.assert_array_equal(info["used_f64"], [0, 0, 0, 1])
+    ref = solve_frame(torch.tensor(I, device=cuda), st, cfg, torch.float64,
+                      method="dense").displacements
+    err = ((sol.displacements.double() - ref).flatten(1).abs().amax(1)
+           / ref.flatten(1).abs().amax(1))
+    assert float(err.max()) <= 1e-4 and (info["est"] <= 1e-4).all()
+
+    data = generate_frame_dataset(0, 24, FrameConfig(max_epochs=20),
+                                  bays_range=(1, 3), stories_range=(1, 3),
+                                  device="cuda")
+    assert len(data["I_values"]) == 24
+    for i, row in enumerate(data["I_values"]):
+        b, s = data["num_bays"][i], data["num_stories"][i]
+        assert len(row) == s * (b + 1) + s * b
+        assert len(data["displacements"][i]) == (b + 1) * (s + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fnn", "gnn", "bnn"])
+def test_fit_resume_on_the_card(cuda, name, tmp_path):
+    """``fit`` killed at a sync boundary with ``checkpoint_dir`` and resumed
+    with ``resume_from`` equals the uninterrupted run bitwise on the card
+    (losses, best epoch, best and final params), for the FNN, the GNN's
+    AdamW and ``bnn``'s draws."""
+    from openpystruct_tpu_torch.families import build_family
+    from openpystruct_tpu_torch.train import fit
+
+    n_cases, feat = 6, 24
+    rng = np.random.default_rng(0)
+    W = rng.normal(size=(n_cases * feat, 100)) / np.sqrt(n_cases * feat)
+    X = rng.normal(size=(200, n_cases, feat)).astype(np.float32)
+    Y = (X.reshape(200, -1) @ W).astype(np.float32)
+    data = (X[:160], Y[:160], X[160:], Y[160:])
+
+    def run(epochs, **kw):
+        model, spec, fit_kw = build_family(name, feat)
+        cfg = dataclasses.replace(spec.train, num_epochs=epochs,
+                                  batch_size=32)
+        return fit(model, *data, cfg, epochs_per_sync=2, device="cuda",
+                   **fit_kw, **kw)
+
+    full = run(6)
+    run(4, checkpoint_dir=str(tmp_path))
+    resumed = run(6, resume_from=str(tmp_path))
+    np.testing.assert_array_equal(full.train_losses, resumed.train_losses)
+    np.testing.assert_array_equal(full.val_losses, resumed.val_losses)
+    assert full.best_epoch == resumed.best_epoch
+    for res_a, res_b in ((full.params, resumed.params),
+                         (full.state["params"], resumed.state["params"])):
+        for k, v in res_a["model"].items():
+            assert torch.equal(v, res_b["model"][k]), k
+        assert torch.equal(res_a["alpha"], res_b["alpha"])
