@@ -184,10 +184,28 @@ Phases, each of which raises on failure (exit code not 0):
    rows, each row's lengths its topology's, valid rows/s; (10e)
    ``solve_frame_checked(tol=1e-4)`` on healthy and clamp lanes of a 3x4
    frame: escalation in float64 on the card, healthy and escalated lanes
-   within tol of float64 dense, ``on_fail="raise"`` raising; (10f) the
+   within tol of float64 dense, every clamp lane left in float32 above the
+   pivot floor and within 10 x tol, ``on_fail="raise"`` raising; (10f) the
    FNN on phase 8's columns, ``fit`` killed at half with
    ``checkpoint_dir`` and resumed: losses, best epoch and params bitwise
-   the uninterrupted run's.
+   the uninterrupted run's;
+11. the command line on the card (``openpystruct_tpu_torch.cli.main`` in
+   this process, the nine counters set to 0 before and read after each
+   call; no wrapper's plain version may run): ``datagen`` of CLI_SAMPLES
+   fixed-bridge samples in one batch to a JSON (#1, #2 launched), read
+   back natively with the 13 keys; ``datagen --random-bridge`` of
+   CLI_RB_SAMPLES samples through ``--shard-dir`` (#7, #8 launched);
+   ``train --model tfd --epochs CLI_EPOCHS`` on the first file with
+   ``--checkpoint``, ``--metrics-jsonl``, ``--tensorboard`` and
+   ``--profile``: one JSONL entry per epoch, the events file's records
+   passing their CRCs and decoding to the logged losses, the trace naming
+   CUDA kernels; ``predict --model tfd`` on that checkpoint: nelem finite
+   values; ``beam-opt`` at its 1000-epoch default; ``frame-opt --bays 3
+   --stories 3 --batch 256 --epochs 200``; ``bench --profile``: its three
+   JSON lines printed, #1 and #2 launched, the trace naming
+   ``beam_analysis_kernel`` and ``beam_opt_step_kernel``; once more
+   ``predict`` through ``python -m openpystruct_tpu_torch`` in a
+   subprocess; ``--watch`` and ``--plot`` only where matplotlib imports.
 
 ``--quick`` stops after phase 3d.  Prints the card line, a JSON line of
 kernel results, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -290,6 +308,12 @@ FRAME_DATA_SAMPLES = 128  # 10d's samples over the 1-10 x 1-10 draw
 FRAME_DATA_EPOCHS = 60    # 10d's epoch cut (10c runs the full 5000)
 FRAME_CHECKED_TOL = 1e-4
 RESUME_EPOCHS = 6         # 10f: the FNN's epochs, killed at half
+# phase 11, the command line: datagen's samples (one batch of the JAX
+# package's datagen size; the random bridge at the CLI's default batch),
+# and the TFD's epochs
+CLI_SAMPLES = 16384
+CLI_RB_SAMPLES = 8192
+CLI_EPOCHS = 5
 # tests/test_models.py's spectral-conv oracle cases: (n, modes, degenerate)
 SPECTRAL_CASES = ((6, 4, False), (6, 4, True), (8, 4, False), (7, 4, False),
                   (9, 5, True), (6, 10, False))
@@ -1695,6 +1719,73 @@ def same_bits(torch, a, b):
         a.isnan(), b.isnan()))
 
 
+def frame_checked(torch, gen, cfg):
+    """Phase 10e: ``solve_frame_checked`` on healthy and clamp lanes of a
+    3x4 frame on the card, and its raise mode."""
+    import numpy as np
+
+    from openpystruct_tpu_torch.fem import (
+        build_frame,
+        solve_frame,
+        solve_frame_checked,
+    )
+    from openpystruct_tpu_torch.fem.frame_banded import FRAME_VALID_PIVOT
+
+    dev = torch.device("cuda")
+    st = build_frame(3, 4, cfg, device="cuda")
+    half = FRAME_LANES // 2
+    I = torch.cat([
+        healthy_I(torch, gen, half, st.num_elems, cfg.I0, dev),
+        garbage_I(torch, gen, half, st.num_elems, cfg.I0, dev)])
+    (sol, info), t = wall_s(torch, lambda: solve_frame_checked(
+        I, st, cfg, tol=FRAME_CHECKED_TOL))
+    ref = solve_frame(I.double(), st, cfg, torch.float64, method="dense")
+    err = lane_rel(torch, sol.displacements, ref.displacements).cpu().numpy()
+    cert = info["est"] <= FRAME_CHECKED_TOL
+    esc = info["used_f64"]
+    healthy = np.arange(FRAME_LANES) < half
+    # a clamp lane left in float32 (est <= tol, pivot >= FRAME_VALID_PIVOT)
+    # is held within 10 x tol: below the pivot floor every lane escalates,
+    # where the JAX package's rule certified some far off (the port departs
+    # from it on purpose)
+    left = cert & ~esc & ~healthy
+    held = cert & (esc | healthy)
+    if not (sol.displacements.is_cuda and esc.any() and held.any()
+            and (err[held] <= FRAME_CHECKED_TOL).all()
+            and (err[left] <= 10 * FRAME_CHECKED_TOL).all()
+            and (info["pivot"][~esc] >= FRAME_VALID_PIVOT).all()):
+        raise AssertionError(
+            f"solve_frame_checked: {int(esc.sum())} escalated, "
+            f"{int(held.sum())} held, worst held error "
+            f"{err[held].max() if held.any() else float('nan'):.3e}, "
+            f"worst clamp lane left in float32 "
+            f"{err[left].max() if left.any() else 0.0:.3e}")
+    # tests/test_frame_banded.py's uncertifiable lane: 2x8, 95% of the
+    # members at the clamp (scaled pivot ~1.6e-7, float64 bound ~7e-10)
+    st2 = build_frame(2, 8, cfg, device="cuda")
+    rng = np.random.default_rng(5)
+    bad = np.exp(rng.normal(size=(1, st2.num_elems)) * 0.5) * cfg.I0
+    bad[0, rng.choice(st2.num_elems, size=int(0.95 * st2.num_elems),
+                      replace=False)] = 1e-8
+    try:
+        solve_frame_checked(torch.tensor(bad, dtype=torch.float32,
+                                         device=dev),
+                            st2, cfg, tol=1e-11, on_fail="raise")
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("on_fail='raise' did not raise")
+    log(f"phase 10e: solve_frame_checked(tol={FRAME_CHECKED_TOL}) on "
+        f"{FRAME_LANES} 3x4 lanes ({half} healthy, {half} with 70-95% of "
+        f"members at the clamp): {t:.3f} s, {int(esc.sum())} lanes escalated "
+        f"to float64 on the card, {int(cert.sum())} certified; the healthy "
+        f"and the escalated ones within {err[held].max():.2e} of float64 "
+        f"dense; {int(left.sum())} clamp lanes left in float32, worst error "
+        + (f"{err[left].max():.2e}" if left.any() else "-")
+        + f" (gate {10 * FRAME_CHECKED_TOL:g})"
+        + f" | on_fail='raise' at tol 1e-11: ValueError ({raised[:60]}...)")
+
+
 def frame_path(torch, data, seed, mods):
     """Phase 10: the frame path on the card: the banded solve against the
     float64 dense one (10a), TF32 (10b), the batched optimizer under the
@@ -1712,7 +1803,6 @@ def frame_path(torch, data, seed, mods):
         frame_min_pivot,
         solve_frame,
         solve_frame_banded,
-        solve_frame_checked,
     )
     from openpystruct_tpu_torch.fem.frame_banded import FRAME_VALID_PIVOT
     from openpystruct_tpu_torch.opt import frame_loss, optimize_frame_batched
@@ -1911,53 +2001,7 @@ def frame_path(torch, data, seed, mods):
         "topology's, no padding lane")
 
     # ---- 10e: the checked solve -------------------------------------------
-    st = build_frame(3, 4, cfg, device="cuda")
-    half = FRAME_LANES // 2
-    I = torch.cat([
-        healthy_I(torch, gen, half, st.num_elems, cfg.I0, dev),
-        garbage_I(torch, gen, half, st.num_elems, cfg.I0, dev)])
-    (sol, info), t = wall_s(torch, lambda: solve_frame_checked(
-        I, st, cfg, tol=FRAME_CHECKED_TOL))
-    ref = solve_frame(I.double(), st, cfg, torch.float64, method="dense")
-    err = lane_rel(torch, sol.displacements, ref.displacements).cpu().numpy()
-    cert = info["est"] <= FRAME_CHECKED_TOL
-    esc = info["used_f64"]
-    healthy = np.arange(FRAME_LANES) < half
-    # a garbage lane the refinement estimate certifies in float32 without
-    # escalating can be far off (ROADMAP queue C: the JAX package's rule,
-    # kept as it is); it is counted, not held
-    left = cert & ~esc & ~healthy
-    held = cert & (esc | healthy)
-    if not (sol.displacements.is_cuda and esc.any() and held.any()
-            and (err[held] <= FRAME_CHECKED_TOL).all()):
-        raise AssertionError(
-            f"solve_frame_checked: {int(esc.sum())} escalated, "
-            f"{int(held.sum())} held, worst held error "
-            f"{err[held].max() if held.any() else float('nan'):.3e}")
-    # tests/test_frame_banded.py's uncertifiable lane: 2x8, 95% of the
-    # members at the clamp (scaled pivot ~1.6e-7, float64 bound ~7e-10)
-    st2 = build_frame(2, 8, cfg, device="cuda")
-    rng = np.random.default_rng(5)
-    bad = np.exp(rng.normal(size=(1, st2.num_elems)) * 0.5) * cfg.I0
-    bad[0, rng.choice(st2.num_elems, size=int(0.95 * st2.num_elems),
-                      replace=False)] = 1e-8
-    try:
-        solve_frame_checked(torch.tensor(bad, dtype=torch.float32,
-                                         device=dev),
-                            st2, cfg, tol=1e-11, on_fail="raise")
-    except ValueError as e:
-        raised = str(e)
-    else:
-        raise AssertionError("on_fail='raise' did not raise")
-    log(f"phase 10e: solve_frame_checked(tol={FRAME_CHECKED_TOL}) on "
-        f"{FRAME_LANES} 3x4 lanes ({half} healthy, {half} with 70-95% of "
-        f"members at the clamp): {t:.3f} s, {int(esc.sum())} lanes escalated "
-        f"to float64 on the card, {int(cert.sum())} certified; the healthy "
-        f"and the escalated ones within {err[held].max():.2e} of float64 "
-        f"dense; {int(left.sum())} clamp lanes certified in float32 without "
-        f"escalation, worst error "
-        + (f"{err[left].max():.2e}" if left.any() else "-")
-        + f" | on_fail='raise' at tol 1e-11: ValueError ({raised[:60]}...)")
+    frame_checked(torch, gen, cfg)
 
     launches, plain = read_counts(*mods)
     if any(launches.values()) or any(plain.values()):
@@ -1997,6 +2041,176 @@ def frame_path(torch, data, seed, mods):
         f"s) vs killed at {RESUME_EPOCHS // 2} with checkpoint_dir and "
         f"resumed ({t_res:.2f} s for the rest): losses, best epoch "
         f"{full.best_epoch} and best params bitwise equal")
+
+
+def trace_kernels(path):
+    """{name: count} of the device kernels in a Chrome trace JSON."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    counts = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def cli_path(torch, seed, mods):
+    """Phase 11: every subcommand of ``python -m openpystruct_tpu_torch`` on
+    the card, in this process, with the kernels' launches counted per call;
+    then ``predict`` through the module entry in a subprocess.  Returns the
+    launches summed over the calls."""
+    import os
+
+    import numpy as np
+
+    from openpystruct_tpu_torch import cli
+    from openpystruct_tpu_torch.datagen import SCHEMA_KEYS, read_json_dataset
+    from openpystruct_tpu_torch.utils.tb_writer import read_scalars
+
+    d = REPO / ".smoke_tmp" / "cli"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    total = {}
+
+    def step(name, argv, want=()):
+        """One ``cli.main(argv)`` call with the counters set to 0 just
+        before it and read just after it."""
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        out = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        launches, plain = read_counts(*mods)
+        missing = [k for k in want if launches[k] == 0]
+        if missing or any(plain.values()):
+            raise AssertionError(f"phase 11 {name}: not launched {missing}, "
+                                 f"plain calls {plain}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"phase 11 {name}: {t:.2f} s, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        return out, t
+
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:
+        plots = False
+    log("phase 11: the command line on the card, cli.main in this process"
+        + ("" if plots else "; matplotlib is absent: --watch and --plot "
+           "not run (host plotting, not device work)"))
+
+    # ---- datagen: the fixed bridge to JSON, the random bridge by shards --
+    fixed = d / "fixed.json"
+    n, t = step("datagen", ["datagen", "--num-samples", CLI_SAMPLES,
+                            "--batch-size", CLI_SAMPLES, "--seed", seed + 110,
+                            "--output", fixed],
+                want=("beam_analysis", "beam_opt_step"))
+    back = read_json_dataset(str(fixed))
+    if tuple(back) != SCHEMA_KEYS or any(len(v) != n for v in back.values()):
+        raise AssertionError(f"datagen's file: {list(back)} rows "
+                             f"{[len(v) for v in back.values()]} of {n}")
+    log(f"  {n} valid of {CLI_SAMPLES} ({n / t:.1f} valid samples/s with "
+        "the JSON), read back natively with the 13 keys")
+    n_rb, t = step("datagen --random-bridge",
+                   ["datagen", "--random-bridge", "--num-samples",
+                    CLI_RB_SAMPLES, "--seed", seed + 111, "--shard-dir",
+                    d / "shards", "--output", d / "rb.json"],
+                   want=DATAGEN_KERNELS)
+    log(f"  {n_rb} valid of {CLI_RB_SAMPLES} ({n_rb / t:.1f} valid "
+        "samples/s through the shards)")
+
+    # ---- train with every observability flag, then predict ---------------
+    ck = d / "tfd.pt"
+    flags = ["--checkpoint", ck, "--metrics-jsonl", d / "m.jsonl",
+             "--tensorboard", d / "tb", "--profile", d / "prof"]
+    if plots:
+        flags += ["--watch", d / "watch.png", "--plot", d / "loss.png"]
+    (res, r2), t = step("train", ["train", "--model", "tfd", "--data", fixed,
+                                  "--epochs", CLI_EPOCHS, "--seed", seed,
+                                  *flags])
+    ep = len(res.train_losses)
+    lines = [json.loads(x) for x in (d / "m.jsonl").read_text().splitlines()]
+    (events,) = (d / "tb").iterdir()
+    scalars = read_scalars(str(events))     # raises on a bad CRC
+    want_sc = [(e + 1, k, float(np.float32(v))) for e in range(ep)
+               for k, v in (("train_loss", res.train_losses[e]),
+                            ("val_loss", res.val_losses[e]))]
+    (trace,) = (d / "prof").iterdir()
+    kern = trace_kernels(trace)
+    if not (ep == CLI_EPOCHS and [x["step"] for x in lines]
+            == list(range(1, ep + 1)) and scalars == want_sc and kern
+            and math.isfinite(r2)):
+        raise AssertionError(f"train: {ep} epochs, {len(lines)} JSONL "
+                             f"entries, {len(scalars)} scalars, "
+                             f"{len(kern)} kernels in the trace, R^2 {r2}")
+    if plots and not all((d / f).stat().st_size > 1000
+                         for f in ("watch.png", "loss.png")):
+        raise AssertionError("train: --watch or --plot wrote no PNG")
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  {ep} epochs, R^2 {r2:.4f}; {len(lines)} JSONL entries; "
+        f"{len(scalars)} TensorBoard scalars, CRCs good, equal to the "
+        f"losses; trace {trace.stat().st_size / 2**20:.1f} MiB with "
+        f"{sum(kern.values())} kernel events of {len(kern)} kernels, most "
+        f"launched: " + "; ".join(f"{c}x {k[:50]}" for k, c in top))
+    pred, _ = step("predict", ["predict", "--model", "tfd", "--checkpoint",
+                               ck, "--preproc", f"{ck}_preproc.npz",
+                               "--seed", seed])
+    if not (pred.shape == (len(back["I_values"][0]),)
+            and np.isfinite(pred).all()):
+        raise AssertionError(f"predict: {pred.shape}, finite "
+                             f"{np.isfinite(pred).all()}")
+    log(f"  predict: {pred.shape[0]} finite values, I in "
+        f"[{pred.min():.4g}, {pred.max():.4g}] m^4")
+
+    # ---- the two optimizers ----------------------------------------------
+    hist, t = step("beam-opt", ["beam-opt", "--seed", seed])
+    if not (np.isfinite(hist).all() and hist[-1, 0] < hist[0, 0]):
+        raise AssertionError(f"beam-opt: loss {hist[0, 0]} -> {hist[-1, 0]}")
+    log(f"  {len(hist)} epochs, {len(hist) / t:.1f} epochs/s, total loss "
+        f"{hist[0, 0]:.4f} -> {hist[-1, 0]:.4f}")
+    batch, t = step("frame-opt", ["frame-opt", "--bays", 3, "--stories", 3,
+                                  "--batch", FRAME_LANES, "--epochs",
+                                  FRAME_FIXED_EPOCHS, "--seed", seed])
+    valid = int(batch.valid.sum())
+    if not valid or not batch.result.I.is_cuda:
+        raise AssertionError(f"frame-opt: {valid} valid lanes")
+    log(f"  {valid} of {FRAME_LANES} valid, "
+        f"{FRAME_LANES * FRAME_FIXED_EPOCHS / t:.0f} lane-epochs/s")
+
+    # ---- bench under the profiler ----------------------------------------
+    out, t = step("bench --profile", ["bench", "--profile",
+                                      d / "bench_prof"],
+                  want=("beam_analysis", "beam_opt_step"))
+    names = [x["metric"] for x in out]
+    (btrace,) = (d / "bench_prof").iterdir()
+    with open(btrace, "rb") as fh:
+        raw = fh.read()
+    named = {k: raw.count(k.encode()) for k in ("beam_analysis_kernel",
+                                                "beam_opt_step_kernel")}
+    if names != ["BeamOpt iters/sec", "surrogate samples/sec/chip",
+                 "batched beam FEA solves/sec"] or not all(named.values()) \
+            or not all(math.isfinite(x["value"]) and x["value"] > 0
+                       for x in out):
+        raise AssertionError(f"bench: {out}, trace names {named}")
+    log(f"  bench: " + "; ".join(f"{x['metric']} {x['value']}" for x in out)
+        + f" | trace {len(raw) / 2**20:.1f} MiB naming {named}")
+
+    # ---- the module entry --------------------------------------------------
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "openpystruct_tpu_torch", "predict",
+         "--model", "tfd", "--checkpoint", str(ck), "--preproc",
+         f"{ck}_preproc.npz", "--seed", str(seed)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or "predicted I (m^4):" not in proc.stdout:
+        raise AssertionError(f"python -m openpystruct_tpu_torch predict: rc "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"phase 11 python -m openpystruct_tpu_torch predict: rc 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    shutil.rmtree(d, ignore_errors=True)
+    return total
 
 
 def make_inputs(torch, sample_scenarios, constraint_mask, seed, B, device,
@@ -2980,6 +3194,13 @@ def main(argv=None) -> int:
     frame_path(torch, file_data, args.seed, mods)
     del file_data
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 11: the command line on the card ---------------------------
+    t0 = time.perf_counter()
+    cli_launches = cli_path(torch, args.seed, mods)
+    for k in kernels:
+        k["launches_cli"] = cli_launches[k["name"]]
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

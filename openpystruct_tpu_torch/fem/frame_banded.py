@@ -52,19 +52,15 @@ from openpystruct_tpu_torch.fem.frame import (
 _EPS32 = 2.0 ** -24
 _EPS64 = 2.0 ** -53
 
-# Scaled-pivot floor below which a float32 frame factorization is treated as
-# numerically SINGULAR in solve_frame_checked (a NaN Cholesky factor
-# sanitizes to 0 and trips this).  Accuracy flagging is the refinement
-# estimate's job, so this floor only needs to sit below every
-# merely-ill-conditioned regime.
-FRAME_PIVOT_TOL32 = 1e-9
 # float64 floor (mirrors datagen.generate.RESCUE_PIVOT_TOL's rationale).
 FRAME_PIVOT_TOL64 = 1e-12
 # Datagen VALIDITY threshold (accuracy-grade, not just singularity): the JAX
 # package's calibration puts healthy frames at scaled pivots >= ~2e-3 with
 # float32 error <= ~1e-4 and garbage float32 regimes at <= ~1.4e-5 pivots
 # with >= 12% error (or NaN); 1e-3 splits them with a decade of margin on
-# each side, and optimized lanes sit two decades above it.
+# each side, and optimized lanes sit two decades above it.  It is also the
+# float32 floor of solve_frame_checked: a lane below it escalates whatever
+# its refinement estimate (a NaN factor sanitizes to pivot 0 and trips it).
 FRAME_VALID_PIVOT = 1e-3
 
 
@@ -317,9 +313,12 @@ def solve_frame_checked(
     piv32 = piv32.cpu().numpy()
     piv32 = np.where(np.isfinite(piv32), piv32, 0.0)
     # the refinement estimate certifies accuracy but cannot see singularity
-    # (self-consistent garbage has small corrections); the pivot covers that
-    # axis, as in the beam autopilot
-    flagged = np.flatnonzero((est > tol) | (piv32 < FRAME_PIVOT_TOL32))
+    # (self-consistent garbage has small corrections), nor the error of a
+    # near-singular float32 factor: two sweeps can report est < tol on a
+    # lane far from float64.  So every lane below the datagen validity
+    # pivot escalates too (a departure from the JAX package, whose float32
+    # floor is 1e-9); lanes above it keep the estimate's verdict.
+    flagged = np.flatnonzero((est > tol) | (piv32 < FRAME_VALID_PIVOT))
     used_f64 = np.zeros(B, bool)
     pivot = piv32.astype(np.float64)
 

@@ -45,7 +45,7 @@ the same distributions (``reset_parameters``).
 uninterrupted one bitwise: every epoch's draws are a function of (seed,
 epoch) and every piece of state that carries across epochs is in the
 checkpoint.  Not ported yet (ROADMAP queue A): ``mesh``/
-``shuffle_scope="per_shard"`` and ``live_plot``.
+``shuffle_scope="per_shard"``.
 """
 
 from __future__ import annotations
@@ -167,6 +167,7 @@ def fit(
     epochs_per_sync: int = 8,
     verbose: bool = False,
     metrics=None,
+    live_plot=None,
     checkpoint_dir: Optional[str] = None,
     resume_from: Optional[str] = None,
     checkpoint_every: int = 1,
@@ -189,7 +190,13 @@ def fit(
     ``decoupled_weight_decay=True`` decays as AdamW does (the GNN's).
     ``metrics``: a
     ``utils.MetricsLogger`` receiving one entry per epoch (train_loss,
-    val_loss).  ``FitResult.params`` holds the best params as
+    val_loss).  ``live_plot``: a ``viz.LiveLossPlot`` (or a path, for which
+    ``fit`` makes one writing a self-refreshing PNG and closes it at the
+    end) updated once per sync chunk with the histories so far, the
+    reference's per-epoch live plot (OpenPyStruct_FNN_MultiCase.py:493-515)
+    for headless hosts; it reads the host histories only, so the losses are
+    bitwise the same with or without it.  ``FitResult.params`` holds the
+    best params as
     ``{"model": {name: tensor}, "alpha": tensor}``, the model's persistent
     buffers (BatchNorm statistics) among the model's tensors;
     ``FitResult.state`` the
@@ -209,6 +216,11 @@ def fit(
     """
     device = resolve_device(device)
     seed = cfg.seed if seed is None else seed
+    owns_live_plot = isinstance(live_plot, str)
+    if owns_live_plot:
+        from openpystruct_tpu_torch.viz import LiveLossPlot
+
+        live_plot = LiveLossPlot(live_plot)
     X_train, Y_train, X_val, Y_val = (
         torch.as_tensor(a, dtype=torch.float32, device=device)
         for a in (X_train, Y_train, X_val, Y_val))
@@ -345,6 +357,8 @@ def fit(
         stopped_host = bool(rows[-1, 4])
         if verbose and stopped_host:
             print(f"Early stopping at epoch {epoch0}")
+        if live_plot is not None:
+            live_plot.update(train_hist, val_hist)
         chunks_done += 1
         if checkpoint_dir and (chunks_done % checkpoint_every == 0
                                or stopped_host
@@ -352,6 +366,10 @@ def fit(
             os.makedirs(checkpoint_dir, exist_ok=True)
             save_checkpoint(os.path.join(checkpoint_dir, STATE_FILE),
                             full_state())
+    if owns_live_plot:
+        # fit made the figure, so fit releases it (matplotlib warns after
+        # 20 open figures)
+        live_plot.close()
 
     return FitResult(
         params={"model": {k: v for k, v in best.items() if k != "alpha"},

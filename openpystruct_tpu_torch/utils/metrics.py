@@ -3,8 +3,9 @@
 The reference's observability is print() statements and wall-clock
 time.time() pairs (OpenPyStruct_FNN_MultiCase.py:530,587-591,
 OpenPyStruct_BeamOpt_training_SingleCore.py:252,266-269).  This module
-upgrades that to a structured metrics logger with JSONL persistence.  The
-TensorBoard writer is not ported yet (ROADMAP queue A item 6).
+upgrades that to a structured metrics logger with JSONL persistence and an
+optional TensorBoard writer (``utils/tb_writer.py``, first-party, so no
+tensorboard package is needed), while keeping the zero-dependency default.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import json
 import time
 from typing import Optional
+
+from openpystruct_tpu_torch.utils.tb_writer import TBEventWriter
 
 
 class Timer:
@@ -31,7 +34,9 @@ def steps_per_sec(n_steps: int, elapsed_s: float) -> float:
 
 
 class MetricsLogger:
-    """Append-only metrics: in-memory history + optional JSONL file.
+    """Append-only metrics: in-memory history + optional JSONL file +
+    optional TensorBoard event file (one scalar per numeric metric of an
+    entry logged with a ``step``).
 
     Usage::
 
@@ -42,14 +47,11 @@ class MetricsLogger:
     def __init__(self, jsonl: Optional[str] = None,
                  tensorboard_dir: Optional[str] = None,
                  stdout: bool = False):
-        if tensorboard_dir:
-            raise NotImplementedError(
-                "MetricsLogger(tensorboard_dir=...) needs the TensorBoard "
-                "writer, which is not ported yet (ROADMAP queue A item 6)")
         self.history = []
         self._jsonl_path = jsonl
         self._jsonl = open(jsonl, "a") if jsonl else None
         self._stdout = stdout
+        self._tb = TBEventWriter(tensorboard_dir) if tensorboard_dir else None
 
     def log(self, step: Optional[int] = None, **metrics):
         entry = {"time": time.time(), **metrics}
@@ -63,6 +65,10 @@ class MetricsLogger:
             parts = [f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in entry.items() if k != "time"]
             print(" | ".join(parts))
+        if self._tb is not None and step is not None:
+            for k, v in metrics.items():
+                if isinstance(v, (int, float)):
+                    self._tb.scalar(k, v, step)
 
     def column(self, key):
         return [e[key] for e in self.history if key in e]
@@ -70,3 +76,5 @@ class MetricsLogger:
     def close(self):
         if self._jsonl:
             self._jsonl.close()
+        if self._tb is not None:
+            self._tb.flush()

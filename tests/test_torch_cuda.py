@@ -11,6 +11,7 @@ checks at full width (B = 16384).
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -1641,3 +1642,75 @@ def test_fit_resume_on_the_card(cuda, name, tmp_path):
         for k, v in res_a["model"].items():
             assert torch.equal(v, res_b["model"][k]), k
         assert torch.equal(res_a["alpha"], res_b["alpha"])
+
+
+@pytest.mark.cuda
+def test_frame_checked_clamp_batch_on_the_card(cuda):
+    """On the clamp batch (3x4, 70-95% of the members at 1e-8,
+    ``default_rng(11)``), every lane ``solve_frame_checked`` leaves in
+    float32 lies above the pivot floor and within 10 x tol of float64."""
+    from openpystruct_tpu_torch.config import FrameConfig
+    from openpystruct_tpu_torch.fem import (
+        build_frame,
+        solve_frame,
+        solve_frame_checked,
+    )
+    from openpystruct_tpu_torch.fem.frame_banded import FRAME_VALID_PIVOT
+
+    cfg = FrameConfig()
+    st = build_frame(3, 4, cfg, device="cuda")
+    E, B = st.num_elems, 2048
+    rng = np.random.default_rng(11)
+    I = np.exp(rng.normal(size=(B, E)) * 0.5) * cfg.I0
+    for k in range(B):
+        frac = 0.7 + 0.25 * rng.random()
+        I[k, rng.choice(E, size=int(frac * E), replace=False)] = 1e-8
+    I = torch.tensor(I.astype(np.float32), device=cuda)
+    with warnings.catch_warnings():     # lanes float64 cannot certify
+        warnings.simplefilter("ignore", RuntimeWarning)
+        sol, info = solve_frame_checked(I, st, cfg, tol=1e-4)
+    ref = solve_frame(I.double(), st, cfg, torch.float64,
+                      method="dense").displacements
+    err = ((sol.displacements.double() - ref).flatten(1).abs().amax(1)
+           / ref.flatten(1).abs().amax(1)).cpu().numpy()
+    kept = ~info["used_f64"]
+    assert kept.any() and info["used_f64"].any()
+    assert (info["pivot"][kept] >= FRAME_VALID_PIVOT).all()
+    assert err[kept].max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cli_and_bench_on_the_card(cuda, capsys):
+    """The CLI runs on the card by default; the bench's device functions
+    launch the analysis (#1) and the opt-step (#2) kernels."""
+    from openpystruct_tpu_torch import bench, cli
+
+    hist = cli.main(["beam-opt", "--epochs", "3", "--refine", "0"])
+    assert hist.shape == (3, 4) and np.isfinite(hist).all()
+    assert "Total Loss:" in capsys.readouterr().out
+    I = np.full(100, 0.5, np.float32)
+    sc, *_ = bench.build_system(I)
+    tk.reset_counts()
+    best, median = bench.device_rate(sc, I, batch=64, reps=10, chain=2)
+    rate = bench.beamopt_iters_rate(sc, I, batch=64, iters=3)
+    assert best >= median > 0 and rate > 0
+    assert tk.LAUNCHES["beam_analysis"] == 2 * (1 + 5)
+    assert tk.LAUNCHES["beam_opt_step"] == 3 * 4
+    assert tk.PLAIN_CALLS["beam_analysis"] == 0
+
+
+@pytest.mark.cuda
+def test_profile_trace_names_the_kernel_on_the_card(cuda, tmp_path):
+    import json
+
+    from openpystruct_tpu_torch.utils import profile_trace
+
+    I = np.full(100, 0.5, np.float32)
+    from openpystruct_tpu_torch import bench
+
+    sc, *_ = bench.build_system(I)
+    with profile_trace(str(tmp_path)) as prof:
+        bench.device_rate(sc, I, batch=64, reps=1, chain=1)
+    events = json.loads(open(prof.trace_path).read())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("beam_analysis_kernel" in k for k in kernels), kernels[:5]

@@ -41,6 +41,7 @@ from openpystruct_tpu_torch.train import (
 )
 from openpystruct_tpu_torch.train.harness import _early_stop_step, _Optimizer
 from openpystruct_tpu_torch.utils import MetricsLogger
+from openpystruct_tpu_torch.utils.tb_writer import read_scalars
 
 SMALL = dict(n_cases=3, feat_dim=16, n_elem=5, hidden_units=8, num_heads=4,
              dim_feedforward=12, diffusion_hidden_dim=10)
@@ -186,15 +187,20 @@ def test_fit_alpha_trains_and_freezes():
 def test_fit_feeds_metrics(tmp_path):
     data = _data()
     cfg = TrainConfig(num_epochs=3, batch_size=8, patience=50, sigma_0=0.0)
-    m = MetricsLogger(jsonl=str(tmp_path / "m.jsonl"))
+    m = MetricsLogger(jsonl=str(tmp_path / "m.jsonl"),
+                      tensorboard_dir=str(tmp_path / "tb"))
     res = fit(_model(), *data, cfg, metrics=m, epochs_per_sync=2,
               device="cpu")
     m.close()
     assert m.column("val_loss") == list(res.val_losses)
     assert m.column("step") == [1, 2, 3]
     assert len((tmp_path / "m.jsonl").read_text().splitlines()) == 3
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        MetricsLogger(tensorboard_dir=str(tmp_path / "tb"))
+    # the TensorBoard sink: one scalar per metric and epoch
+    (events,) = (tmp_path / "tb").iterdir()
+    assert read_scalars(str(events)) == [
+        (e + 1, k, float(np.float32(v))) for e in range(3)
+        for k, v in (("train_loss", res.train_losses[e]),
+                     ("val_loss", res.val_losses[e]))]
 
 
 def test_fit_needs_a_card_for_cuda():
