@@ -205,7 +205,23 @@ Phases, each of which raises on failure (exit code not 0):
    JSON lines printed, #1 and #2 launched, the trace naming
    ``beam_analysis_kernel`` and ``beam_opt_step_kernel``; once more
    ``predict`` through ``python -m openpystruct_tpu_torch`` in a
-   subprocess; ``--watch`` and ``--plot`` only where matplotlib imports.
+   subprocess; ``--watch`` and ``--plot`` only where matplotlib imports;
+12. distribution (``parallel``, one process per device): (12a) a NCCL group
+   of size 1 in this process on cuda:0: ``generate_batch(mesh=)`` on 16384
+   fixed-bridge lanes bitwise ``generate_batch`` without a mesh (#1, #2
+   launched, no plain version), the TFD's ``fit(mesh=)`` on phase 7's
+   features for DIST_EPOCHS epochs bitwise ``fit`` without one, and
+   ``all_processes_min_max`` on a CUDA tensor its plain min and max; (12b)
+   two gloo ranks spawned on cuda:0 (NCCL refuses two ranks on one card):
+   2 x DIST_LANES random-bridge lanes, the gathered rows on both ranks
+   bitwise the one-rank batch, #1, #2, #7 and #8 launched on each rank and
+   each rank's rescue given exactly its own rejected lanes; the FNN's
+   ``fit(mesh=)`` on phase 8's columns (float32, dropout 0): both ranks
+   bitwise identical and within rtol 1e-4 of the one-rank fit, and
+   ``shuffle_scope="per_shard"`` on unequal rows finite and identical on
+   both; (12c) ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m openpystruct_tpu_torch datagen --mesh`` writes a
+   13-key JSON and ``train --mesh`` trains the TFD from it.
 
 ``--quick`` stops after phase 3d.  Prints the card line, a JSON line of
 kernel results, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -314,6 +330,14 @@ RESUME_EPOCHS = 6         # 10f: the FNN's epochs, killed at half
 CLI_SAMPLES = 16384
 CLI_RB_SAMPLES = 8192
 CLI_EPOCHS = 5
+# phase 12, distribution: lanes a rank of 12b's random bridge (two ranks),
+# the epochs of its fits (12a's TFD, 12b's FNN, 12c's CLI train) and 12c's
+# datagen samples.  Two epochs: the two-rank FNN's losses stay within 1e-5
+# of the one-rank fit's there; Adam then amplifies the rounding of the
+# gradient's sum order (1.9e-4 at epoch 4, 4.2e-4 at 5, on the card)
+DIST_LANES = 8192
+DIST_EPOCHS = 2
+DIST_CLI_SAMPLES = 8192
 # tests/test_models.py's spectral-conv oracle cases: (n, modes, degenerate)
 SPECTRAL_CASES = ((6, 4, False), (6, 4, True), (8, 4, False), (7, 4, False),
                   (9, 5, True), (6, 10, False))
@@ -1124,7 +1148,8 @@ def profile_split_window(torch, sc, beam, opt, refine):
 
 def training_path(torch, seed, mods):
     """Phase 7: generate -> features -> device preprocessing -> TFD fit ->
-    R^2, all on the card.  Returns the kernels' launches on the path."""
+    R^2, all on the card.  Returns the kernels' launches on the path and the
+    prepared dataset (phase 12's)."""
     import numpy as np
 
     from openpystruct_tpu_torch.data import prepare_dataset_device
@@ -1240,7 +1265,7 @@ def training_path(torch, seed, mods):
     steps = ds.X_train.shape[0] // cfg.batch_size
     report_profile(prof, wall, f"profiled one-epoch fit ({steps} steps of "
                    f"{cfg.batch_size}, val, set-up)", top=8)
-    return launches
+    return launches, ds
 
 
 def ragged_rows(values, mask, order):
@@ -2213,6 +2238,361 @@ def cli_path(torch, seed, mods):
     return total
 
 
+def on_cpu(torch, obj):
+    """``obj`` (a tensor, a dataclass of them, None) with every tensor on
+    the host."""
+    from openpystruct_tpu_torch.parallel.collectives import tree_map
+
+    return tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                    else x, obj)
+
+
+@contextlib.contextmanager
+def first_step_grads(harness):
+    """While the block runs, record the gradients that the first optimizer
+    step applies, after the ranks' all-reduce and before the clip (a list
+    it yields, empty until that step)."""
+    got, real = [], harness._Optimizer.step
+
+    def step(self, sync=None):
+        def record(grads):
+            if sync is not None:
+                sync(grads)
+            if not got:
+                got.append([g.detach().cpu().clone() for g in grads])
+        real(self, record)
+
+    harness._Optimizer.step = step
+    try:
+        yield got
+    finally:
+        harness._Optimizer.step = real
+
+
+def grad_gap(torch, a, b):
+    """||a - b|| / ||b|| over every tensor of two gradient lists."""
+    a, b = (torch.cat([g.double().reshape(-1) for g in x]) for x in (a, b))
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+@contextlib.contextmanager
+def recorded_rescues(gen_mod):
+    """While the block runs, record the float32 pass's rejected-lane mask of
+    every batch ``generate._rescue_local`` is given (a list it yields)."""
+    calls, real = [], gen_mod._rescue_local
+
+    def rescue(batch, *a):
+        calls.append((~batch.valid).cpu())
+        return real(batch, *a)
+
+    gen_mod._rescue_local = rescue
+    try:
+        yield calls
+    finally:
+        gen_mod._rescue_local = real
+
+
+def dist_fnn_cfg():
+    """Phase 12b's FNN training: the family's recipe, DIST_EPOCHS epochs,
+    dropout 0 and float32 (the JAX multihost test's settings, so the
+    one-rank fit is comparable)."""
+    from openpystruct_tpu_torch.families import FAMILIES
+
+    return dataclasses.replace(FAMILIES["fnn"].train, num_epochs=DIST_EPOCHS,
+                               dropout_rate=0.0, compute_dtype="float32")
+
+
+def dist_rank(rank, tmp, seed):
+    """Phase 12b's rank (spawned, two gloo ranks on cuda:0): the random
+    bridge's 2 x DIST_LANES lanes over the mesh with the launches counted,
+    then the FNN's data-parallel fit on phase 8's columns, globally and per
+    shard on unequal rows.  Writes its results to ``tmp/rank{rank}.pt``."""
+    import numpy as np
+    import torch
+
+    from openpystruct_tpu_torch import parallel
+    from openpystruct_tpu_torch.config import ScenarioConfig
+    from openpystruct_tpu_torch.datagen import generate as gen_mod
+    from openpystruct_tpu_torch.datagen import generate_batch
+    from openpystruct_tpu_torch.ops import beam_kernel as tk
+    from openpystruct_tpu_torch.ops import beam_kernel_dd as tkd
+    from openpystruct_tpu_torch.ops import block_stream as tbs
+    from openpystruct_tpu_torch.ops import block_stream_dd as tsd
+    from openpystruct_tpu_torch.ops import block_tridiag as tbt
+    from openpystruct_tpu_torch.train import fit, harness
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = parallel.default_mesh(device="cuda:0")
+    got = {"backend": torch.distributed.get_backend(mesh.group)}
+    mods = (tk, tkd, tbt, tbs, tsd)
+    reset_counts(*mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_rescues(gen_mod) as rescues:
+        batch = generate_batch(torch.Generator().manual_seed(seed + 121),
+                               2 * DIST_LANES,
+                               ScenarioConfig(random_bridge=True), mesh=mesh)
+    torch.cuda.synchronize()
+    got["t_datagen"] = time.perf_counter() - t0
+    got["launches"], got["plain"] = read_counts(*mods)
+    got["batch"], got["rescues"] = on_cpu(torch, batch), rescues
+    with np.load(Path(tmp) / "fnn.npz") as z:
+        X, Y, Xv, Yv = (z[k] for k in ("X", "Y", "Xv", "Yv"))
+    n = len(X)
+    mine = slice(rank * n // 2, (rank + 1) * n // 2)
+    # unequal rows, as tests/multihost_worker.py splits them
+    split = n // 2 + 2
+    uneven = slice(0, split) if rank == 0 else slice(split, n)
+    cfg = dist_fnn_cfg()
+    for key, rows, kw in (("fit", mine, {}),
+                          ("per_shard", uneven,
+                           {"shuffle_scope": "per_shard"})):
+        t0 = time.perf_counter()
+        with first_step_grads(harness) as grads:
+            res = fit(dist_fnn(torch, cfg, X.shape[-1], Y.shape[-1]),
+                      X[rows], Y[rows], Xv, Yv, cfg, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        got[f"t_{key}"] = time.perf_counter() - t0
+        got[f"grads_{key}"] = grads[0]
+        got[key] = dict(train=res.train_losses, val=res.val_losses,
+                        step=res.state["step"],
+                        params={k: v.cpu() for k, v in
+                                res.params["model"].items()})
+    torch.save(got, Path(tmp) / f"rank{rank}.pt")
+
+
+def dist_fnn(torch, cfg, feat, label):
+    """The FNN family's model at its published widths (``build_family``'s),
+    with ``cfg``'s dropout and dtype."""
+    from openpystruct_tpu_torch.models import FNNWithResidual
+
+    return FNNWithResidual(input_dim=cfg.n_cases * feat,
+                           hidden_dim=cfg.hidden_units, num_blocks=4,
+                           output_dim=label, dropout_rate=cfg.dropout_rate,
+                           dtype=getattr(torch, cfg.compute_dtype))
+
+
+def distribution(torch, seed, mods, ds7, file_data):
+    """Phase 12: distribution.  12a: a NCCL group of size 1 in this process
+    on cuda:0, ``generate_batch(mesh=)`` and a TFD ``fit(mesh=)`` on phase
+    7's features bitwise their runs without a mesh, ``all_processes_min_max``
+    on the card.  12b: two gloo ranks spawned on cuda:0, the random bridge's
+    gathered rows bitwise the one-rank batch with #1, #2, #7 and #8 launched
+    on each rank and each rank rescuing only its own lanes; the FNN's
+    data-parallel fit on phase 8's columns, both ranks bitwise identical and
+    within rtol 1e-4 of the one-rank fit, and per shard on unequal rows.
+    12c: ``datagen --mesh`` and ``train --mesh`` under torchrun.  Returns
+    (12a's launches of the mesh runs, 12b's per-rank launches)."""
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from openpystruct_tpu_torch import parallel
+    from openpystruct_tpu_torch.config import ScenarioConfig
+    from openpystruct_tpu_torch.data import prepare_dataset
+    from openpystruct_tpu_torch.datagen import SCHEMA_KEYS, generate_batch
+    from openpystruct_tpu_torch.datagen import generate as gen_mod
+    from openpystruct_tpu_torch.datagen import read_json_dataset
+    from openpystruct_tpu_torch.families import FAMILIES, build_family
+    from openpystruct_tpu_torch.train import fit, harness
+
+    tmp = REPO / ".smoke_tmp" / "dist"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    launches_a = {}
+    try:
+        # ---- 12a: a NCCL group of size 1 ---------------------------------
+        t0 = time.perf_counter()
+        parallel.initialize_multihost(init_method=f"file://{tmp / 'nccl'}",
+                                      world_size=1, rank=0, device="cuda:0")
+        mesh = parallel.default_mesh()
+        backend = dist.get_backend(mesh.group)
+        if backend != "nccl" or mesh.device != torch.device("cuda", 0):
+            raise AssertionError(f"12a: {backend} on {mesh.device}")
+        log(f"phase 12a: a {backend} group of size {mesh.world_size} on "
+            f"{mesh.device}, mesh {mesh.shape}")
+        gen = lambda: torch.Generator().manual_seed(seed + 120)  # noqa: E731
+        plain = generate_batch(gen(), BATCH, device="cuda")
+        reset_counts(*mods)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        meshed = generate_batch(gen(), BATCH, mesh=mesh)
+        torch.cuda.synchronize()
+        t_mesh = time.perf_counter() - t1
+        launches, plain_calls = read_counts(*mods)
+        for k, v in launches.items():
+            launches_a[k] = launches_a.get(k, 0) + v
+        if not (same_bits(torch, meshed, plain) and launches["beam_analysis"]
+                and launches["beam_opt_step"]) or any(plain_calls.values()):
+            raise AssertionError(f"12a datagen: bitwise "
+                                 f"{same_bits(torch, meshed, plain)}, "
+                                 f"launches {launches}, plain {plain_calls}")
+        log(f"  generate_batch(mesh=) on {BATCH} fixed-bridge lanes bitwise "
+            f"generate_batch without a mesh ({int(meshed.valid.sum())} "
+            f"valid), {t_mesh:.2f} s, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        del plain, meshed
+        # the random bridge on one rank: 12b's reference
+        with recorded_rescues(gen_mod) as rescues:
+            rb_one = on_cpu(torch, generate_batch(
+                torch.Generator().manual_seed(seed + 121), 2 * DIST_LANES,
+                ScenarioConfig(random_bridge=True), device="cuda"))
+        cfg = dataclasses.replace(FAMILIES["tfd"].train,
+                                  num_epochs=DIST_EPOCHS)
+        res = []
+        for m in (None, mesh):
+            model, _, kw = build_family("tfd", ds7.feat_dim)
+            t1 = time.perf_counter()
+            res.append(fit(model, ds7.X_train, ds7.Y_train, ds7.X_val,
+                           ds7.Y_val, cfg, epochs_per_sync=DIST_EPOCHS,
+                           device="cuda", mesh=m, **kw))
+            torch.cuda.synchronize()
+            t_fit = time.perf_counter() - t1
+        a, b = res
+        same = (np.array_equal(a.train_losses, b.train_losses)
+                and np.array_equal(a.val_losses, b.val_losses)
+                and all(torch.equal(a.params["model"][k], b.params["model"][k])
+                        for k in a.params["model"])
+                and torch.equal(a.params["alpha"], b.params["alpha"]))
+        if not same:
+            raise AssertionError(f"12a fit: {a.train_losses} vs "
+                                 f"{b.train_losses}")
+        log(f"  TFD fit(mesh=) on phase 7's {ds7.X_train.shape[0]} train "
+            f"groups, {DIST_EPOCHS} epochs: bitwise fit without a mesh "
+            f"(losses, {len(a.params['model'])} tensors, alpha); "
+            f"{t_fit:.2f} s, train loss {b.train_losses[0]:.4f} -> "
+            f"{b.train_losses[-1]:.4f}")
+        x = torch.randn(4097, 3, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+        lo, hi = parallel.all_processes_min_max(x)
+        if not (lo.is_cuda and torch.equal(lo, x.min())
+                and torch.equal(hi, x.max())):
+            raise AssertionError(f"12a min/max: {lo}, {hi}")
+        log(f"  all_processes_min_max on a CUDA tensor: ({float(lo):.6f}, "
+            f"{float(hi):.6f}) on {lo.device}, its plain min and max")
+        dist.destroy_process_group()
+        log(f"phase 12a: {time.perf_counter() - t0:.1f} s")
+
+        # ---- 12b: two gloo ranks on cuda:0 -------------------------------
+        t0 = time.perf_counter()
+        fspec = FAMILIES["fnn"].train
+        ds8 = prepare_dataset(file_data, n_cases=fspec.n_cases, c=fspec.c)
+        np.savez(tmp / "fnn.npz", X=ds8.X_train, Y=ds8.Y_train,
+                 Xv=ds8.X_val, Yv=ds8.Y_val)
+        parallel.spawn(dist_rank, 2, tmp / "gloo", args=(str(tmp), seed),
+                       backend="gloo", device="cuda:0", timeout=600)
+        t_spawn = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        bad = rescues[0]
+        per_rank = []
+        for r, got in enumerate(ranks):
+            mine = bad[r * DIST_LANES:(r + 1) * DIST_LANES]
+            want = [x for x in DATAGEN_KERNELS if not got["launches"][x]]
+            ok = (got["backend"] == "gloo" and not want
+                  and not any(got["plain"].values())
+                  and same_bits(torch, got["batch"], rb_one)
+                  and len(got["rescues"]) == 1
+                  and torch.equal(got["rescues"][0], mine))
+            if not ok:
+                raise AssertionError(
+                    f"12b rank {r}: {got['backend']}, not launched {want}, "
+                    f"plain {got['plain']}, bitwise "
+                    f"{same_bits(torch, got['batch'], rb_one)}, rescues "
+                    f"{[int(c.sum()) for c in got['rescues']]} of "
+                    f"{int(mine.sum())}")
+            per_rank.append({k: v for k, v in got["launches"].items()})
+            log(f"  rank {r}: random bridge {DIST_LANES} of "
+                f"{2 * DIST_LANES} lanes in {got['t_datagen']:.2f} s, its "
+                f"rescue took its {int(mine.sum())} rejected lanes of the "
+                f"one-rank run's {int(bad.sum())}; launches "
+                f"{ {k: v for k, v in got['launches'].items() if v} }")
+        log(f"  gathered rows on both ranks bitwise the one-rank batch "
+            f"({int(rb_one.valid.sum())} of {2 * DIST_LANES} valid)")
+        fcfg = dist_fnn_cfg()
+        with first_step_grads(harness) as one_grads:
+            one = fit(dist_fnn(torch, fcfg, ds8.feat_dim, ds8.label_dim),
+                      ds8.X_train, ds8.Y_train, ds8.X_val, ds8.Y_val, fcfg,
+                      device="cuda")
+        # the first step's synced gradient against the one-rank gradient
+        # of the same global batch: a wrong scale or a misplaced row shows
+        # here, where Adam and the clip would hide it from the losses
+        g_gaps = [grad_gap(torch, got["grads_fit"], one_grads[0])
+                  for got in ranks]
+        f0, f1 = ranks[0]["fit"], ranks[1]["fit"]
+        twins = (np.array_equal(f0["train"], f1["train"])
+                 and np.array_equal(f0["val"], f1["val"])
+                 and all(torch.equal(f0["params"][k], f1["params"][k])
+                         for k in f0["params"]))
+        gaps = {k: np.abs(f0[k] - getattr(one, f"{k}_losses"))
+                / np.abs(getattr(one, f"{k}_losses")) for k in ("train", "val")}
+        gap = max(float(g.max()) for g in gaps.values())
+        p0, p1 = ranks[0]["per_shard"], ranks[1]["per_shard"]
+        ps_twins = (np.array_equal(p0["train"], p1["train"])
+                    and all(torch.equal(p0["params"][k], p1["params"][k])
+                            for k in p0["params"]))
+        if not (twins and gap <= 1e-4 and ps_twins
+                and max(g_gaps) <= 1e-5
+                and np.isfinite(p0["train"]).all()
+                and f0["step"] == one.state["step"]):
+            raise AssertionError(f"12b fit: twins {twins}, gap {gaps}, "
+                                 f"first-step gradients {g_gaps}, per "
+                                 f"shard twins {ps_twins} {p0['train']}, "
+                                 f"steps {f0['step']} {one.state['step']}")
+        log(f"  FNN fit(mesh=) on phase 8's columns ({len(ds8.X_train)} "
+            f"train groups split over 2 ranks, {DIST_EPOCHS} epochs, "
+            f"float32, dropout 0): ranks bitwise identical, losses within "
+            f"{gap:.2e} relative of the one-rank fit's (rtol 1e-4; by epoch "
+            f"train {np.array2string(gaps['train'], precision=2)}, val "
+            f"{np.array2string(gaps['val'], precision=2)}); the first "
+            f"step's synced gradient {max(g_gaps):.2e} relative (in norm) "
+            f"of the one-rank gradient (bound 1e-5); "
+            f"{ranks[0]['t_fit']:.2f} s on rank 0; per_shard on "
+            f"{len(ds8.X_train) // 2 + 2} and "
+            f"{len(ds8.X_train) - len(ds8.X_train) // 2 - 2} rows: finite, "
+            f"ranks bitwise identical, train loss {p0['train'][0]:.4f} -> "
+            f"{p0['train'][-1]:.4f}, {ranks[0]['t_per_shard']:.2f} s")
+        log(f"phase 12b: {time.perf_counter() - t0:.1f} s (the two ranks "
+            f"{t_spawn:.1f} s of it)")
+
+        # ---- 12c: the command line under torchrun -------------------------
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "openpystruct_tpu_torch"]
+        out_json = tmp / "mesh.json"
+        for argv, says in (
+                (["datagen", "--mesh", "--num-samples", DIST_CLI_SAMPLES,
+                  "--batch-size", DIST_CLI_SAMPLES, "--seed", seed + 122,
+                  "--output", out_json], "valid samples ->"),
+                (["train", "--mesh", "--model", "tfd", "--data", out_json,
+                  "--epochs", DIST_EPOCHS, "--seed", seed],
+                 "R² on Validation")):
+            t1 = time.perf_counter()
+            proc = subprocess.run(run + [str(a) for a in argv], cwd=REPO,
+                                  env=env, capture_output=True, text=True,
+                                  timeout=600)
+            said = [x for x in proc.stdout.splitlines() if says in x]
+            if proc.returncode != 0 or len(said) != 1:
+                raise AssertionError(f"12c {argv[0]}: rc {proc.returncode}: "
+                                     f"{proc.stdout[-2000:]}"
+                                     f"{proc.stderr[-3000:]}")
+            log(f"  torchrun ... {argv[0]} --mesh: rc 0 in "
+                f"{time.perf_counter() - t1:.2f} s | {said[0].strip()}")
+        back = read_json_dataset(str(out_json))
+        if tuple(back) != SCHEMA_KEYS or len(back["I_values"]) == 0:
+            raise AssertionError(f"12c datagen's file: {list(back)}")
+        log(f"  datagen's file: the 13 keys, {len(back['I_values'])} rows")
+        log(f"phase 12c: {time.perf_counter() - t0:.1f} s")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches_a, per_rank
+
+
 def make_inputs(torch, sample_scenarios, constraint_mask, seed, B, device,
                 cfg=None):
     gen = torch.Generator().manual_seed(seed)
@@ -3172,7 +3552,7 @@ def main(argv=None) -> int:
 
     # ---- phase 7: the training path on the card ---------------------------
     t0 = time.perf_counter()
-    train_launches = training_path(torch, args.seed, mods)
+    train_launches, train_ds = training_path(torch, args.seed, mods)
     for k in kernels:
         k["launches_training_path"] = train_launches[k["name"]]
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
@@ -3192,7 +3572,6 @@ def main(argv=None) -> int:
     # ---- phase 10: the frame path, and fit's resume on phase 8's file -----
     t0 = time.perf_counter()
     frame_path(torch, file_data, args.seed, mods)
-    del file_data
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 11: the command line on the card ---------------------------
@@ -3201,6 +3580,17 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_cli"] = cli_launches[k["name"]]
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 12: distribution -------------------------------------------
+    t0 = time.perf_counter()
+    dist_launches, rank_launches = distribution(torch, args.seed, mods,
+                                                train_ds, file_data)
+    del train_ds, file_data
+    for k in kernels:
+        k["launches_distribution"] = dist_launches[k["name"]]
+        k["launches_distribution_ranks"] = [r[k["name"]]
+                                            for r in rank_launches]
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -16,9 +16,12 @@ as subcommands of one CLI, with the JAX package's flags and printed lines:
 
 Every subcommand runs on the card (``--device cuda``, the default) and exits
 with an error where there is none; ``--device cpu`` runs the kernels' plain
-versions.  ``--mesh`` and ``--shuffle-scope per_shard`` are accepted as the
-JAX package's flags and refused: the port runs on one device.  ``--plot``
-and ``--watch`` need matplotlib, imported only when one is given.
+versions.  ``--mesh`` (datagen, frame-opt, train) runs data-parallel over
+the ranks that ``torchrun`` started, one process per device
+(``torchrun --standalone --nproc_per_node N -m openpystruct_tpu_torch
+datagen --mesh``); without ``torchrun`` it is one rank.  Only rank 0
+prints and writes files.  ``--plot`` and ``--watch`` need matplotlib,
+imported only when one is given.
 
 ``main(argv)`` returns what the subcommand computed (losses, the valid
 count, the prediction, the benchmark's lines), for callers in the same
@@ -74,7 +77,8 @@ def _add_frame_opt(sub):
                    help="with --batch/--dataset: write the columnar "
                         "results JSON here")
     p.add_argument("--mesh", action="store_true",
-                   help="not supported by the port (one device)")
+                   help="with --batch/--dataset: shard scenarios over the "
+                        "ranks torchrun started (one device each)")
     p.add_argument("--chunk-size", type=int, default=None,
                    help="with --batch/--dataset: run lanes in sequential "
                         "chunks of this size to bound peak device memory "
@@ -103,7 +107,8 @@ def _add_datagen(sub):
                         "the trained mesh back from the preprocessing "
                         "metadata")
     p.add_argument("--mesh", action="store_true",
-                   help="not supported by the port (one device)")
+                   help="shard each batch over the ranks torchrun started "
+                        "(one device each)")
     p.add_argument("--refine", type=int, default=1)
     p.add_argument("--max-epochs", type=int, default=None,
                    help="override the per-sample optimization budget "
@@ -158,11 +163,12 @@ def _add_train(sub):
                    help="resume from <checkpoint>_state if it exists")
     p.add_argument("--epochs-per-sync", type=int, default=10)
     p.add_argument("--mesh", action="store_true",
-                   help="not supported by the port (one device)")
+                   help="train data-parallel over the ranks torchrun "
+                        "started (one device each)")
     p.add_argument("--shuffle-scope", choices=["global", "per_shard"],
                    default="global",
-                   help="per_shard is not supported by the port (one "
-                        "device)")
+                   help="per_shard: each rank shuffles its own rows, which "
+                        "never move (with --mesh over more than one rank)")
     p.add_argument("--plot", type=str, default=None)
     p.add_argument("--watch", type=str, default=None,
                    help="live training plot: PNG path atomically rewritten "
@@ -214,21 +220,41 @@ def _add_bench(sub):
 
 
 def _device(args):
-    """The subcommand's device; exits with the error where it is missing,
-    and refuses the distribution flags the port does not have."""
+    """The subcommand's device; exits with the error where it is missing."""
     from openpystruct_tpu_torch.device import resolve_device
 
-    if getattr(args, "mesh", False):
-        sys.exit("error: --mesh is not supported by the PyTorch port: it "
-                 "runs on one device (data-parallel training and sharded "
-                 "datagen are not ported)")
-    if getattr(args, "shuffle_scope", "global") != "global":
-        sys.exit("error: --shuffle-scope per_shard is not supported by the "
-                 "PyTorch port: it runs on one device")
     try:
         return resolve_device(args.device)
     except RuntimeError as e:
         sys.exit(f"error: {e}")
+
+
+def _mesh(args):
+    """``--mesh``: join torchrun's process group (``initialize_multihost``,
+    on the subcommand's device: NCCL on the card, gloo on the CPU; one
+    process when torchrun is absent) and return its ``default_mesh``;
+    without the flag None.  A group made here is left by ``main``."""
+    if not args.mesh:
+        return None
+    import torch.distributed as dist
+
+    from openpystruct_tpu_torch.parallel import (
+        default_mesh,
+        initialize_multihost,
+    )
+
+    had_group = dist.is_initialized()
+    initialize_multihost(device=args.device)
+    args.own_group = dist.is_initialized() and not had_group
+    return default_mesh(device=None if args.device == "cuda"
+                        else args.device)
+
+
+def _say(mesh):
+    """``print`` on rank 0 (or without a mesh), a no-op on the others."""
+    if mesh is None or mesh.rank == 0:
+        return print
+    return lambda *a, **k: None
 
 
 def _np(t):
@@ -315,6 +341,9 @@ def cmd_frame_opt(args):
     from openpystruct_tpu_torch.opt import optimize_frame
 
     dev = _device(args)
+    mesh = _mesh(args)
+    dev = dev if mesh is None else mesh.device
+    say = _say(mesh)
     pyrandom.seed(args.seed)
     cfg = FrameConfig(max_epochs=args.epochs)
     if args.dataset:
@@ -326,21 +355,21 @@ def cmd_frame_opt(args):
             bays_range=(args.bays, args.bays) if args.bays else (1, 10),
             stories_range=(args.stories, args.stories)
             if args.stories else (1, 10),
-            verbose=True, chunk_size=args.chunk_size,
-            grad_mode=args.grad_mode, device=dev,
+            verbose=say is print, chunk_size=args.chunk_size,
+            grad_mode=args.grad_mode, device=dev, mesh=mesh,
         )
         dt = time.time() - t0
         topos = sorted(set(zip(data["num_bays"], data["num_stories"])))
-        print(f"{len(data['I_values'])} samples over {len(topos)} distinct "
-              f"topologies in {dt:.1f}s")
-        if args.output:
+        say(f"{len(data['I_values'])} samples over {len(topos)} distinct "
+            f"topologies in {dt:.1f}s")
+        if args.output and say is print:
             with open(args.output, "w") as fh:
                 json.dump(data, fh)
-            print(f"dataset written to {args.output}")
+            say(f"dataset written to {args.output}")
         return data
     bays = args.bays or pyrandom.randint(1, 10)
     stories = args.stories or pyrandom.randint(1, 10)
-    print(f"Generated frame with {bays} bay(s) and {stories} story(ies).")
+    say(f"Generated frame with {bays} bay(s) and {stories} story(ies).")
     if args.batch:
         from openpystruct_tpu_torch.datagen import (
             frame_batch_to_columnar,
@@ -351,17 +380,17 @@ def cmd_frame_opt(args):
         st, batch = generate_frame_batch(
             torch.Generator().manual_seed(args.seed), args.batch, bays,
             stories, cfg, chunk_size=args.chunk_size,
-            grad_mode=args.grad_mode, device=dev,
+            grad_mode=args.grad_mode, device=dev, mesh=mesh,
         )
         valid = int(batch.valid.sum())
         dt = time.time() - t0
-        print(f"{args.batch} load scenarios optimized in {dt:.1f}s "
-              f"({valid} valid, {args.batch/dt:.1f} frames/s)")
-        if args.output:
+        say(f"{args.batch} load scenarios optimized in {dt:.1f}s "
+            f"({valid} valid, {args.batch/dt:.1f} frames/s)")
+        if args.output and say is print:
             cols = frame_batch_to_columnar(st, batch)
             with open(args.output, "w") as fh:
                 json.dump(cols, fh)
-            print(f"results written to {args.output}")
+            say(f"results written to {args.output}")
         return batch
     st = build_frame(bays, stories, cfg, device=dev)
     t0 = time.time()
@@ -369,13 +398,13 @@ def cmd_frame_opt(args):
                          grad_mode=args.grad_mode)
     ne = int(res.n_epochs)
     h = _np(res.loss_history)
-    print(f"converged={bool(res.converged)} epochs={ne} "
-          f"wall={time.time()-t0:.2f}s  best loss={np.nanmin(h):.6e}")
-    if args.plot:
+    say(f"converged={bool(res.converged)} epochs={ne} "
+        f"wall={time.time()-t0:.2f}s  best loss={np.nanmin(h):.6e}")
+    if args.plot and say is print:
         from openpystruct_tpu_torch.viz import plot_frame
 
         plot_frame(st, _np(res.I)).savefig(args.plot)
-        print(f"plot saved to {args.plot}")
+        say(f"plot saved to {args.plot}")
     return float(np.nanmin(h))
 
 
@@ -391,6 +420,9 @@ def cmd_datagen(args):
     )
 
     dev = _device(args)
+    mesh = _mesh(args)
+    dev = dev if mesh is None else mesh.device
+    say = _say(mesh)
     scen = ScenarioConfig(random_bridge=args.random_bridge)
     if args.num_nodes:
         scen = dataclasses.replace(scen, num_nodes=args.num_nodes)
@@ -404,21 +436,25 @@ def cmd_datagen(args):
     def progress(batch):
         nonlocal done
         done += batch.valid.shape[0]
-        print(f"{done} samples processed.", flush=True)
+        say(f"{done} samples processed.", flush=True)
 
     kw = dict(batch_size=args.batch_size, on_batch=progress, scen_cfg=scen,
               opt_cfg=opt_cfg, refine=args.refine,
               compact=False if args.no_compact else None,
               rescue=False if args.no_rescue else args.rescue_mode,
-              device=dev)
+              device=dev, mesh=mesh)
     t0 = time.time()
     if args.shard_dir:
         paths = generate_to_shards(args.seed, args.num_samples,
                                    args.shard_dir, **kw)
+        if say is not print:
+            return None   # rank 0 converts the shards
         n = shards_to_json(paths, args.output)
     else:
         n = generate_dataset_json(args.seed, args.num_samples, args.output,
                                   **kw)
+        if say is not print:
+            return n
     dt = time.time() - t0
     print("Data generation complete.")
     print(f"Total execution time: {dt:.2f} seconds "
@@ -453,6 +489,10 @@ def cmd_train(args):
     )
 
     dev = _device(args)
+    mesh = _mesh(args)
+    dev = dev if mesh is None else mesh.device
+    say = _say(mesh)
+    lead = say is print
     spec = FAMILIES[args.model]
     cfg = spec.train
     if args.epochs:
@@ -474,24 +514,30 @@ def cmd_train(args):
     resume_from = None
     if args.resume and state_dir and os.path.isdir(state_dir):
         resume_from = state_dir
-        print(f"resuming from {state_dir}")
+        say(f"resuming from {state_dir}")
     metrics = None
-    if args.metrics_jsonl or args.tensorboard:
+    if lead and (args.metrics_jsonl or args.tensorboard):
         from openpystruct_tpu_torch.utils import MetricsLogger
 
         metrics = MetricsLogger(jsonl=args.metrics_jsonl,
                                 tensorboard_dir=args.tensorboard)
     profile_ctx = contextlib.nullcontext()
-    if args.profile:
+    if lead and args.profile:
         from openpystruct_tpu_torch.utils import profile_trace
 
         profile_ctx = profile_trace(args.profile)
+    X_tr, Y_tr = ds.X_train, ds.Y_train
+    if mesh is not None:
+        # every rank read the same file and split: it trains on its share
+        n, w, r = len(X_tr), mesh.world_size, mesh.rank
+        X_tr, Y_tr = (a[r * n // w:(r + 1) * n // w] for a in (X_tr, Y_tr))
     t0 = time.time()
     with profile_ctx:
         res = fit(
-            model, ds.X_train, ds.Y_train, ds.X_val, ds.Y_val, cfg,
-            seed=args.seed, epochs_per_sync=args.epochs_per_sync,
-            verbose=True, metrics=metrics, live_plot=args.watch,
+            model, X_tr, Y_tr, ds.X_val, ds.Y_val, cfg,
+            seed=args.seed, mesh=mesh, shuffle_scope=args.shuffle_scope,
+            epochs_per_sync=args.epochs_per_sync, verbose=lead,
+            metrics=metrics, live_plot=args.watch if lead else None,
             checkpoint_dir=state_dir, resume_from=resume_from, device=dev,
             **fit_kwargs,
         )
@@ -504,11 +550,11 @@ def cmd_train(args):
     r2 = evaluate_r2(model, res.params, ds.X_val, ds.Y_val, ds.scaler_Y,
                      label_slice=label_slice, batch_size=4096, device=dev)
     ep = len(res.train_losses)
-    print(f"{ep} epochs in {dt:.1f}s "
-          f"({ep * len(ds.X_train) / dt:.0f} samples/sec)")
+    say(f"{ep} epochs in {dt:.1f}s "
+        f"({ep * len(ds.X_train) / dt:.0f} samples/sec)")
     suffix = " (I only)" if label_slice is not None else ""
-    print(f"R² on Validation{suffix}: {r2:.4f}")
-    if args.checkpoint:
+    say(f"R² on Validation{suffix}: {r2:.4f}")
+    if args.checkpoint and lead:
         from openpystruct_tpu_torch.data import save_preprocessing
 
         save_checkpoint(args.checkpoint, {"params": res.params})
@@ -516,7 +562,7 @@ def cmd_train(args):
                            nelem=nelem)
         print(f"best checkpoint saved to {args.checkpoint} "
               f"(+ {args.checkpoint}_preproc.npz)")
-    if args.plot:
+    if args.plot and lead:
         from openpystruct_tpu_torch.viz import plot_train_val_losses
 
         plot_train_val_losses(res.train_losses, res.val_losses).savefig(
@@ -644,14 +690,20 @@ def main(argv=None):
     _add_predict(sub)
     _add_bench(sub)
     args = ap.parse_args(argv)
-    return {
-        "beam-opt": cmd_beam_opt,
-        "frame-opt": cmd_frame_opt,
-        "datagen": cmd_datagen,
-        "train": cmd_train,
-        "predict": cmd_predict,
-        "bench": cmd_bench,
-    }[args.cmd](args)
+    try:
+        return {
+            "beam-opt": cmd_beam_opt,
+            "frame-opt": cmd_frame_opt,
+            "datagen": cmd_datagen,
+            "train": cmd_train,
+            "predict": cmd_predict,
+            "bench": cmd_bench,
+        }[args.cmd](args)
+    finally:
+        if getattr(args, "own_group", False):
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

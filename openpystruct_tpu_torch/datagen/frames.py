@@ -13,7 +13,12 @@ differ from the JAX package's for the same seed: the topologies from
 ``torch.Generator(seed)``, the loads of topology (b, s) from
 ``np.random.SeedSequence([seed, b*64 + s])`` (the JAX package folds
 ``b*64 + s`` into its load key).  Lanes float32 cannot solve are dropped
-by the pivot gate, not rescued.  Sharding over a mesh is not ported.
+by the pivot gate, not rescued.
+
+With a ``mesh`` (``parallel.default_mesh``, one process per device) every
+rank draws the whole batch's loads, optimizes its contiguous rows on its
+device, gates them, and the ranks gather the results: every rank returns
+the global batch, whose rows are the one-rank batch's.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from openpystruct_tpu_torch.opt.frame_opt import (
     FrameOptResult,
     optimize_frame_batched,
 )
+from openpystruct_tpu_torch.parallel import batch_sharding
+from openpystruct_tpu_torch.parallel import collectives as coll
 
 
 @dataclasses.dataclass
@@ -82,21 +89,29 @@ def generate_frame_batch(
     chunk_size: Optional[int] = None,
     grad_mode: str = "semi",
     device="cuda",
+    mesh=None,
+    data_axis: str = "data",
 ):
     """Optimize ``batch_size`` load scenarios of one frame topology at once,
     in float32.  Returns (FrameStructure, FrameBatch).
 
-    ``chunk_size`` runs lanes in fixed-size sequential chunks to bound peak
-    memory (see ``optimize_frame_batched``); the pivot pass runs in the same
-    chunks.  ``grad_mode="adjoint"`` differentiates the loss THROUGH the
-    solve (one extra substitution-only adjoint solve through
-    ``block_thomas_solve``'s implicit adjoint) instead of the reference's
-    semi-gradient (FrameOpt_Discrete_Beta.py:197-199)."""
-    device = resolve_device(device)
+    ``chunk_size`` (per rank under a mesh) runs lanes in fixed-size
+    sequential chunks to bound peak memory (see ``optimize_frame_batched``);
+    the pivot pass runs in the same chunks.  ``grad_mode="adjoint"``
+    differentiates the loss THROUGH the solve (one extra substitution-only
+    adjoint solve through ``block_thomas_solve``'s implicit adjoint) instead
+    of the reference's semi-gradient (FrameOpt_Discrete_Beta.py:197-199).
+    ``mesh``: shard the lanes over its ``data_axis`` (module docstring); the
+    batch must split evenly and the rank's device is the mesh's."""
+    device = resolve_device(device) if mesh is None else mesh.device
     structure = _structure(num_bays, num_stories, cfg, device)
     udl, lateral = sample_frame_loads(generator, batch_size, cfg,
                                       load_scale, device)
-    res = optimize_frame_batched(structure, udl, lateral, cfg,
+    mine_udl, mine_lat = udl, lateral
+    if mesh is not None:
+        rows = batch_sharding(mesh, data_axis).rows(udl.shape[0])
+        mine_udl, mine_lat = udl[rows], lateral[rows]
+    res = optimize_frame_batched(structure, mine_udl, mine_lat, cfg,
                                  chunk_size=chunk_size, grad_mode=grad_mode)
     finite = (torch.isfinite(res.I).all(-1)
               & torch.isfinite(res.solution.displacements).all(-1).all(-1))
@@ -110,8 +125,11 @@ def generate_frame_batch(
     pivot = torch.cat([frame_min_pivot(I_p[i:i + step], structure, cfg)
                        for i in range(0, B + pad, step)])[:B]
     valid = finite & (pivot > FRAME_VALID_PIVOT)
-    return structure, FrameBatch(udl=udl, lateral_load=lateral, result=res,
-                                 valid=valid, pivot=pivot)
+    out = FrameBatch(udl=None, lateral_load=None, result=res, valid=valid,
+                     pivot=pivot)
+    if mesh is not None:
+        out = coll.gather_rows(out, mesh.group)
+    return structure, dataclasses.replace(out, udl=udl, lateral_load=lateral)
 
 
 def sample_topologies(generator: torch.Generator, num_samples: int,
@@ -139,13 +157,17 @@ def generate_frame_dataset(
     chunk_size: Optional[int] = None,
     grad_mode: str = "semi",
     device="cuda",
+    mesh=None,
+    data_axis: str = "data",
 ) -> dict:
     """Mixed-topology frame dataset in ONE call: topology is drawn per
     sample from the reference's 1-10 x 1-10 distribution
     (OpenPyStruct_FrameOpt_Discrete_Beta.py:50-52), then lanes are
     BUCKETED by (bays, stories), each distinct topology one batched run,
-    with bucket sizes padded to powers of two (at least ``min_bucket``) to
-    bound the number of batch shapes; the padding lanes are dropped.
+    with bucket sizes padded to powers of two (at least ``min_bucket``, and
+    to a multiple of the shard count under a ``mesh``, whose ranks share
+    each bucket) to bound the number of batch shapes; the padding lanes are
+    dropped.
 
     Returns a columnar dict with PER-ROW ``num_bays``/``num_stories``
     columns plus the frame result schema of :func:`frame_batch_to_columnar`
@@ -156,13 +178,15 @@ def generate_frame_dataset(
             "displacements", "udl", "lateral_load", "n_epochs")
     data = {"num_bays": [], "num_stories": []}
     data.update({k: [] for k in keys})
+    shards = 1 if mesh is None else mesh.shards(data_axis)
     for b, s in sorted({(int(x), int(y)) for x, y in zip(bays, stories)}):
         n = int(((bays == b) & (stories == s)).sum())
-        bucket = max(1 << max(n - 1, 0).bit_length(), min_bucket)
+        bucket = max(1 << max(n - 1, 0).bit_length(), min_bucket, shards)
+        bucket = -(-bucket // shards) * shards
         st, batch = generate_frame_batch(
             shard_generator(seed, b * 64 + s), bucket, b, s, cfg,
             load_scale, chunk_size=chunk_size, grad_mode=grad_mode,
-            device=device)
+            device=device, mesh=mesh, data_axis=data_axis)
         # padding lanes (drawn only to keep bucket shapes) are dropped via
         # the valid mask the columnar writer honours
         keep = batch.valid.clone()

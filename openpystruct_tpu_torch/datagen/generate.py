@@ -26,8 +26,13 @@ rescues with ``"f64"``, as the JAX package routes it; a CUDA batch raises
 there is no float64 adjoint kernel to keep the rescue on the card.
 
 Rescued lanes are valid when finite with a pivot above ``RESCUE_PIVOT_TOL``.
-The JAX package's multi-host rescue (each process rescuing its own shard)
-waits for the port's distribution slice.
+
+With a ``mesh`` (``parallel.default_mesh``, one process per device) every
+rank draws the whole batch's scenarios from the same generator, keeps its
+contiguous rows, runs the batch program and the rescue of its own rejected
+lanes on its device, and the ranks gather the results: every rank returns
+the global batch.  Lanes are independent, so its rows are the one-rank
+batch's, bitwise.  The file writers write on rank 0 only.
 
 Three routes write a dataset to disk: ``generate_dataset`` returns the
 columnar lists (``io.write_json_dataset`` dumps them);
@@ -73,6 +78,8 @@ from openpystruct_tpu_torch.opt.beam_opt import (
     optimize_beam_compact,
 )
 from openpystruct_tpu_torch.opt.loss import LossComponents
+from openpystruct_tpu_torch.parallel import batch_sharding
+from openpystruct_tpu_torch.parallel import collectives as coll
 
 
 @dataclasses.dataclass
@@ -269,10 +276,15 @@ def generate_batch(generator: torch.Generator, batch_size: int,
                    opt_cfg: OptimizerConfig = DATAGEN_OPT, refine: int = 1,
                    pivot_tol: float = 1e-9, compact: Optional[bool] = None,
                    rescue=None, device="cuda",
-                   dtype=torch.float32) -> DatagenBatch:
+                   dtype=torch.float32, mesh=None,
+                   data_axis: str = "data") -> DatagenBatch:
     """Draw ``batch_size`` scenarios from ``generator``, run the batch
     program on them (float32 on the card, as the JAX package runs it), and
     rescue the rejected lanes.
+
+    ``mesh``: shard the lanes over its ``data_axis`` (module docstring);
+    the batch must split evenly, the rank's device is the mesh's, and
+    ``compact`` defaults on from 2048 lanes a rank.
 
     ``rescue``: None (default) rescues random-bridge batches and meshes
     finer than 101 nodes, the regimes whose valid lanes the float32 gate
@@ -285,13 +297,22 @@ def generate_batch(generator: torch.Generator, batch_size: int,
     """
     if beam_cfg is None:
         beam_cfg = BeamConfig(udl=scen_cfg.udl)
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     rescue = _resolve_rescue(rescue, scen_cfg, opt_cfg.grad_mode, device)
     scenario = sample_scenarios(generator, batch_size, scen_cfg,
                                 device=device, dtype=dtype)
-    batch = run_batch(scenario, beam_cfg, opt_cfg, refine, pivot_tol, compact)
+    local = scenario
+    if mesh is not None:
+        rows = batch_sharding(mesh, data_axis).rows(batch_size)
+        local = scenario.map(lambda x: x[rows])
+    batch = run_batch(local, beam_cfg, opt_cfg, refine, pivot_tol, compact)
     if rescue:
+        # a rank rescues only its own rejected lanes
         batch = _rescue_local(batch, beam_cfg, opt_cfg, rescue)
+    if mesh is not None:
+        batch = dataclasses.replace(
+            coll.gather_rows(dataclasses.replace(batch, scenario=None),
+                        mesh.group), scenario=scenario)
     return batch
 
 
@@ -321,9 +342,9 @@ def generate_dataset(seed: int, num_samples: int, batch_size: int = 1024,
     (OpenPyStruct_BeamOpt_training_SingleCore.py:73-87).  ``batch_kw`` goes
     to ``generate_batch`` (``scen_cfg``, ``beam_cfg``, ``opt_cfg``,
     ``refine``, ``pivot_tol``, ``compact``, ``rescue``, ``device``,
-    ``dtype``); one ``torch.Generator(seed)`` runs across the batches.
-    ``on_batch``, if given, sees every DatagenBatch (progress,
-    statistics)."""
+    ``dtype``, ``mesh``, ``data_axis``); one ``torch.Generator(seed)`` runs
+    across the batches.  ``on_batch``, if given, sees every DatagenBatch
+    (progress, statistics)."""
     generator = torch.Generator().manual_seed(seed)
     return merge_columnar([
         batch_to_columnar(batch) for _, batch in _batches(
@@ -342,15 +363,26 @@ def generate_dataset_json(seed: int, num_samples: int, path: str,
     no per-sample Python lists are built.  ``batch_kw`` and the one
     ``torch.Generator(seed)`` across the batches are ``generate_dataset``'s,
     so the same seed and ``batch_size`` give the same samples.  Returns the
-    number of valid samples written."""
+    number of valid samples written.  With a ``mesh`` rank 0 writes the file
+    and every rank returns the count once it is written."""
     from openpystruct_tpu_torch.datagen.native import JsonStreamWriter
 
+    mesh = batch_kw.get("mesh")
+    writes = mesh is None or mesh.rank == 0
     generator = torch.Generator().manual_seed(seed)
-    writer = JsonStreamWriter(path)
+    writer = JsonStreamWriter(path) if writes else None
+    n = 0
     for _, batch in _batches(num_samples, batch_size, lambda i: generator,
                              batch_kw, on_batch):
-        writer.append(_json_fields(batch))
-    return writer.finalize()
+        if writes:
+            writer.append(_json_fields(batch))
+        else:
+            n += int(batch.valid.sum())
+    if writes:
+        n = writer.finalize()
+    if mesh is not None:
+        coll.barrier(mesh.group)
+    return n
 
 
 def shard_generator(seed: int, index: int) -> torch.Generator:
@@ -377,17 +409,31 @@ def generate_to_shards(seed: int, num_samples: int, shard_dir: str,
     its JSON once at the end, and a crash loses everything,
     OpenPyStruct_BeamOpt_training_SingleCore.py:263-264).  ``on_batch``
     sees each generated batch.  Returns every shard's path, in order.
+
+    With a ``mesh`` every rank generates each missing shard (rank 0's view
+    of which are missing, broadcast), rank 0 alone writes and renames it,
+    and the ranks meet at a barrier after each shard.
     """
-    os.makedirs(shard_dir, exist_ok=True)
+    mesh = batch_kw.get("mesh")
+    writes = mesh is None or mesh.rank == 0
     paths = [os.path.join(shard_dir, f"shard_{i:05d}.npz")
              for i in range(-(-num_samples // batch_size))]
+    if writes:
+        os.makedirs(shard_dir, exist_ok=True)
+    there = torch.tensor([os.path.exists(p) for p in paths],
+                         dtype=torch.uint8)
+    if mesh is not None:
+        there = coll.broadcast(there, src=0, group=mesh.group)
     for i, batch in _batches(num_samples, batch_size,
                              lambda i: shard_generator(seed, i), batch_kw,
-                             on_batch, skip=lambda i: os.path.exists(paths[i])):
-        # np.savez appends .npz to a name without it: keep it explicit
-        tmp = paths[i][: -len(".npz")] + ".tmp.npz"
-        write_npz_shard(batch, tmp)
-        os.replace(tmp, paths[i])
+                             on_batch, skip=lambda i: bool(there[i])):
+        if writes:
+            # np.savez appends .npz to a name without it: keep it explicit
+            tmp = paths[i][: -len(".npz")] + ".tmp.npz"
+            write_npz_shard(batch, tmp)
+            os.replace(tmp, paths[i])
+        if mesh is not None:
+            coll.barrier(mesh.group)
     return paths
 
 

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from openpystruct_tpu_torch.config import TrainConfig
+from openpystruct_tpu_torch.parallel import all_processes_min_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,8 +199,9 @@ def build_family(name: str, feat_dim: int, nelem: int = 100,
         def pinn_loss_builder(Y_train):
             # box bounds at the min and max of the STANDARDIZED train
             # labels' I slice (OpenPyStruct_PINN_MultiCase.py:377-378,
-            # applied at 556-558,588-597), on the device; one process
-            min_c, max_c = Y_train[:, :nelem].min(), Y_train[:, :nelem].max()
+            # applied at 556-558,588-597), on the device, over every rank's
+            # rows under a mesh (each rank sees only its own)
+            min_c, max_c = all_processes_min_max(Y_train[:, :nelem])
 
             def pinn_loss(alpha, preds, targets):
                 return composite_pinn_loss(

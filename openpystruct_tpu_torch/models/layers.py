@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from openpystruct_tpu_torch.parallel import collectives as coll
+
 LN_EPS = 1e-6   # flax.linen.LayerNorm's default (torch's is 1e-5)
 BN_EPS = 1e-5   # flax.linen.BatchNorm's default
 
@@ -73,7 +75,12 @@ class BatchNorm(nn.Module):
     they are what normalizes.  They are the buffers ``running_mean`` and
     ``running_var`` (flax's ``batch_stats`` mean and var), not
     ``nn.BatchNorm1d``'s, whose update blends the unbiased variance with
-    momentum 0.1 on the other side."""
+    momentum 0.1 on the other side.
+
+    ``sync``, when ``fit`` trains over a mesh, is ``(group, ranks)``: the
+    training statistics are then the global batch's, the mean over the
+    ranks of each rank's mean and mean square (the ranks hold equal rows),
+    as flax's are on a batch XLA shards."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = BN_EPS):
@@ -83,6 +90,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.sync = None
 
     def reset_parameters(self):
         nn.init.ones_(self.weight)
@@ -95,8 +103,12 @@ class BatchNorm(nn.Module):
         x = x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            mean, sq = x.mean(dims), (x * x).mean(dims)
+            if self.sync is not None:
+                group, ranks = self.sync
+                mean, sq = coll.all_reduce_sum(torch.stack([mean, sq]),
+                                               group) / ranks
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -1,4 +1,4 @@
-"""The surrogate-training harness on one device (port of ``train/harness.py``).
+"""The surrogate-training harness (port of ``train/harness.py``).
 
 Reference pattern reproduced (OpenPyStruct_FNN_MultiCase.py:480-632):
 shuffled batches -> per-epoch decaying Gaussian input noise
@@ -44,14 +44,33 @@ the same distributions (``reset_parameters``).
 ``resume_from`` restores it and continues.  A resumed run equals the
 uninterrupted one bitwise: every epoch's draws are a function of (seed,
 epoch) and every piece of state that carries across epochs is in the
-checkpoint.  Not ported yet (ROADMAP queue A): ``mesh``/
-``shuffle_scope="per_shard"``.
+checkpoint.
+
+Data parallelism (``mesh``, ``parallel.default_mesh``): one process per
+device, each rank running this function.  Each rank passes its own train
+rows and the full val set; the global shuffle gathers the train rows once,
+every rank draws the same (seed, epoch) permutation and input noise at the
+global batch's shape, and takes its ``batch / W`` rows of each step.  The
+rank's predictions are gathered, every rank computes the global batch's
+loss from them (the box penalty is a sum over rows, so per-rank losses
+would not average to it), and one flattened all-reduce averages the
+gradients, alpha's included, before the clip.  BatchNorm normalises over
+the global batch (an all-reduce of the rank's mean and mean square), so its
+running statistics stay identical on every rank.  With W > 1 the models'
+dropout and diffusion draws come from a per-rank generator seeded from
+(seed, epoch, 1, rank); with one rank from the epoch's generator, as
+without a mesh.  The val loss is computed on every rank over the full val
+set, so the early-stop decision needs no collective, and every rank ends
+with bitwise identical parameters.  With a one-rank mesh the run is
+bitwise the run without one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -60,7 +79,10 @@ from torch.func import functional_call
 
 from openpystruct_tpu_torch.config import TrainConfig
 from openpystruct_tpu_torch.device import resolve_device
+from openpystruct_tpu_torch.models.layers import BatchNorm
 from openpystruct_tpu_torch.models.losses import trainable_l1l2_loss
+from openpystruct_tpu_torch.parallel import all_processes_min_max
+from openpystruct_tpu_torch.parallel import collectives as coll
 from openpystruct_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -68,6 +90,10 @@ from openpystruct_tpu_torch.train.checkpoint import (
 
 #: The file ``fit(checkpoint_dir=)`` writes and ``fit(resume_from=)`` reads.
 STATE_FILE = "state.pt"
+
+# generator streams beside the epoch's (seed, epoch): a rank's model draws
+# and a shard's permutation under shuffle_scope="per_shard"
+_RANK_STREAM, _SHARD_STREAM = 1, 2
 
 
 @dataclasses.dataclass
@@ -114,11 +140,15 @@ class _Optimizer:
     def zero_grad(self):
         self.adam.zero_grad(set_to_none=True)
 
-    def step(self):
+    def step(self, sync=None):
+        """One update; ``sync(grads)``, if given, averages the gradients
+        over the ranks in place before the clip."""
         for p in self.params:
             if p.grad is None:   # outside the graph: optax sees a zero
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if sync is not None:
+            sync(grads)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         torch._foreach_div_(grads, torch.where(norm < 1.0,
                                                torch.ones_like(norm), norm))
@@ -151,6 +181,46 @@ def _select_(dst: dict, src: dict, cond):
         v.copy_(torch.where(cond, src[k].detach(), v))
 
 
+@contextlib.contextmanager
+def _global_batch_norms(model, group, shards: int):
+    """With more than one shard, the model's BatchNorms normalise over the
+    global batch while the block runs (``BatchNorm.sync``)."""
+    norms = [m for m in model.modules()
+             if isinstance(m, BatchNorm)] if shards > 1 else []
+    for m in norms:
+        m.sync = (group, shards)
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.sync = None
+
+
+def _fit_batch(requested: int, total: int, shards: int) -> int:
+    """The batch size: ``requested`` capped at ``total`` rows and rounded
+    down to a multiple of the shard count, at least one row a shard (the
+    JAX harness's rule, harness.py:306-316)."""
+    b = min(requested, total)
+    b = max((b // shards) * shards, shards)
+    if b > total:
+        raise ValueError(f"dataset of {total} samples cannot fill one batch "
+                         f"across {shards} mesh shards")
+    return b
+
+
+def _sync_grads(grads, group, shards: int):
+    """Average ``grads`` over the ranks in place: one all-reduce of the
+    flattened gradients of each dtype."""
+    by_dtype = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for gs in by_dtype.values():
+        flat = coll.all_reduce(torch.cat([g.reshape(-1) for g in gs]),
+                               group=group) / shards
+        for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+            g.copy_(part.view_as(g))
+
+
 def fit(
     model,
     X_train,
@@ -164,6 +234,9 @@ def fit(
     param_loss_fn: Optional[Callable] = None,
     train_alpha: bool = True,
     decoupled_weight_decay: bool = False,
+    mesh=None,
+    data_axis: str = "data",
+    shuffle_scope: str = "global",
     epochs_per_sync: int = 8,
     verbose: bool = False,
     metrics=None,
@@ -213,8 +286,38 @@ def fit(
     ``seed``, as the JAX package's checkpointed rng does.  With the same
     data and config the resumed run reproduces the uninterrupted one
     bitwise, for any ``epochs_per_sync`` on either side.
+
+    ``mesh`` (``parallel.default_mesh()``): train data-parallel over its
+    ``data_axis``, every rank calling ``fit`` (module docstring); the
+    device is the mesh's.  Each rank passes its OWN train rows (the counts
+    may differ) and the FULL val set; a multi-process run without a mesh
+    raises.  The batch is rounded down to a multiple of the shard count.
+    Only rank 0 writes ``checkpoint_dir``, and the ranks meet at a barrier
+    after it; every rank reads ``resume_from``.  ``shuffle_scope``:
+    ``"global"`` (default) permutes the whole train set each epoch, the
+    reference DataLoader's semantics (OpenPyStruct_FNN_MultiCase.py:486);
+    ``"per_shard"`` permutes each rank's own rows, which never move, so
+    batches mix only within shards: every rank trims its rows to the least
+    count over the ranks, and each step's labels are gathered for the
+    loss.  Without a mesh of more than one shard it warns and shuffles
+    globally.
     """
-    device = resolve_device(device)
+    multiproc = coll.active() and torch.distributed.get_world_size() > 1
+    if multiproc and mesh is None:
+        raise ValueError("multi-process fit() requires a mesh")
+    if shuffle_scope not in ("global", "per_shard"):
+        raise ValueError(f"shuffle_scope must be 'global' or 'per_shard', "
+                         f"got {shuffle_scope!r}")
+    shards = 1 if mesh is None else mesh.shards(data_axis)
+    group = None if mesh is None else mesh.group
+    per_shard = shuffle_scope == "per_shard" and shards > 1
+    if shuffle_scope == "per_shard" and not per_shard:
+        warnings.warn(
+            "shuffle_scope='per_shard' has no effect without a mesh whose "
+            f"'{data_axis}' axis has >1 shard; using the global shuffle",
+            stacklevel=2)
+    device = resolve_device(device) if mesh is None else mesh.device
+    rank = 0 if mesh is None else mesh.rank
     seed = cfg.seed if seed is None else seed
     owns_live_plot = isinstance(live_plot, str)
     if owns_live_plot:
@@ -224,8 +327,14 @@ def fit(
     X_train, Y_train, X_val, Y_val = (
         torch.as_tensor(a, dtype=torch.float32, device=device)
         for a in (X_train, Y_train, X_val, Y_val))
+    if per_shard:
+        # every rank trims its rows to the least count over the ranks
+        # (harness.py:251-267): the shards' epochs need equal rows
+        keep = int(all_processes_min_max(torch.tensor(X_train.shape[0]))[0])
+        X_train, Y_train = X_train[:keep], Y_train[:keep]
 
-    min_c, max_c = Y_train.min(), Y_train.max()
+    # identical on every rank though each sees only its own rows
+    min_c, max_c = all_processes_min_max(Y_train)
     if loss_fn_builder is not None:
         if loss_fn is not None:
             raise ValueError("pass loss_fn OR loss_fn_builder, not both")
@@ -243,12 +352,22 @@ def fit(
     stats = {k: v for k, v in model.named_buffers() if k in persistent}
     live = dict(model.named_parameters(), **stats, alpha=alpha)
 
-    n_tr = X_train.shape[0]
-    batch = min(cfg.batch_size, n_tr)
+    if mesh is not None and not per_shard:
+        # the global shuffle draws from every row: gathered once
+        X_train = coll.all_gather_rows(X_train, group)
+        Y_train = coll.all_gather_rows(Y_train, group)
+    n_tr = X_train.shape[0] * (shards if per_shard else 1)
+    batch = _fit_batch(cfg.batch_size, n_tr, shards)
+    lbatch = batch // shards
+    mine = slice(rank * lbatch, (rank + 1) * lbatch)
     steps = max(n_tr // batch, 1)
     opt = _Optimizer(cfg, steps, model.parameters(), alpha, train_alpha,
                      decoupled_weight_decay)
+    sync = None if mesh is None else (
+        lambda grads: _sync_grads(grads, group, shards))
     model_params = dict(model.named_parameters())
+    # every rank evaluates the whole val set (not sharded): its batches do
+    # not depend on the shard count
     val_batch = min(cfg.batch_size, X_val.shape[0])
     full = max(X_val.shape[0] // val_batch, 1) * val_batch
     # the ragged val remainder is one extra batch, so the early-stop metric
@@ -261,6 +380,9 @@ def fit(
 
     def compute_loss(Xb, Yb, generator, train):
         preds = model(Xb, generator=generator, train=train)
+        if train and mesh is not None:
+            # the global batch's predictions, for its loss on every rank
+            preds = coll.gather_for_loss(preds, group)
         # mild penalty on alpha deviating from its initial value
         # (OpenPyStruct_FNN_MultiCase.py:546-547)
         loss = loss_fn(alpha, preds, Yb) + (cfg.initial_alpha - alpha) ** 2
@@ -270,20 +392,40 @@ def fit(
 
     def run_epoch(epoch):
         g = _generator(device, seed, epoch)
-        perm = torch.randperm(n_tr, generator=g, device=device)[:steps * batch]
-        Xe = X_train[perm].reshape(steps, batch, *X_train.shape[1:])
-        Ye = Y_train[perm].reshape(steps, batch, *Y_train.shape[1:])
+        gm = g if shards == 1 else _generator(device, seed, epoch,
+                                              _RANK_STREAM, rank)
+        if per_shard:
+            # rows never leave their rank: each permutes its own, with a
+            # generator of its mesh position (harness.py:64-93); the
+            # labels of each step's global batch are gathered for its loss
+            p = torch.randperm(X_train.shape[0], device=device,
+                               generator=_generator(device, seed, epoch,
+                                                    _SHARD_STREAM, rank))
+            p = p[:steps * lbatch]
+            Xe = X_train[p].reshape(steps, lbatch, *X_train.shape[1:])
+            Ye = coll.all_gather_rows(Y_train[p].reshape(
+                steps, lbatch, *Y_train.shape[1:]).transpose(0, 1),
+                group).transpose(0, 1)
+        else:
+            perm = torch.randperm(n_tr, generator=g,
+                                  device=device)[:steps * batch]
+            Xe = X_train[perm].reshape(steps, batch,
+                                       *X_train.shape[1:])[:, mine]
+            Ye = Y_train[perm].reshape(steps, batch, *Y_train.shape[1:])
         noise = float(np.float32(cfg.sigma_0) * np.power(
             np.float32(cfg.gamma_noise), np.float32(epoch)))
         losses = []
-        for s in range(steps):
-            Xb = Xe[s] + torch.randn(Xe[s].shape, generator=g,
-                                     device=device) * noise
-            loss = compute_loss(Xb, Ye[s], g, True)
-            opt.zero_grad()
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
+        with _global_batch_norms(model, group, shards):
+            for s in range(steps):
+                # the global batch's noise, this rank's rows of it
+                eps = torch.randn((batch,) + tuple(Xe.shape[2:]),
+                                  generator=g, device=device)
+                Xb = Xe[s] + eps[mine] * noise
+                loss = compute_loss(Xb, Ye[s], gm, True)
+                opt.zero_grad()
+                loss.backward()
+                opt.step(sync)
+                losses.append(loss.detach())
         with torch.no_grad():
             va = torch.stack([compute_loss(Xb, Yb, g, False)
                               for Xb, Yb in val_batches]).mean()
@@ -363,9 +505,11 @@ def fit(
         if checkpoint_dir and (chunks_done % checkpoint_every == 0
                                or stopped_host
                                or epoch0 >= cfg.num_epochs):
-            os.makedirs(checkpoint_dir, exist_ok=True)
-            save_checkpoint(os.path.join(checkpoint_dir, STATE_FILE),
-                            full_state())
+            if rank == 0:   # every rank holds the same state
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                save_checkpoint(os.path.join(checkpoint_dir, STATE_FILE),
+                                full_state())
+            coll.barrier(group)
     if owns_live_plot:
         # fit made the figure, so fit releases it (matplotlib warns after
         # 20 open figures)

@@ -25,9 +25,14 @@ package's ``cli.py``, in process on the CPU (``--device cpu``).
   (``tests/test_torch_fnn_pinn.py``, ``tests/test_torch_bayesian.py``).
 - ``bench``: its functions at tiny sizes print the three lines, in order,
   with finite positive values.
-- The device rule and the refused flags: a missing card without
-  ``--device cpu``, ``--mesh`` and ``--shuffle-scope per_shard`` exit
-  non-zero with their message; ``python -m openpystruct_tpu_torch`` runs.
+- The device rule and the distribution flags: a missing card without
+  ``--device cpu`` exits non-zero with its message; ``datagen --mesh``,
+  ``frame-opt --mesh`` and ``train --mesh`` run on one rank on the CPU
+  (no torchrun), and ``--shuffle-scope per_shard`` without a mesh warns and
+  trains; ``python -m openpystruct_tpu_torch`` runs, and under ``python -m
+  torch.distributed.run --nproc_per_node 2`` ``train --mesh`` trains over
+  two gloo ranks, rank 0 alone printing the epochs and writing the
+  checkpoint.
 """
 
 import dataclasses
@@ -345,18 +350,51 @@ def test_bench_prints_three_lines_in_order(capsys):
 
 @pytest.mark.parametrize("argv,message", [
     (["beam-opt"], "torch.cuda.is_available() is False"),
-    (["datagen", "--mesh", *CPU], "--mesh is not supported"),
-    (["frame-opt", "--mesh", *CPU], "--mesh is not supported"),
-    (["train", "--model", "fnn", "--data", "x.json", "--shuffle-scope",
-      "per_shard", *CPU], "per_shard is not supported"),
-    (["train", "--model", "fnn", "--data", "x.json", "--mesh", *CPU],
-     "--mesh is not supported"),
+    (["datagen", "--mesh", "--num-samples", "8", "--batch-size", "8",
+      "--max-epochs", "3", "--refine", "0", "--output", "{tmp}/mesh.json",
+      *CPU], "8 valid samples"),
+    (["frame-opt", "--mesh", "--bays", "2", "--stories", "1", "--epochs",
+      "3", "--batch", "2", *CPU], "2 load scenarios optimized"),
+    (["train", "--model", "fnn", "--data", "{data}", "--epochs", "1",
+      "--shuffle-scope", "per_shard", *CPU], "has no effect without a mesh"),
+    (["train", "--model", "fnn", "--data", "{data}", "--epochs", "1",
+      "--mesh", *CPU], "1 epochs in"),
 ])
-def test_refused(monkeypatch, argv, message):
+def test_refused(monkeypatch, recwarn, capsys, files, tmp_path, argv,
+                 message):
+    """A missing card is refused.  The distribution flags were refused
+    until the port had them; now each runs on one rank (no torchrun: the
+    mesh is this process) and says ``message``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    assert e.value.code != 0 and message in str(e.value.code)
+    argv = [a.format(tmp=tmp_path, data=files["dir"] / "ds.json")
+            for a in argv]
+    if "--device" not in argv:
+        with pytest.raises(SystemExit) as e:
+            cli.main(argv)
+        assert e.value.code != 0 and message in str(e.value.code)
+        return
+    cli.main(argv)
+    said = capsys.readouterr().out + "".join(str(w.message) for w in recwarn)
+    assert message in said
+
+
+def test_train_mesh_under_torchrun(files, tmp_path):
+    """``train --mesh`` over two gloo ranks started by torchrun: both ranks
+    train, rank 0 alone prints the epoch lines and writes the checkpoint."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    ck = tmp_path / "fnn.pt"
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "openpystruct_tpu_torch", "train",
+         "--model", "fnn", "--data", str(files["dir"] / "ds.json"),
+         "--epochs", "2", "--mesh", "--checkpoint", str(ck), *CPU],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    for e in (1, 2):
+        assert out.stdout.count(f"Epoch {e}/2 |") == 1, out.stdout
+    assert out.stdout.count("best checkpoint saved to") == 1
+    assert ck.is_file() and (tmp_path / "fnn.pt_preproc.npz").is_file()
+    assert (tmp_path / "fnn.pt_state" / "state.pt").is_file()
 
 
 def test_module_entry():

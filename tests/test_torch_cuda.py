@@ -1714,3 +1714,38 @@ def test_profile_trace_names_the_kernel_on_the_card(cuda, tmp_path):
     events = json.loads(open(prof.trace_path).read())["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("beam_analysis_kernel" in k for k in kernels), kernels[:5]
+
+
+@pytest.mark.cuda
+def test_distribution_on_the_card(cuda, tmp_path):
+    """A NCCL group of one rank on the card: ``generate_batch(mesh=)`` on
+    a random-bridge batch (the float64 rescue's kernels included) bitwise
+    the run without a mesh, launching the kernels, and
+    ``all_processes_min_max`` on the card."""
+    import torch.distributed as dist
+
+    from openpystruct_tpu_torch import parallel
+
+    parallel.initialize_multihost(init_method=f"file://{tmp_path / 'store'}",
+                                  world_size=1, rank=0)
+    try:
+        mesh = parallel.default_mesh()
+        assert dist.get_backend(mesh.group) == "nccl"
+        assert mesh.device == torch.device("cuda", 0)
+        cfg = ScenarioConfig(random_bridge=True)
+        want = generate_batch(torch.Generator().manual_seed(9), 2048, cfg)
+        tk.reset_counts()
+        tkd.reset_counts()
+        got = generate_batch(torch.Generator().manual_seed(9), 2048, cfg,
+                             mesh=mesh)
+        assert all(tk.LAUNCHES[k] for k in ("beam_analysis",
+                                            "beam_opt_step"))
+        assert all(tkd.LAUNCHES.values())
+        for name in ("I", "I_solved", "n_epochs", "pivot"):
+            assert torch.equal(getattr(got.result, name),
+                               getattr(want.result, name)), name
+        assert torch.equal(got.valid, want.valid)
+        lo, hi = parallel.all_processes_min_max(want.result.I)
+        assert lo.is_cuda and torch.equal(hi, want.result.I.max())
+    finally:
+        dist.destroy_process_group()
