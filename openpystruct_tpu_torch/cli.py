@@ -139,6 +139,10 @@ def _add_datagen(sub):
                         "kernels on the card (default there), 'f64' = "
                         "host-CPU float64 re-optimization (default on the "
                         "CPU)")
+    p.add_argument("--profile", type=str, default=None,
+                   help="capture a torch.profiler host + device trace of "
+                        "the generation into this directory (Chrome trace "
+                        "JSON, with the datagen path's spans)")
     _add_device(p)
 
 
@@ -443,18 +447,24 @@ def cmd_datagen(args):
               compact=False if args.no_compact else None,
               rescue=False if args.no_rescue else args.rescue_mode,
               device=dev, mesh=mesh)
+    lead = say is print
+    profile_ctx = contextlib.nullcontext()
+    if lead and args.profile:
+        from openpystruct_tpu_torch.utils import profile_trace
+
+        profile_ctx = profile_trace(args.profile)
     t0 = time.time()
+    with profile_ctx:
+        if args.shard_dir:
+            paths = generate_to_shards(args.seed, args.num_samples,
+                                       args.shard_dir, **kw)
+        else:
+            n = generate_dataset_json(args.seed, args.num_samples,
+                                      args.output, **kw)
+    if not lead:
+        return None if args.shard_dir else n   # rank 0 converts the shards
     if args.shard_dir:
-        paths = generate_to_shards(args.seed, args.num_samples,
-                                   args.shard_dir, **kw)
-        if say is not print:
-            return None   # rank 0 converts the shards
         n = shards_to_json(paths, args.output)
-    else:
-        n = generate_dataset_json(args.seed, args.num_samples, args.output,
-                                  **kw)
-        if say is not print:
-            return n
     dt = time.time() - t0
     print("Data generation complete.")
     print(f"Total execution time: {dt:.2f} seconds "

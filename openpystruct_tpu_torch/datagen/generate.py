@@ -40,6 +40,10 @@ columnar lists (``io.write_json_dataset`` dumps them);
 writer (``native.JsonStreamWriter``), peak host memory one batch; and
 ``generate_to_shards`` writes one crash-safe ``.npz`` shard a batch, which
 ``shards_to_json`` turns into the same JSON.
+
+While a profiler records (``utils/profiling.py``), each batch is a
+``datagen.batch`` span holding ``datagen.sample``, ``datagen.run_batch``
+(its ``opt.stage`` and ``opt.sync`` spans inside) and ``datagen.rescue``.
 """
 
 from __future__ import annotations
@@ -80,6 +84,7 @@ from openpystruct_tpu_torch.opt.beam_opt import (
 from openpystruct_tpu_torch.opt.loss import LossComponents
 from openpystruct_tpu_torch.parallel import batch_sharding
 from openpystruct_tpu_torch.parallel import collectives as coll
+from openpystruct_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -103,13 +108,15 @@ def run_batch(scenario: BeamScenario, beam_cfg: BeamConfig,
     if compact is None:
         compact = scenario.node_x.shape[0] >= 2048
     optimize = optimize_beam_compact if compact else optimize_beam_batched
-    res = optimize(scenario, beam_cfg, opt_cfg, refine=refine)
-    if res.pivot is not None:
-        pivot = res.pivot   # the fused analysis measured it
-    else:
-        pivot = beam_min_pivot(res.I_solved, scenario, beam_cfg.E, beam_cfg.A)
-    return DatagenBatch(scenario=scenario, result=res,
-                        valid=_finite(res) & (pivot > pivot_tol),
+    with span("datagen.run_batch"):
+        res = optimize(scenario, beam_cfg, opt_cfg, refine=refine)
+        if res.pivot is not None:
+            pivot = res.pivot   # the fused analysis measured it
+        else:
+            pivot = beam_min_pivot(res.I_solved, scenario, beam_cfg.E,
+                                   beam_cfg.A)
+        valid = _finite(res) & (pivot > pivot_tol)
+    return DatagenBatch(scenario=scenario, result=res, valid=valid,
                         residual=pivot)
 
 
@@ -222,19 +229,21 @@ def _rescue_local(batch: DatagenBatch, beam_cfg: BeamConfig,
     32, padded with lane 0, as in the JAX package."""
     if mode not in ("dd", "f64"):
         raise ValueError(f"unknown rescue mode: {mode!r}")
-    bad = torch.nonzero(~batch.valid).flatten()
-    n_bad = bad.numel()
-    if n_bad == 0:
-        return batch
-    B = batch.valid.shape[0]
-    bucket = min(B, 1 << max(n_bad - 1, 31).bit_length())
-    gidx = torch.cat([bad, bad.new_zeros(bucket - n_bad)])
-    sub_scen = _gather_scenario(batch.scenario, gidx)
-    rescue = _dd_rescue if mode == "dd" else _f64_rescue
-    out = rescue(sub_scen, beam_cfg, opt_cfg)
-    pos = torch.arange(bucket, device=gidx.device)
-    put = torch.where(pos < n_bad, gidx, torch.full_like(gidx, B))
-    return _merge_rescued(batch, out, put)
+    with span("datagen.rescue") as sp:
+        bad = torch.nonzero(~batch.valid).flatten()
+        n_bad = bad.numel()
+        sp.set(rejected=n_bad)
+        if n_bad == 0:
+            return batch
+        B = batch.valid.shape[0]
+        bucket = min(B, 1 << max(n_bad - 1, 31).bit_length())
+        gidx = torch.cat([bad, bad.new_zeros(bucket - n_bad)])
+        sub_scen = _gather_scenario(batch.scenario, gidx)
+        rescue = _dd_rescue if mode == "dd" else _f64_rescue
+        out = rescue(sub_scen, beam_cfg, opt_cfg)
+        pos = torch.arange(bucket, device=gidx.device)
+        put = torch.where(pos < n_bad, gidx, torch.full_like(gidx, B))
+        return _merge_rescued(batch, out, put)
 
 
 def _auto_rescue_mode(device: torch.device) -> str:
@@ -299,20 +308,23 @@ def generate_batch(generator: torch.Generator, batch_size: int,
         beam_cfg = BeamConfig(udl=scen_cfg.udl)
     device = resolve_device(device) if mesh is None else mesh.device
     rescue = _resolve_rescue(rescue, scen_cfg, opt_cfg.grad_mode, device)
-    scenario = sample_scenarios(generator, batch_size, scen_cfg,
-                                device=device, dtype=dtype)
-    local = scenario
-    if mesh is not None:
-        rows = batch_sharding(mesh, data_axis).rows(batch_size)
-        local = scenario.map(lambda x: x[rows])
-    batch = run_batch(local, beam_cfg, opt_cfg, refine, pivot_tol, compact)
-    if rescue:
-        # a rank rescues only its own rejected lanes
-        batch = _rescue_local(batch, beam_cfg, opt_cfg, rescue)
-    if mesh is not None:
-        batch = dataclasses.replace(
-            coll.gather_rows(dataclasses.replace(batch, scenario=None),
-                        mesh.group), scenario=scenario)
+    with span("datagen.batch", lanes=batch_size):
+        with span("datagen.sample"):
+            scenario = sample_scenarios(generator, batch_size, scen_cfg,
+                                        device=device, dtype=dtype)
+        local = scenario
+        if mesh is not None:
+            rows = batch_sharding(mesh, data_axis).rows(batch_size)
+            local = scenario.map(lambda x: x[rows])
+        batch = run_batch(local, beam_cfg, opt_cfg, refine, pivot_tol,
+                          compact)
+        if rescue:
+            # a rank rescues only its own rejected lanes
+            batch = _rescue_local(batch, beam_cfg, opt_cfg, rescue)
+        if mesh is not None:
+            batch = dataclasses.replace(
+                coll.gather_rows(dataclasses.replace(batch, scenario=None),
+                                 mesh.group), scenario=scenario)
     return batch
 
 

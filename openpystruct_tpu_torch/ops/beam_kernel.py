@@ -44,7 +44,10 @@ Each wrapper sends a CPU tensor to the plain PyTorch version beside it
 (``csrc/beam_opt.cu``, ``csrc/beam_kernel.cu``) on a CUDA tensor, or
 raises.  There is no fallback from the kernel to the plain version.
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the calls the
-wrappers sent to the plain versions.
+wrappers sent to the plain versions.  While a profiler records,
+``beam_analysis`` and ``beam_opt_step`` also count each call, kernel or
+plain, as ``utils.profiling.count("launch", 1, kind=, lanes=, n=,
+refine=)``.
 
 The plain versions repeat the kernels' arithmetic in the same order:
 vectorised over the batch and, where no recurrence runs, over the nodes;
@@ -71,6 +74,7 @@ from openpystruct_tpu_torch.ops.block_tridiag import (
     _mtv,
     _mv,
 )
+from openpystruct_tpu_torch.utils.profiling import count
 
 LAUNCHES = {"beam_analysis": 0, "beam_opt_step": 0, "beam_solve": 0}
 PLAIN_CALLS = {"beam_analysis": 0, "beam_opt_step": 0, "beam_solve": 0}
@@ -773,6 +777,8 @@ def beam_analysis(I, Le, free_mask, point_loads, udl, E, A, refine=1):
     kernel, with no layout copy.  The backward pass runs ``beam_solve``
     (kernel or plain version, by device).
     """
+    count("launch", 1, kind="analysis", lanes=I.shape[0], n=I.shape[1] + 1,
+          refine=refine)
     return _BeamAnalysis.apply(I, Le, free_mask, point_loads, udl, E, A,
                                refine)
 
@@ -789,6 +795,8 @@ def beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1,
     version; CUDA tensors (float32, contiguous) launch the kernel, with no
     layout copy.
     """
+    count("launch", 1, kind="semi" if grad_semi else "adjoint",
+          lanes=I.shape[0], n=I.shape[1] + 1, refine=refine)
     if not I.is_cuda:
         PLAIN_CALLS["beam_opt_step"] += 1
         return beam_opt_step_reference(

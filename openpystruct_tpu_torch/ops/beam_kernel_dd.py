@@ -33,7 +33,9 @@ Each wrapper sends a CPU tensor to the plain PyTorch version beside it
 float32 or float64 inputs, computes in float64 and returns the input dtype,
 and launches the CUDA kernel on a CUDA float32 tensor, or raises.  There is
 no fallback from the kernel to the plain version.  ``LAUNCHES`` counts kernel
-launches and ``PLAIN_CALLS`` the calls sent to the plain versions.
+launches and ``PLAIN_CALLS`` the calls sent to the plain versions; while a
+profiler records, each call also counts as ``utils.profiling.count(
+"launch", 1, kind="opt_dd" or "analysis_dd", lanes=, n=, refine=0)``.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from openpystruct_tpu_torch.ops.beam_kernel import (
     _stack,
     _stiffness,
 )
+from openpystruct_tpu_torch.utils.profiling import count
 
 LAUNCHES = {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
 PLAIN_CALLS = {"beam_analysis_dd": 0, "beam_opt_step_dd": 0}
@@ -212,6 +215,8 @@ def beam_analysis_dd(I, Le, free_mask, point_loads, udl, E, A):
     run the plain version; CUDA tensors (float32, contiguous) launch the
     kernel, with no layout copy.
     """
+    count("launch", 1, kind="analysis_dd", lanes=I.shape[0],
+          n=I.shape[1] + 1, refine=0)
     if not I.is_cuda:
         PLAIN_CALLS["beam_analysis_dd"] += 1
         return beam_analysis_dd_reference(I, Le, free_mask, point_loads, udl,
@@ -228,6 +233,8 @@ def beam_opt_step_dd(I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1,
     run the plain version; CUDA tensors (float32, contiguous) launch the
     kernel, with no layout copy.
     """
+    count("launch", 1, kind="opt_dd", lanes=I.shape[0], n=I.shape[1] + 1,
+          refine=0)
     if not I.is_cuda:
         PLAIN_CALLS["beam_opt_step_dd"] += 1
         return beam_opt_step_dd_reference(

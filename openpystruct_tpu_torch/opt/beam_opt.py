@@ -38,6 +38,7 @@ from openpystruct_tpu_torch.ops.beam_kernel_dd import (
     beam_analysis_dd,
     beam_opt_step_dd,
 )
+from openpystruct_tpu_torch.utils.profiling import span
 
 # Epochs between host reads of the done flags.  An epoch at B = 16384 is a
 # launch of a few milliseconds, so a sync every epoch would idle the card
@@ -266,8 +267,13 @@ def _make_freeze_body(kernel_step, opt):
 
 def _run_epochs(body, state, epoch, max_epochs, keep_going):
     """Run epochs until ``keep_going(state)`` (read on the host every
-    ``_SYNC_EVERY`` epochs) is False or ``max_epochs`` is reached."""
-    while epoch < max_epochs and keep_going(state):
+    ``_SYNC_EVERY`` epochs, an ``opt.sync`` span) is False or
+    ``max_epochs`` is reached."""
+    while epoch < max_epochs:
+        with span("opt.sync"):
+            go = keep_going(state)
+        if not go:
+            break
         for _ in range(min(_SYNC_EVERY, max_epochs - epoch)):
             state = body(state, epoch)
             epoch += 1
@@ -336,11 +342,14 @@ def optimize_beam_batched(scenario: BeamScenario,
     if I0 is None:
         I0 = _default_I0(scenario, beam, (B, nelem))
     fused = True if fused is None else fused
-    body = _make_freeze_body(
-        _make_kernel_step(scenario, beam, opt, refine, fused, I0.dtype, dd),
-        opt)
-    state, _ = _run_epochs(body, _lane_state_init(I0), 0, opt.max_epochs,
-                           lambda st: bool((~st["done"]).any()))
+    with span("opt.stage", lanes=B) as sp:
+        body = _make_freeze_body(
+            _make_kernel_step(scenario, beam, opt, refine, fused, I0.dtype,
+                              dd), opt)
+        state, epochs = _run_epochs(body, _lane_state_init(I0), 0,
+                                    opt.max_epochs,
+                                    lambda st: bool((~st["done"]).any()))
+        sp.set(epochs=epochs)
     return _result(scenario, state, beam, refine, fused, dd)
 
 
@@ -395,11 +404,15 @@ def _optimize_compact(scenario, beam, opt, I0, refine, fused, min_bucket, dd,
     sizes = _compact_sizes(B, min_bucket)
 
     def run_stage(scen, st, epoch, next_size):
-        body = _make_freeze_body(
-            _make_kernel_step(scen, beam, opt, refine, fused, I0.dtype, dd,
-                              solve), opt)
-        return _run_epochs(body, st, epoch, opt.max_epochs,
-                           lambda s: int((~s["done"]).sum()) > next_size)
+        with span("opt.stage", lanes=scen.node_x.shape[0]) as sp:
+            body = _make_freeze_body(
+                _make_kernel_step(scen, beam, opt, refine, fused, I0.dtype,
+                                  dd, solve), opt)
+            st, end = _run_epochs(
+                body, st, epoch, opt.max_epochs,
+                lambda s: int((~s["done"]).sum()) > next_size)
+            sp.set(epochs=end - epoch)
+        return st, end
 
     state, epoch = run_stage(scenario, _lane_state_init(I0), 0,
                              sizes[1] if len(sizes) > 1 else 0)

@@ -1,4 +1,4 @@
-"""Structured metrics and timing (port of ``utils/metrics.py``).
+"""Structured metrics (port of ``utils/metrics.py``).
 
 The reference's observability is print() statements and wall-clock
 time.time() pairs (OpenPyStruct_FNN_MultiCase.py:530,587-591,
@@ -15,22 +15,6 @@ import time
 from typing import Optional
 
 from openpystruct_tpu_torch.utils.tb_writer import TBEventWriter
-
-
-class Timer:
-    """Context-manager wall timer (the reference's t0 = time.time() idiom)."""
-
-    def __enter__(self):
-        self.start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self.start
-        return False
-
-
-def steps_per_sec(n_steps: int, elapsed_s: float) -> float:
-    return n_steps / max(elapsed_s, 1e-12)
 
 
 class MetricsLogger:
