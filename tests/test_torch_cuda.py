@@ -169,6 +169,39 @@ def test_batch_program_launches_kernels_only(cuda):
     tk.reset_counts()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("random_bridge", [False, True])
+@pytest.mark.parametrize("n", [101, 201])
+def test_sampler_on_the_card_is_the_cpu_sampler(cuda, n, random_bridge,
+                                                dtype):
+    """At 32768 lanes the fields scattered on the card equal the CPU's bit
+    for bit, and the sampler hands the card under 4 MB (its
+    ``h2d_bytes`` count, read inside a profiler)."""
+    from openpystruct_tpu_torch.utils import profiling
+
+    cfg = ScenarioConfig(num_nodes=n, random_bridge=random_bridge)
+    want = sample_scenarios(torch.Generator().manual_seed(n), 32768, cfg,
+                            device="cpu", dtype=dtype)
+    profiling.reset()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = sample_scenarios(torch.Generator().manual_seed(n), 32768,
+                                   cfg, device=cuda, dtype=dtype)
+        sent = profiling.counts()["h2d_bytes"]
+    finally:
+        profiling.reset()
+    assert list(sent) == [(("stage", "sample"),)]
+    assert 0 < sent[(("stage", "sample"),)] < 4e6
+    for name in ("node_x", "roller_mask", "point_loads", "udl",
+                 "roller_order", "force_order"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.is_cuda and a.is_contiguous() and a.dtype == b.dtype, name
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)), \
+            name
+
+
 def _lane_err(got, want, floor=0.0):
     """The worst lane's largest error relative to that lane's largest
     |want| (at least ``floor``)."""

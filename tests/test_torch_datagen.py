@@ -1,5 +1,6 @@
-"""Port: sampler laws, the batch program on JAX-drawn scenarios, and the
-13-key JSON read back by the JAX package's reader."""
+"""Port: sampler laws, the sampler bitwise its two-argsort form, the batch
+program on JAX-drawn scenarios, and the 13-key JSON read back by the JAX
+package's reader."""
 
 import collections
 
@@ -34,6 +35,8 @@ from openpystruct_tpu_torch.datagen import (
     write_json_dataset,
     write_npz_shard,
 )
+from openpystruct_tpu_torch.datagen.sampler import _smallest
+from openpystruct_tpu_torch.fem.beam import BeamScenario
 from openpystruct_tpu_torch.interop import scenario_from_numpy, scenario_to_numpy
 
 FAST = dict(max_epochs=30, tolerance=5e-3, patience=5)
@@ -79,6 +82,110 @@ def test_sampler_random_bridge():
     assert set(n_rollers.tolist()) == {1, 2, 3, 4}
     assert not d["roller_mask"][:, 0].any() and not d["roller_mask"][:, -1].any()
     assert (d["point_loads"][d["roller_mask"]] == 0).all()
+
+
+def _rank(scores):
+    """rank[..., i] = position of scores[..., i] in ascending order."""
+    return torch.argsort(torch.argsort(scores, dim=-1, stable=True), dim=-1)
+
+
+def _sample_by_rank(generator, batch_size, cfg, dtype):
+    """The sampler as it was before the top-k selection, kept as the oracle:
+    two stable argsorts rank every node, and the six (B, n) fields are
+    built on the host (CPU only)."""
+    n, B = cfg.num_nodes, batch_size
+    idx = torch.arange(n)
+    candidates = ((idx >= 1) & (idx <= n - 2)).expand(B, n)
+    inf = torch.tensor(float("inf"), dtype=torch.float64)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, dtype=torch.float64)
+
+    if cfg.random_bridge:
+        L = cfg.L_min + uniform(B) * cfg.L_max
+        num_rollers = torch.randint(1, cfg.n_rollers_max + 1, (B, 1),
+                                    generator=generator)
+        r_rank = _rank(torch.where(candidates, uniform(B, n), inf))
+        roller_mask = r_rank < num_rollers
+        roller_order = torch.where(roller_mask, r_rank, n)
+    else:
+        L = torch.full((B,), float(cfg.L_max), dtype=torch.float64)
+        roller_mask = torch.zeros((B, n), dtype=torch.bool)
+        roller_mask[:, [t - 1 for t in cfg.fixed_roller_tags]] = True
+        roller_order = torch.where(roller_mask, roller_mask.cumsum(-1) - 1,
+                                   n)
+
+    node_x = torch.linspace(0.0, 1.0, n, dtype=torch.float64) * L[:, None]
+    available = candidates & ~roller_mask
+    num_forces = torch.randint(1, cfg.m_forces_max + 1, (B, 1),
+                               generator=generator)
+    f_rank = _rank(torch.where(available, uniform(B, n), inf))
+    force_sel = f_rank < num_forces
+    force_order = torch.where(force_sel, f_rank, n)
+    lo = min(cfg.max_force, cfg.min_force)
+    hi = max(cfg.max_force, cfg.min_force)
+    point_loads = torch.where(force_sel, lo + (hi - lo) * uniform(B, n), 0.0)
+    return BeamScenario(
+        node_x=node_x.to(dtype), roller_mask=roller_mask,
+        point_loads=point_loads.to(dtype),
+        udl=torch.full((B,), float(cfg.udl), dtype=torch.float64).to(dtype),
+        roller_order=(roller_order.to(torch.int32)
+                      if cfg.store_draw_order else None),
+        force_order=(force_order.to(torch.int32)
+                     if cfg.store_draw_order else None))
+
+
+def _assert_bitwise(got, want):
+    for name in ("node_x", "roller_mask", "point_loads", "udl",
+                 "roller_order", "force_order"):
+        a, b = getattr(got, name), getattr(want, name)
+        if b is None:
+            assert a is None, name
+            continue
+        assert (a.dtype, a.shape, a.is_contiguous()) == (b.dtype, b.shape,
+                                                          True), name
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)), \
+            name
+
+
+@pytest.mark.parametrize("B", [1, 7, 4096])
+@pytest.mark.parametrize("store_draw_order", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("random_bridge", [False, True])
+def test_sampler_bitwise_its_two_argsort_form(random_bridge, dtype,
+                                              store_draw_order, B):
+    """Three batches from one generator: every field bit for bit the
+    two-argsort sampler's, and the generator left in the same state."""
+    cfg = ScenarioConfig(random_bridge=random_bridge,
+                         store_draw_order=store_draw_order)
+    g_new = torch.Generator().manual_seed(2026)
+    g_old = torch.Generator().manual_seed(2026)
+    for _ in range(3):
+        _assert_bitwise(
+            sample_scenarios(g_new, B, cfg, device="cpu", dtype=dtype),
+            _sample_by_rank(g_old, B, cfg, dtype))
+    assert torch.equal(g_new.get_state(), g_old.get_state())
+
+
+@pytest.mark.parametrize("k", [1, 4, 29])
+def test_smallest_is_the_stable_sort_head(k):
+    """``_smallest`` on scores with forced ties (eight levels, so most rows
+    tie), unavailable entries (inf, tied with each other) and rows without
+    a tie: the first k columns of the stable ascending argsort, at k = 1,
+    4 and n - 2."""
+    n = 31
+    g = torch.Generator().manual_seed(k)
+    tied = torch.randint(0, 8, (300, n), generator=g).double() / 8
+    distinct = torch.rand((300, n), generator=g, dtype=torch.float64)
+    scores = torch.cat([tied, distinct])
+    masked = torch.rand(scores.shape, generator=g) < 0.3
+    masked[:50] = True               # rows with every entry unavailable
+    masked[50:100, :n - k] = True    # rows reaching into the unavailable
+    for s in (scores, torch.where(masked, float("inf"), scores)):
+        want = torch.argsort(s, dim=-1, stable=True)[:, :k]
+        assert torch.equal(_smallest(s, k), want)
+    assert torch.equal(_smallest(scores, n + 3),
+                       torch.argsort(scores, dim=-1, stable=True))
 
 
 @pytest.mark.parametrize("random_bridge", [False, True])

@@ -9,12 +9,13 @@ readers of them, on CPU batches.
   an ``opt.stage`` per stage of the compaction schedule, whose epochs sum
   to the epochs launched; every ``opt.sync`` inside a stage; the same
   names as user annotations among the profiler's events, the sampler's
-  ``aten::sort`` inside ``datagen.sample``'s; the batch bitwise the
+  ``aten::topk`` inside ``datagen.sample``'s; the batch bitwise the
   untraced one.
 - (c) The program's ``launch`` counts, kept in the innermost open span,
   equal what the benchmark's wrappers (``portbench/entries/datagen.py``
   ``_wrappers``) record on the same batches, and ``launched_epochs_per_lane``
-  reads the wrappers' launched lanes over the lanes drawn.
+  reads the wrappers' launched lanes over the lanes drawn; the sampler's
+  ``h2d_bytes`` count in ``datagen.sample`` is its (B, k) compact form.
 - (d) The readers ``sampler_s_per_batch``, ``host_ms_per_epoch``,
   ``sync_wait_ms_per_epoch`` and ``launched_epochs_per_lane`` on an empty
   ``Readings`` and on hand-built spans.
@@ -147,8 +148,8 @@ def test_spans_of_a_traced_batch(runs, lanes):
     notes = [e for e in run["events"] if e[1]]
     assert sorted(e[0] for e in notes) == sorted(s["name"] for s in spans)
     (note,) = [e for e in notes if e[0] == "datagen.sample"]
-    sorts = [e for e in run["events"] if e[0] == "aten::sort" and not e[1]]
-    assert any(note[2] <= e[2] and e[3] <= note[3] for e in sorts)
+    picks = [e for e in run["events"] if e[0] == "aten::topk" and not e[1]]
+    assert any(note[2] <= e[2] and e[3] <= note[3] for e in picks)
 
     # tracing changes no result
     off, on = run["off"], run["on"]
@@ -161,7 +162,16 @@ def test_spans_of_a_traced_batch(runs, lanes):
 @pytest.mark.parametrize("lanes", LANES)
 def test_counts_equal_the_benchmark_wrappers(runs, lanes):
     run = runs[lanes]
-    assert set(run["counts"]) == {"launch"}
+    assert set(run["counts"]) == {"launch", "h2d_bytes"}
+    # each lane's float64 L, and float32 loads, int32 indices and draw
+    # positions of its k = m_forces_max kept forces; the fixed rollers'
+    # int32 indices and positions and bool flags once; the (n,) float64
+    # linspace
+    forces, rollers = SCEN.m_forces_max, len(SCEN.fixed_roller_tags)
+    (sample,) = _by_name(run["spans"], "datagen.sample")
+    assert sample["counts"] == {
+        ("h2d_bytes", _key(stage="sample")):
+        lanes * (8 + forces * 12) + rollers * 9 + SCEN.num_nodes * 8}
     as_wrappers = {(k["kind"], k["lanes"], k["n"], k["refine"]): v
                    for k, v in ((dict(k), v)
                                 for k, v in run["counts"]["launch"].items())}
