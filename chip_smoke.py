@@ -21,7 +21,13 @@ Phases, each of which raises on failure (exit code not 0):
    card as the truth, and the kernel's per-lane error, at the median and
    the 99th percentile, must be no more than twice the plain float32
    version's, or 1e-5 of the output's per-lane scale, whichever is larger;
-   the validity masks (pivot > 1e-9) must be identical;
+   the validity masks (pivot > 1e-9) must be identical; then #2 given
+   the epoch loop's lane state, the main path's one launch an epoch, on
+   the same lanes with NaN lanes, done lanes (a whole 32-lane block among
+   them), lanes at patience and totals exactly at best - tolerance: bitwise
+   the bare step followed by ``freeze_lanes``, and against the plain
+   version followed by ``freeze_lanes`` the same decisions, the done lanes
+   untouched and the stepped lanes held by the rule above;
 3b. each float64 rescue kernel against its plain version (float64 inside,
    float32 in and out) on 16384 random-bridge lanes plus the four
    quasi-cantilever lanes float32 cannot solve: per-lane error no more than
@@ -615,6 +621,141 @@ def check_kernels(torch, tk, inputs, scalars, E, A, G, refine,
             hold(torch, nm, kern[3][:, c:c + 1], p32[3][:, c:c + 1],
                  p64[3][:, c:c + 1])
     return errs
+
+
+def tie_best(torch, total, tolerance):
+    """Per lane, a best with best - tolerance == total in float32, as the
+    bookkeeping subtracts, where one exists; NaN where none does."""
+    best = total + tolerance
+    for _ in range(64):
+        gap = best - tolerance
+        best = torch.where(gap < total, torch.nextafter(
+            best, torch.full_like(best, float("inf"))), best)
+        best = torch.where(gap > total, torch.nextafter(
+            best, torch.full_like(best, -float("inf"))), best)
+    return torch.where(best - tolerance == total, best, float("nan"))
+
+
+def lanes_same(torch, a, b):
+    """Per lane (row), ``a`` and ``b`` equal, NaN where both are NaN."""
+    eq = a == b
+    if a.is_floating_point():
+        eq |= torch.isnan(a) & torch.isnan(b)
+    return eq.reshape(eq.shape[0], -1).all(1)
+
+
+def check_lane_state(torch, tk, inputs, scalars, E, A, G, refine, tolerance,
+                     patience, phase="phase 3"):
+    """#2 given the epoch loop's lane state (``beam_opt_step(lane_state=)``,
+    one launch an epoch on the main path) on phase 3's inputs with NaN
+    lanes (lane % 97 == 5 and lane 40), done lanes (lane % 7 == 3 and the
+    whole block of lanes 32-63, whose solve the kernel skips), lanes one
+    epoch short of ``patience``, lanes that improve or not by a margin, and
+    lanes whose total lies exactly at best - tolerance (lane % 1000 == 0),
+    semi and adjoint.  Its outputs and the state it updates in place must
+    be bitwise the bare step's followed by ``freeze_lanes``.  Against the
+    plain version followed by ``freeze_lanes``: I_solved and n_epochs
+    bitwise, done and no_improve equal off the tied lanes, the lanes done
+    on entry their inputs bitwise, the NaN lanes NaN, and the stepped lanes'
+    I, mu, nu and total held by phase 3's rule."""
+    B, nelem = inputs["I"].shape
+    dev = inputs["I"].device
+    lane = torch.arange(B, device=dev)
+    nan_lane = (lane % 97 == 5) | (lane == 40)
+    entry_done = (lane % 7 == 3) | ((lane >= 32) & (lane < 64))
+    I = inputs["I"].clone()
+    I[nan_lane, 3] = float("nan")
+    ins = [I] + [inputs[k].float()
+                 for k in ("mu", "nu", "Le", "free", "loads", "udl")]
+    tail = (*scalars, E, A, G)
+    gen = torch.Generator().manual_seed(B)
+    names = tk._LANE_TENSORS + ("stats",)
+    for semi in (True, False):
+        mode = "semi" if semi else "adjoint"
+        kw = dict(grad_semi=semi, refine=refine)
+        bare = tk.beam_opt_step(*ins, *tail, **kw)
+        total = bare[3][:, 0]
+        tf = torch.nan_to_num(total, nan=1.0)
+        margin = 0.25 * tf.abs() + 1e-2
+        best = torch.where(lane % 4 < 2, tf + tolerance + margin,
+                           tf + tolerance - margin)
+        tie = (lane % 1000 == 0) & ~nan_lane
+        best[tie] = tie_best(torch, total[tie], tolerance)
+        tie &= ~torch.isnan(best)
+        best = torch.nan_to_num(best, nan=1.0)
+        no_improve = torch.randint(0, patience, (B,), generator=gen,
+                                   dtype=torch.int32).to(dev)
+        no_improve[lane % 5 == 4] = patience - 1
+        st0 = tk.LaneState(
+            entry_done.clone(), best, no_improve,
+            torch.randint(0, 50, (B,), generator=gen,
+                          dtype=torch.int32).to(dev),
+            torch.rand((B, nelem), generator=gen).to(dev),
+            torch.rand((B, 4), generator=gen).to(dev), tolerance, patience)
+
+        def fresh():
+            return st0._replace(**{k: getattr(st0, k).clone()
+                                   for k in names})
+
+        st = fresh()
+        out = tk.beam_opt_step(*ins, *tail, **kw, lane_state=st)
+        got = dict(zip(("I", "mu", "nu", "stats"), out),
+                   **{k: getattr(st, k) for k in tk._LANE_TENSORS})
+        want = tk.freeze_lanes(I, ins[1], ins[2], bare, fresh())
+        p32 = tk.beam_opt_step_reference(*ins, *tail, **kw)
+        p64 = tk.beam_opt_step_reference(*(t.double() for t in ins), *tail,
+                                         **kw)
+        plain = tk.freeze_lanes(I, ins[1], ins[2], p32, fresh())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"{phase}: beam_opt_step ({mode}) with the lane state, {B} "
+            f"lanes: vs the bare kernel step + freeze_lanes")
+        for k, v in got.items():
+            off = int((~lanes_same(torch, v, want[k])).sum())
+            if off:
+                raise AssertionError(f"lane state ({mode}): {k} differs from "
+                                     f"the bare step + freeze_lanes on {off} "
+                                     "lanes")
+        act = ~entry_done
+        improved = act & (got["no_improve"] == 0)
+        newly_done = act & got["done"]
+        ties_kept = act & tie & (got["no_improve"] == no_improve + 1)
+        log(f"  bitwise on every output and state tensor | improved "
+            f"{int(improved.sum())}, newly done {int(newly_done.sum())}, "
+            f"done on entry {int(entry_done.sum())}, NaN "
+            f"{int(nan_lane.sum())}, tied (not improved) "
+            f"{int(ties_kept.sum())} of {int((act & tie).sum())}")
+        if not (int(improved.sum()) and int(newly_done.sum())
+                and int((act & tie).sum())
+                and torch.equal(ties_kept, act & tie)):
+            raise AssertionError(f"lane state ({mode}): a case is missing, "
+                                 "or a tied lane counted as improved")
+        log(f"{phase}: beam_opt_step ({mode}) with the lane state vs plain "
+            "+ freeze_lanes")
+        for k in ("I_solved", "n_epochs"):
+            if not bool(lanes_same(torch, got[k], plain[k]).all()):
+                raise AssertionError(f"lane state ({mode}): {k} differs from "
+                                     "the plain version's")
+        for k in ("done", "no_improve"):
+            off = int((~lanes_same(torch, got[k], plain[k]) & ~tie).sum())
+            if off:
+                raise AssertionError(f"lane state ({mode}): {k} differs from "
+                                     f"the plain version's on {off} lanes")
+        for k in ("I", "mu", "nu", "stats"):
+            off = int((~lanes_same(torch, got[k], plain[k])
+                       & entry_done).sum())
+            if off:
+                raise AssertionError(f"lane state ({mode}): {off} lanes done "
+                                     f"on entry changed {k}")
+        if not torch.equal(torch.isnan(got["stats"][:, 0]) & act,
+                           nan_lane & act):
+            raise AssertionError(f"lane state ({mode}): the NaN lanes' "
+                                 "totals are not NaN, or others are")
+        step = act & ~nan_lane
+        for k, c in (("I", 0), ("mu", 1), ("nu", 2)):
+            hold(torch, k, got[k][step], p32[c][step], p64[c][step])
+        hold(torch, "total", got["stats"][step, :1], p32[3][step, :1],
+             p64[3][step, :1])
 
 
 # ---------------------------------------------------------------------------
@@ -2705,6 +2846,8 @@ def main(argv=None) -> int:
     n = inputs["I"].shape[1] + 1
     scalars = _adam_scalars(DATAGEN_OPT, 3, torch.float32)
     errs = check_kernels(torch, tk, inputs, scalars, E, A, G, refine)
+    check_lane_state(torch, tk, inputs, scalars, E, A, G, refine,
+                     DATAGEN_OPT.tolerance, DATAGEN_OPT.patience)
 
     # ---- phase 3b: the float64 rescue kernels against their plain versions
     rb_cfg = ScenarioConfig(random_bridge=True)

@@ -4,8 +4,9 @@
 Prints one JSON line per metric — {"metric", "value", "unit",
 "vs_baseline"} — in this order:
 
-  1. BeamOpt iters/sec        (the fused Adam-step kernel ``beam_opt_step``,
-     B = 8192, semi mode, ``DATAGEN_OPT``, refine 1)
+  1. BeamOpt iters/sec        (the fused Adam-step kernel ``beam_opt_step``
+     with the datagen loop's freeze bookkeeping, B = 8192, semi mode,
+     ``DATAGEN_OPT``, refine 1)
   2. surrogate samples/sec/chip (the TFD's training step through ``fit``,
      batch 512, feat_dim 120)
   3. batched beam FEA solves/sec (the fused analysis kernel
@@ -151,22 +152,30 @@ def device_rate(sc, I, batch=8192, reps=10, refine=1, chain=100,
 def beamopt_iters_rate(sc, I, batch=8192, iters=30, refine=1,
                        device="cuda"):
     """Batched whole-Adam-iteration rate (lane-iterations/sec): ``iters``
-    launches of the fused opt-step kernel (solve + loss + gradient + Adam +
-    clamp per launch), semi mode, ``DATAGEN_OPT`` — the datagen hot loop's
-    step (``opt.beam_opt._make_kernel_step(fused=True)``).  Best of 3."""
+    epochs of the datagen loop's fused epoch, one launch of the opt-step
+    kernel each (solve + loss + gradient + Adam + clamp, and the lanes'
+    freeze and early-stop bookkeeping), semi mode, ``DATAGEN_OPT`` with a
+    patience no lane reaches, so that every lane steps every epoch
+    (``opt.beam_opt._make_fused_body``).  Best of 3."""
     from openpystruct_tpu_torch.config import DATAGEN_OPT, BeamConfig
-    from openpystruct_tpu_torch.opt.beam_opt import _make_kernel_step
+    from openpystruct_tpu_torch.opt.beam_opt import (
+        _lane_state_init,
+        _make_fused_body,
+        _make_kernel_step,
+    )
 
     device = resolve_device(device)
     sc_b, Ib = _lanes(sc, batch, len(I), device)
-    step = _make_kernel_step(sc_b, BeamConfig(), DATAGEN_OPT, refine,
-                             fused=True, dtype=torch.float32)
+    opt = dataclasses.replace(DATAGEN_OPT, patience=iters + 1)
+    body = _make_fused_body(_make_kernel_step(
+        sc_b, BeamConfig(), opt, refine, fused=True, dtype=torch.float32),
+        opt)
 
     def run(I0):
-        I_c, mu, nu = I0, torch.zeros_like(I0), torch.zeros_like(I0)
+        c = _lane_state_init(I0)
         for e in range(iters):
-            I_c, mu, nu, _ = step(I_c, mu, nu, e)
-        return I_c
+            c = body(c, e)
+        return c["I"]
 
     run(Ib)
     _sync(device)

@@ -15,6 +15,9 @@ Three public wrappers keep the JAX launchers' argument order and shapes:
   ``_beam_opt_kernel_b2``): the same solve, the combined loss, its
   gradient (semi, or the exact adjoint: one more substitution pair and
   ``refine`` sweeps on the saved factors), and the Adam update with clamp.
+  Given the epoch loop's ``LaneState``, the same launch also does the
+  loop's freeze and early-stop bookkeeping (``freeze_lanes``), so that an
+  epoch is one launch.
 - ``beam_solve`` (``pallas_beam_solve``, kernel ``_beam_kernel`` with an
   explicit right-hand side): the 3-DOF assembly of K(I) (an arbitrary RHS
   may load the axial chain), masking, Jacobi scaling, block-Thomas with
@@ -47,7 +50,8 @@ raises.  There is no fallback from the kernel to the plain version.
 wrappers sent to the plain versions.  While a profiler records,
 ``beam_analysis`` and ``beam_opt_step`` also count each call, kernel or
 plain, as ``utils.profiling.count("launch", 1, kind=, lanes=, n=,
-refine=)``.
+refine=)``, and ``beam_opt_step`` given a lane state counts
+``count("freeze_fused", 1, lanes=)`` too.
 
 The plain versions repeat the kernels' arithmetic in the same order:
 vectorised over the batch and, where no recurrence runs, over the nodes;
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -394,6 +399,57 @@ def _adam_step(I, mu, nu, g, lr_t, bc1, bc2, clamp_min):
     return torch.clamp_min(I - step, clamp_min), mu_new, nu_new
 
 
+class LaneState(NamedTuple):
+    """The epoch loop's per-lane early-stopping state at an epoch's start
+    (``opt/beam_opt.py`` ``_lane_state_init``), for
+    ``beam_opt_step(lane_state=)``, which updates the tensors in place."""
+
+    done: torch.Tensor         # (B,) bool
+    best: torch.Tensor         # (B,) the best total so far
+    no_improve: torch.Tensor   # (B,) int32, epochs without improvement
+    n_epochs: torch.Tensor     # (B,) int32, epochs run
+    I_solved: torch.Tensor     # (B, nelem) the I the last step solved at
+    stats: torch.Tensor        # (B, 4) the previous epoch's loss stats
+    tolerance: float
+    patience: int
+
+
+#: the tensors of a ``LaneState`` that an epoch updates in place
+_LANE_TENSORS = ("done", "best", "no_improve", "n_epochs", "I_solved")
+
+
+def freeze_lanes(I, mu, nu, step, st: LaneState) -> dict:
+    """One epoch's freeze and early-stop bookkeeping, out of place: the
+    state after the step ``step = (I_new, mu_new, nu_new, stats)`` taken at
+    ``I, mu, nu``.  A lane active on entry takes the step, saves I as its
+    last solved I and compares the step's total with its best; a done lane
+    keeps its state.  Returns the loop's state dict (``I``, ``I_solved``,
+    ``mu``, ``nu``, ``n_epochs``, ``best``, ``no_improve``, ``done``,
+    ``stats``)."""
+    I_new, mu_new, nu_new, stats = step
+    active = ~st.done
+    am = active[:, None]
+    total = stats[:, 0]
+    improved = total < st.best - st.tolerance
+    no_improve = torch.where(
+        active,
+        torch.where(improved, torch.zeros_like(st.no_improve),
+                    st.no_improve + 1),
+        st.no_improve,
+    )
+    return dict(
+        I=torch.where(am, I_new, I),
+        I_solved=torch.where(am, I, st.I_solved),
+        mu=torch.where(am, mu_new, mu),
+        nu=torch.where(am, nu_new, nu),
+        n_epochs=st.n_epochs + active.to(torch.int32),
+        best=torch.where(active & improved, total, st.best),
+        no_improve=no_improve,
+        done=st.done | (no_improve >= st.patience),
+        stats=torch.where(am, stats, st.stats),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Plain version of the 3-DOF explicit-RHS solve: (B, n, 3, 3) blocks, the
 # recurrences Python loops over nodes.
@@ -540,7 +596,7 @@ def _opt_lib():
     """The library of the fused-sweep kernels, the opt step and the
     analysis (``csrc/beam_opt.cu``)."""
     lib = _build.load("beam_opt")
-    lib.beam_opt_step_f32.argtypes = ([_P] * 12 + [_I] * 4 + [_F] * 8
+    lib.beam_opt_step_f32.argtypes = ([_P] * 18 + [_I] * 5 + [_F] * 9
                                       + [_P])
     lib.beam_opt_scratch_per_node.argtypes = [_I]
     lib.beam_analysis_f32.argtypes = [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P]
@@ -597,6 +653,31 @@ def _check_lanes_first(name, I, Le, free_mask, point_loads=None, udl=None,
                          f"{I.device}")
 
 
+def _check_lane_state(st, I):
+    """Raise unless the lane state's tensors are contiguous on I's device
+    with the shapes and dtypes the opt-step kernel updates in place."""
+    B, nelem = I.shape
+    want = dict(done=((B,), torch.bool), best=((B,), torch.float32),
+                no_improve=((B,), torch.int32),
+                n_epochs=((B,), torch.int32),
+                I_solved=((B, nelem), torch.float32),
+                stats=((B, 4), torch.float32))
+    for name, (shape, dtype) in want.items():
+        t = getattr(st, name)
+        if t.device != I.device:
+            raise ValueError(f"lane state {name} is on {t.device}, "
+                             f"expected {I.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"lane state {name} is {t.dtype}, expected "
+                            f"{dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"lane state {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"lane state {name} is not contiguous: the "
+                             "kernel updates it as it lies")
+
+
 def _sweep_scratch(per_node, n, B, dev):
     """The fused sweeps' private scratch (n, per_node, lanes padded to
     whole 32-lane blocks): the kernels stage 128-byte rows."""
@@ -632,12 +713,17 @@ def launch_beam_analysis(I, Le, free_mask, point_loads, udl, E, A,
 
 def launch_beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl,
                          lr_t, bc1, bc2, E, G, alpha_m=1e-2, alpha_s=1e-2,
-                         clamp_min=1e-8, grad_semi=True, refine=1):
+                         clamp_min=1e-8, grad_semi=True, refine=1,
+                         lane_state=None):
     """Launch the opt-step kernel on the optimizer's lanes-first float32
-    tensors, as they are (``_check_lanes_first``).  Returns I_new, mu_new,
-    nu_new (B, nelem) and stats (B, 4)."""
+    tensors, as they are (``_check_lanes_first``; ``_check_lane_state``).
+    Returns I_new, mu_new, nu_new (B, nelem) and stats (B, 4); with a
+    ``lane_state``, the launch also runs ``freeze_lanes``' bookkeeping,
+    updating the state in place."""
     _check_lanes_first("beam_opt_step", I, Le, free_mask, point_loads, udl,
                        mu, nu)
+    if lane_state is not None:
+        _check_lane_state(lane_state, I)
     B, nelem = I.shape
     dev = I.device
     lib = _opt_lib()
@@ -646,18 +732,36 @@ def launch_beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl,
     scratch = _sweep_scratch(
         lib.beam_opt_scratch_per_node(int(bool(grad_semi))), nelem + 1, B,
         dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.beam_opt_step_f32(
+    st = lane_state
+    if st is None:    # NULL pointers: no bookkeeping
+        st_ptrs, patience, tolerance = (0,) * 6, 0, 0.0
+    else:
+        st_ptrs = tuple(getattr(st, k).data_ptr()
+                        for k in _LANE_TENSORS + ("stats",))
+        patience, tolerance = int(st.patience), float(st.tolerance)
+
+    def launch():
+        return lib.beam_opt_step_f32(
             I.data_ptr(), mu.data_ptr(), nu.data_ptr(), Le.data_ptr(),
             free_mask.data_ptr(), point_loads.data_ptr(), udl.data_ptr(),
             I_o.data_ptr(), mu_o.data_ptr(), nu_o.data_ptr(),
-            stats.data_ptr(), scratch.data_ptr(), B, nelem + 1, int(refine),
-            int(bool(grad_semi)), float(E), float(G), float(alpha_m),
-            float(alpha_s), float(clamp_min), float(lr_t), float(bc1),
-            float(bc2), stream)
-    _run(rc, "beam_opt_step")
+            stats.data_ptr(), scratch.data_ptr(), *st_ptrs, B, nelem + 1,
+            int(refine), int(bool(grad_semi)), patience, float(E), float(G),
+            float(alpha_m), float(alpha_s), float(clamp_min), float(lr_t),
+            float(bc1), float(bc2), tolerance,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    _run(_on_device(dev, launch), "beam_opt_step")
     return I_o, mu_o, nu_o, stats
+
+
+def _on_device(dev, fn):
+    """``fn()`` with ``dev`` the current CUDA device, where the runtime
+    launches; entering ``torch.cuda.device`` only when it is not already."""
+    if dev.index == torch.cuda.current_device():
+        return fn()
+    with torch.cuda.device(dev):
+        return fn()
 
 
 def launch_beam_solve(I, Le, free_mask, rhs, E, A, refine=1):
@@ -785,7 +889,7 @@ def beam_analysis(I, Le, free_mask, point_loads, udl, E, A, refine=1):
 
 def beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1,
                   bc2, E, A, G, alpha_m=1e-2, alpha_s=1e-2, clamp_min=1e-8,
-                  grad_semi=True, refine=1):
+                  grad_semi=True, refine=1, lane_state=None):
     """One fused optimizer iteration for the whole batch
     (``pallas_beam_opt_step``): solve, combined loss, its gradient (semi or
     exact adjoint), Adam update and clamp.  ``lr_t``, ``bc1``, ``bc2`` are
@@ -794,14 +898,29 @@ def beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1,
     primary, bending energy, shear energy.  CPU tensors run the plain
     version; CUDA tensors (float32, contiguous) launch the kernel, with no
     layout copy.
+
+    ``lane_state`` (a ``LaneState``) makes this the epoch loop's whole
+    epoch: the returned I, mu, nu and stats are ``freeze_lanes``' (a lane
+    done on entry returns its inputs and previous stats) and the state's
+    tensors are updated in place.  It is counted as
+    ``count("freeze_fused", 1, lanes=B)``.
     """
     count("launch", 1, kind="semi" if grad_semi else "adjoint",
           lanes=I.shape[0], n=I.shape[1] + 1, refine=refine)
-    if not I.is_cuda:
-        PLAIN_CALLS["beam_opt_step"] += 1
-        return beam_opt_step_reference(
-            I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1, bc2, E,
-            A, G, alpha_m, alpha_s, clamp_min, grad_semi, refine)
-    return launch_beam_opt_step(I, mu, nu, Le, free_mask, point_loads, udl,
-                                lr_t, bc1, bc2, E, G, alpha_m, alpha_s,
-                                clamp_min, grad_semi, refine)
+    if lane_state is not None:
+        count("freeze_fused", 1, lanes=I.shape[0])
+    if I.is_cuda:
+        return launch_beam_opt_step(I, mu, nu, Le, free_mask, point_loads,
+                                    udl, lr_t, bc1, bc2, E, G, alpha_m,
+                                    alpha_s, clamp_min, grad_semi, refine,
+                                    lane_state)
+    PLAIN_CALLS["beam_opt_step"] += 1
+    step = beam_opt_step_reference(
+        I, mu, nu, Le, free_mask, point_loads, udl, lr_t, bc1, bc2, E, A, G,
+        alpha_m, alpha_s, clamp_min, grad_semi, refine)
+    if lane_state is None:
+        return step
+    new = freeze_lanes(I, mu, nu, step, lane_state)
+    for k in _LANE_TENSORS:
+        getattr(lane_state, k).copy_(new[k])
+    return new["I"], new["mu"], new["nu"], new["stats"]

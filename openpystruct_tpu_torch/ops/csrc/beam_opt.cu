@@ -10,7 +10,10 @@
 // V^2/(G 0.03 sqrt(I)) and its gradient: the semi-gradient (M and V held
 // constant) or the exact adjoint (K lam = g_hat solved with the same
 // factors and `refine` sweeps, then banded products) -> Adam with clamp.
-// All in float32.
+// All in float32.  Given the epoch loop's lane state, the same launch also
+// does the loop's freeze and early-stop bookkeeping (lane_epilogue): a lane
+// that was done on entry returns its inputs, and a block whose lanes are
+// all done skips its solve.
 //
 // beam_analysis_kernel replaces openpystruct_tpu/ops/beam_kernel.py:751
 // _beam_kernel_b2 (launcher pallas_beam_analysis): the same sweeps with
@@ -256,6 +259,19 @@ struct Ctx {
   __device__ __forceinline__ float& at(int i, int c) const {
     return own[(size_t)i * ns + c * Bp];
   }
+};
+
+// The epoch loop's per-lane early-stopping state (opt/beam_opt.py
+// _lane_state_init), updated in place; done == nullptr: none given.
+struct Lanes {
+  bool* __restrict__ done;             // (B,)
+  float* __restrict__ best;            // (B,)
+  int* __restrict__ no_improve;        // (B,)
+  int* __restrict__ n_epochs;          // (B,)
+  float* __restrict__ I_solved;        // (B, n - 1)
+  const float* __restrict__ stats_prev;  // (B, 4), the previous epoch's
+  float tolerance;
+  int patience;
 };
 
 struct Stiff {
@@ -1040,6 +1056,89 @@ __device__ __forceinline__ void solve_tail(const Ctx& c, float* smem,
   back_sweep<false, LAST, C>(c, smem);
 }
 
+// Copy the block's rows of a lanes-first (B, nelem) array from src: a row
+// whose bit is set in mask1 to dst1, in mask0 to dst0.  Warp w takes rows w,
+// w + kWarps, .., its lanes the columns; a pass issues all its loads before
+// any store, so that the copy waits on memory about once, not once a row.
+__device__ __forceinline__ void copy_rows(const float* __restrict__ src,
+                                          float* __restrict__ dst1,
+                                          unsigned mask1,
+                                          float* __restrict__ dst0,
+                                          unsigned mask0, int b0, int nelem) {
+  constexpr int kWarps = kThreads / kLanes, kRowsEach = kLanes / kWarps;
+  static_assert(kLanes % kWarps == 0,
+                "copy_rows: the warps take every row of the block");
+  constexpr int kCols = 4;   // columns a lane takes a pass
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  if ((mask1 | mask0) == 0u) return;
+  for (int c0 = lane; c0 < nelem; c0 += kCols * kLanes) {
+    float v[kRowsEach][kCols];
+#pragma unroll
+    for (int i = 0; i < kRowsEach; ++i) {
+      const int r = warp + i * kWarps;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = c0 + j * kLanes;
+        if (((mask1 | mask0) >> r) & 1u && col < nelem)
+          v[i][j] = src[(size_t)(b0 + r) * nelem + col];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsEach; ++i) {
+      const int r = warp + i * kWarps;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = c0 + j * kLanes;
+        const size_t o = (size_t)(b0 + r) * nelem + col;
+        if (col >= nelem) continue;
+        if ((mask1 >> r) & 1u) dst1[o] = v[i][j];
+        else if ((mask0 >> r) & 1u) dst0[o] = v[i][j];
+      }
+    }
+  }
+}
+
+// The epoch loop's freeze bookkeeping after the step (the plain version is
+// ops/beam_kernel.py freeze_lanes).  A lane active on entry (done == 0)
+// saves its input I as its last solved I and takes the step's total:
+// improved = total < best - tolerance (in float32, as torch subtracts),
+// no_improve reset or counted, best kept or replaced, n_epochs + 1, done
+// once no_improve reaches patience.  A lane done on entry has its inputs I,
+// mu, nu and its previous stats as outputs, and its state is left alone.
+// Every thread of the block, after the step's outputs are written.  Not
+// inlined: inlined, its address arithmetic was hoisted into the sweeps and
+// the kernel spilled 164 bytes where it spills 36.
+__device__ __noinline__ void lane_epilogue(
+    const float* __restrict__ I, const float* __restrict__ mu,
+    const float* __restrict__ nu, float* __restrict__ I_out,
+    float* __restrict__ mu_out, float* __restrict__ nu_out,
+    float* __restrict__ stats, const Lanes& st, int B, int n) {
+  const int nelem = n - 1, lane = threadIdx.x % kLanes;
+  const int b0 = blockIdx.x * kLanes, b = b0 + lane;
+  const bool live = b < B;
+  const bool act = live && !st.done[b];
+  const unsigned active = __ballot_sync(0xffffffffu, act);
+  const unsigned done = __ballot_sync(0xffffffffu, live) & ~active;
+  copy_rows(I, st.I_solved, active, I_out, done, b0, nelem);
+  copy_rows(mu, mu_out, done, nullptr, 0u, b0, nelem);
+  copy_rows(nu, nu_out, done, nullptr, 0u, b0, nelem);
+  __syncthreads();   // every warp has read the done flags
+  if (threadIdx.x >= kLanes || !live) return;   // the chain warp's lanes
+  float4* out = reinterpret_cast<float4*>(stats) + b;
+  if (!act) {
+    const float* prev = st.stats_prev + 4 * (size_t)b;
+    *out = make_float4(prev[0], prev[1], prev[2], prev[3]);
+    return;
+  }
+  const float total = out->x;
+  const bool improved = total < st.best[b] - st.tolerance;
+  const int ni = improved ? 0 : st.no_improve[b] + 1;
+  if (improved) st.best[b] = total;
+  st.no_improve[b] = ni;
+  st.n_epochs[b] += 1;
+  st.done[b] = ni >= st.patience;
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 beam_opt_step_kernel(const float* __restrict__ I, const float* __restrict__ mu,
                      const float* __restrict__ nu,
@@ -1049,10 +1148,10 @@ beam_opt_step_kernel(const float* __restrict__ I, const float* __restrict__ mu,
                      const float* __restrict__ udl,
                      float* __restrict__ I_out, float* __restrict__ mu_out,
                      float* __restrict__ nu_out, float* __restrict__ stats,
-                     float* __restrict__ scr, int B, int Bp, int n, int refine,
-                     int grad_semi, float E, float Gs, float alpha_m,
-                     float alpha_s, float clamp_min, float lr_t, float bc1,
-                     float bc2) {
+                     float* __restrict__ scr, const Lanes st, int B, int Bp,
+                     int n, int refine, int grad_semi, float E, float Gs,
+                     float alpha_m, float alpha_s, float clamp_min,
+                     float lr_t, float bc1, float bc2) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x % kLanes;
   const int warp = threadIdx.x / kLanes;
@@ -1063,15 +1162,23 @@ beam_opt_step_kernel(const float* __restrict__ I, const float* __restrict__ mu,
               scr + b0, scr + b0 + lane, B, n, nc, Bp, b0, nc * Bp, lane,
               warp - 1, live, live ? udl[b0 + lane] : 0.0f, E, Gs, alpha_m,
               alpha_s, clamp_min, lr_t, bc1, bc2};
+  const bool lanes = st.done != nullptr;
+  // a block whose lanes are all done only copies their state
+  if (lanes && !__syncthreads_or(live && !st.done[b0 + lane])) {
+    lane_epilogue(I, mu, nu, I_out, mu_out, nu_out, stats, st, B, n);
+    return;
+  }
   forward_factor<false>(c, smem);
   if (grad_semi) {
     solve_tail<kSemi>(c, smem, refine);
-    return;
+  } else {
+    solve_tail<kPrimal>(c, smem, refine);
+    // K lam = g_hat (K is symmetric) with the same factors
+    forward_subst(c, smem, F0, X0);
+    solve_tail<kAdjoint>(c, smem, refine);
   }
-  solve_tail<kPrimal>(c, smem, refine);
-  // K lam = g_hat (K is symmetric) with the same factors
-  forward_subst(c, smem, F0, X0);
-  solve_tail<kAdjoint>(c, smem, refine);
+  if (lanes)
+    lane_epilogue(I, mu, nu, I_out, mu_out, nu_out, stats, st, B, n);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -1097,6 +1204,25 @@ beam_analysis_kernel(const float* __restrict__ I,
   solve_tail<kAnalysis>(c, smem, refine);
 }
 
+// The kernels' dynamic shared memory limit, raised once a device: the
+// attribute holds for the device's context, and the epoch loop need not
+// pay the call every launch.  `set` records the devices done.
+constexpr int kMaxDevices = 64;
+unsigned char g_opt_smem[kMaxDevices], g_analysis_smem[kMaxDevices];
+
+template <typename Kernel>
+cudaError_t smem_limit(Kernel kernel, int bytes, unsigned char* set) {
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && set[dev]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && known) set[dev] = 1;
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1109,25 +1235,30 @@ int beam_opt_scratch_per_node(int grad_semi) {
 
 // Lanes-first float32 I/O: I, mu, nu, Le, I_out, mu_out, nu_out (B, n - 1),
 // free (B, n, 3), loads (B, n), udl (B,), stats (B, 4); all contiguous, n
-// >= 2.
+// >= 2.  The lane state, or done == NULL for none: done (B,) bool, best
+// (B,) float32, no_improve and n_epochs (B,) int32, I_solved (B, n - 1),
+// stats_prev (B, 4), contiguous, updated in place (but stats_prev).
 int beam_opt_step_f32(const float* I, const float* mu, const float* nu,
                       const float* Le, const float* fr, const float* loads,
                       const float* udl, float* I_out, float* mu_out,
-                      float* nu_out, float* stats, float* scr, int B, int n,
-                      int refine, int grad_semi, float E, float G,
-                      float alpha_m, float alpha_s, float clamp_min,
-                      float lr_t, float bc1, float bc2, void* stream) {
+                      float* nu_out, float* stats, float* scr, bool* done,
+                      float* best, int* no_improve, int* n_epochs,
+                      float* I_solved, const float* stats_prev, int B, int n,
+                      int refine, int grad_semi, int patience, float E,
+                      float G, float alpha_m, float alpha_s, float clamp_min,
+                      float lr_t, float bc1, float bc2, float tolerance,
+                      void* stream) {
   if (B <= 0) return 0;
   if (n < 2 || refine < 0) return (int)cudaErrorInvalidValue;
   const int bytes = kSmemFloats * (int)sizeof(float);
-  const cudaError_t set = cudaFuncSetAttribute(
-      beam_opt_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  const cudaError_t set = smem_limit(beam_opt_step_kernel, bytes, g_opt_smem);
   if (set != cudaSuccess) return (int)set;
   const int blocks = (B + kLanes - 1) / kLanes;
+  const Lanes st{done,     best,       no_improve, n_epochs,
+                 I_solved, stats_prev, tolerance,  patience};
   beam_opt_step_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(
-      I, mu, nu, Le, fr, loads, udl, I_out, mu_out, nu_out, stats, scr, B,
-      blocks * kLanes, n, refine, grad_semi, E, G, alpha_m, alpha_s,
+      I, mu, nu, Le, fr, loads, udl, I_out, mu_out, nu_out, stats, scr, st,
+      B, blocks * kLanes, n, refine, grad_semi, E, G, alpha_m, alpha_s,
       clamp_min, lr_t, bc1, bc2);
   return (int)cudaGetLastError();
 }
@@ -1145,9 +1276,8 @@ int beam_analysis_f32(const float* I, const float* Le, const float* fr,
   if (B <= 0) return 0;
   if (n < 2 || refine < 0) return (int)cudaErrorInvalidValue;
   const int bytes = kSmemFloats * (int)sizeof(float);
-  const cudaError_t set = cudaFuncSetAttribute(
-      beam_analysis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  const cudaError_t set =
+      smem_limit(beam_analysis_kernel, bytes, g_analysis_smem);
   if (set != cudaSuccess) return (int)set;
   const int blocks = (B + kLanes - 1) / kLanes;
   beam_analysis_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(

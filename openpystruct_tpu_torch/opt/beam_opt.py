@@ -10,7 +10,9 @@ returned ``solution`` holds at the last SOLVED I while ``I`` has the final
 step applied, the reference's own off-by-one.
 
 The JAX package runs the loop as a ``lax.while_loop``; here it is a Python
-loop around one fused kernel launch per epoch.  Its exit test needs the
+loop around one fused kernel launch per epoch, which on the fused path
+(not the float64 rescue's) also does the per-lane freeze and early-stop
+bookkeeping, so that the host issues nothing else.  Its exit test needs the
 per-lane ``done`` flags on the host, a device sync.  The sync is taken every
 ``_SYNC_EVERY`` epochs: a frozen lane does not change, and entering the next
 compaction stage later changes no lane, so the results are the same as with
@@ -20,6 +22,7 @@ a sync every epoch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -33,7 +36,12 @@ from openpystruct_tpu_torch.fem.beam import (
     solve_beam_batched,
 )
 from openpystruct_tpu_torch.opt.loss import LossComponents, structural_loss
-from openpystruct_tpu_torch.ops.beam_kernel import beam_analysis, beam_opt_step
+from openpystruct_tpu_torch.ops.beam_kernel import (
+    LaneState,
+    beam_analysis,
+    beam_opt_step,
+    freeze_lanes,
+)
 from openpystruct_tpu_torch.ops.beam_kernel_dd import (
     beam_analysis_dd,
     beam_opt_step_dd,
@@ -66,9 +74,15 @@ class BeamOptResult:
 def _adam_scalars(opt: OptimizerConfig, epoch: int, dtype):
     """lr_t = lr * gamma^epoch and the bias corrections 1/(1 - b^t), t =
     epoch + 1, computed in the working dtype as the JAX package does
-    (opt/beam_opt.py:318-322), returned as Python floats."""
+    (opt/beam_opt.py:318-322), returned as Python floats; computed once a
+    process for each (lr, lr_gamma, dtype, epoch)."""
+    return _adam_scalars_at(opt.lr, opt.lr_gamma, dtype, epoch)
+
+
+@functools.lru_cache(maxsize=None)
+def _adam_scalars_at(lr, lr_gamma, dtype, epoch):
     t = torch.tensor(epoch + 1, dtype=dtype)
-    lr_t = opt.lr * opt.lr_gamma ** torch.tensor(epoch, dtype=dtype)
+    lr_t = lr * lr_gamma ** torch.tensor(epoch, dtype=dtype)
     bc1 = 1.0 / (1.0 - _B1 ** t)
     bc2 = 1.0 / (1.0 - _B2 ** t)
     return float(lr_t), float(bc1), float(bc2)
@@ -166,7 +180,8 @@ def _make_kernel_step(scenario, beam, opt, refine, fused, dtype, dd=False,
                       solve=solve_beam_batched):
     """One optimizer iteration for the whole batch:
     ``step(I, mu, nu, epoch) -> (I_new, mu, nu, stats (B, 4))``; the split
-    path solves with ``solve``."""
+    path solves with ``solve``.  The fused float32 step also takes
+    ``lane_state=`` (``beam_opt_step``'s)."""
     E, G, A = beam.E, beam.G, beam.A
 
     if dd and opt.grad_mode != "semi":
@@ -181,15 +196,18 @@ def _make_kernel_step(scenario, beam, opt, refine, fused, dtype, dd=False,
         loads = scenario.point_loads.to(dtype).contiguous()
         udl = scenario.udl.to(dtype).contiguous()
 
-        def kernel_step(I, mu, nu, epoch):
+        kw = dict(alpha_m=opt.alpha_moment, alpha_s=opt.alpha_shear,
+                  clamp_min=opt.clamp_min)
+        semi = opt.grad_mode == "semi"
+
+        def kernel_step(I, mu, nu, epoch, lane_state=None):
             lr_t, bc1, bc2 = _adam_scalars(opt, epoch, dtype)
             args = (I, mu, nu, Le, free, loads, udl, lr_t, bc1, bc2, E, A, G)
-            kw = dict(alpha_m=opt.alpha_moment, alpha_s=opt.alpha_shear,
-                      clamp_min=opt.clamp_min)
             if dd:
                 return beam_opt_step_dd(*args, **kw)[:4]   # drop the pivot
-            return beam_opt_step(*args, grad_semi=(opt.grad_mode == "semi"),
-                                 refine=refine, **kw)
+            # the module global, looked up each call
+            return beam_opt_step(*args, grad_semi=semi, refine=refine,
+                                 lane_state=lane_state, **kw)
 
         return kernel_step
 
@@ -234,35 +252,44 @@ def _lane_state_init(I0):
     )
 
 
+def _lane_state(c, opt):
+    return LaneState(c["done"], c["best"], c["no_improve"], c["n_epochs"],
+                     c["I_solved"], c["stats"], opt.tolerance, opt.patience)
+
+
 def _make_freeze_body(kernel_step, opt):
     """One epoch: a step for the batch, then per-lane freeze/early-stop
-    bookkeeping; frozen lanes keep their state."""
+    bookkeeping (``freeze_lanes``) in torch ops; frozen lanes keep their
+    state.  The float64 rescue's step and the split path's."""
 
     def body(c, epoch):
-        I_new, mu, nu, stats = kernel_step(c["I"], c["mu"], c["nu"], epoch)
-        active = ~c["done"]
-        am = active[:, None]
-        total = stats[:, 0]
-        improved = total < c["best"] - opt.tolerance
-        no_improve = torch.where(
-            active,
-            torch.where(improved, torch.zeros_like(c["no_improve"]),
-                        c["no_improve"] + 1),
-            c["no_improve"],
-        )
-        return dict(
-            I=torch.where(am, I_new, c["I"]),
-            I_solved=torch.where(am, c["I"], c["I_solved"]),
-            mu=torch.where(am, mu, c["mu"]),
-            nu=torch.where(am, nu, c["nu"]),
-            n_epochs=c["n_epochs"] + active.to(torch.int32),
-            best=torch.where(active & improved, total, c["best"]),
-            no_improve=no_improve,
-            done=c["done"] | (no_improve >= opt.patience),
-            stats=torch.where(am, stats, c["stats"]),
-        )
+        step = kernel_step(c["I"], c["mu"], c["nu"], epoch)
+        return freeze_lanes(c["I"], c["mu"], c["nu"], step,
+                            _lane_state(c, opt))
 
     return body
+
+
+def _make_fused_body(kernel_step, opt):
+    """One epoch of the fused step: one ``beam_opt_step`` call that also
+    does the bookkeeping, updating the lane state in place."""
+
+    def body(c, epoch):
+        I, mu, nu, stats = kernel_step(c["I"], c["mu"], c["nu"], epoch,
+                                       lane_state=_lane_state(c, opt))
+        return dict(c, I=I, mu=mu, nu=nu, stats=stats)
+
+    return body
+
+
+def _make_body(scenario, beam, opt, refine, fused, dtype, dd,
+               solve=solve_beam_batched):
+    """The epoch body of a stage: the fused step's own (``fused`` and not
+    ``dd``), or the step and ``_make_freeze_body``'s bookkeeping."""
+    step = _make_kernel_step(scenario, beam, opt, refine, fused, dtype, dd,
+                             solve)
+    make = _make_fused_body if fused and not dd else _make_freeze_body
+    return make(step, opt)
 
 
 def _run_epochs(body, state, epoch, max_epochs, keep_going):
@@ -343,9 +370,7 @@ def optimize_beam_batched(scenario: BeamScenario,
         I0 = _default_I0(scenario, beam, (B, nelem))
     fused = True if fused is None else fused
     with span("opt.stage", lanes=B) as sp:
-        body = _make_freeze_body(
-            _make_kernel_step(scenario, beam, opt, refine, fused, I0.dtype,
-                              dd), opt)
+        body = _make_body(scenario, beam, opt, refine, fused, I0.dtype, dd)
         state, epochs = _run_epochs(body, _lane_state_init(I0), 0,
                                     opt.max_epochs,
                                     lambda st: bool((~st["done"]).any()))
@@ -405,9 +430,8 @@ def _optimize_compact(scenario, beam, opt, I0, refine, fused, min_bucket, dd,
 
     def run_stage(scen, st, epoch, next_size):
         with span("opt.stage", lanes=scen.node_x.shape[0]) as sp:
-            body = _make_freeze_body(
-                _make_kernel_step(scen, beam, opt, refine, fused, I0.dtype,
-                                  dd, solve), opt)
+            body = _make_body(scen, beam, opt, refine, fused, I0.dtype, dd,
+                              solve)
             st, end = _run_epochs(
                 body, st, epoch, opt.max_epochs,
                 lambda s: int((~s["done"]).sum()) > next_size)

@@ -39,6 +39,8 @@ from openpystruct_tpu_torch.ops import block_stream_dd as tsd
 from openpystruct_tpu_torch.ops import block_tridiag as tbt
 from openpystruct_tpu_torch.opt import beam_opt
 
+import test_torch_freeze_fused as fold
+
 BEAM = BeamConfig(udl=-1000.0)
 E, A, G = BEAM.E, BEAM.A, BEAM.G
 # the largest per-lane difference of #4 to the plain float32 version on
@@ -102,6 +104,8 @@ def _hold(kern, f64, f32, factor=2.0, floors=None):
 # one of 69 lanes at B = 70, seed 3, NVIDIA H100 80GB HBM3, 700.00 W).  A
 # wrong lane or node is off by O(1).
 RANDOM_SUPPORTS = 4.0
+
+MODES_FOLD = pytest.mark.parametrize("grad_mode", ["semi", "adjoint"])
 
 
 @pytest.mark.cuda
@@ -167,6 +171,97 @@ def test_batch_program_launches_kernels_only(cuda):
     assert 0 <= extra < beam_opt._SYNC_EVERY
     assert batch.valid.all()
     tk.reset_counts()
+
+
+@pytest.mark.cuda
+@MODES_FOLD
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 70, 4097])
+def test_beam_opt_step_kernel_with_lane_state(cuda, B, grad_mode):
+    """#2 given the lane state (one launch an epoch, the state updated in
+    place) bitwise the torch body over 8 epochs: ragged batches, a block
+    whose lanes are all done (skipped), NaN lanes, lanes reaching patience,
+    a total exactly at best - tolerance."""
+    sc = sample_scenarios(torch.Generator().manual_seed(B), B, device=cuda)
+    opt = fold._opt(grad_mode)
+    fused, plain = fold._bodies(sc, opt)
+    a = fold._entry_state(sc, opt, plain)
+    b = fold._copy(a)
+    tk.reset_counts()
+    for epoch in range(8):
+        a = fused(a, epoch)
+        b = plain(b, epoch)
+        fold._assert_same(a, b)
+        if epoch == 0:
+            assert int(a["no_improve"][0]) == 1
+    assert tk.LAUNCHES["beam_opt_step"] == 16
+    assert tk.PLAIN_CALLS["beam_opt_step"] == 0
+    tk.reset_counts()
+    if B > 1:
+        assert bool(torch.isnan(a["I"][-1]).any())
+        assert bool(a["done"].any()) and not bool(a["done"].all())
+
+
+@pytest.mark.cuda
+def test_beam_opt_step_rejects_a_bad_lane_state(cuda):
+    """The lane state's tensors are updated as they lie: a wrong dtype, a
+    strided view or a misplaced tensor raises, and nothing launches; a
+    strided I raises after a launch on the same scenario and state too."""
+    sc = sample_scenarios(torch.Generator().manual_seed(6), 40, device=cuda)
+    fused, _ = fold._bodies(sc, fold._opt("semi"))
+    st = beam_opt._lane_state_init(torch.full((40, sc.num_nodes - 1),
+                                              BEAM.I0, device=cuda))
+    st = fused(st, 0)
+    before = tk.LAUNCHES["beam_opt_step"]
+    bad = [(TypeError, dict(no_improve=st["no_improve"].long())),
+           (ValueError, dict(I_solved=st["I_solved"].t().contiguous().t())),
+           (ValueError, dict(best=st["best"].cpu())),
+           (ValueError, dict(I=st["I"].t().contiguous().t()))]
+    for err, change in bad:
+        with pytest.raises(err):
+            fused(dict(st, **change), 1)
+    assert tk.LAUNCHES["beam_opt_step"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("random_bridge", [False, True])
+def test_run_batch_fold_is_the_torch_body_on_the_card(cuda, random_bridge,
+                                                      monkeypatch):
+    """``run_batch`` on the card (compaction on at 4096 lanes) per lane
+    bitwise a run forced through the torch body."""
+    cfg = ScenarioConfig(random_bridge=random_bridge)
+    sc = sample_scenarios(torch.Generator().manual_seed(12), 4096, cfg,
+                          device=cuda)
+    fused = run_batch(sc, BEAM, DATAGEN_OPT)
+    monkeypatch.setattr(beam_opt, "_make_fused_body",
+                        beam_opt._make_freeze_body)
+    plain = run_batch(sc, BEAM, DATAGEN_OPT)
+    assert len(set(fused.result.n_epochs.tolist())) > 1
+    fold._results_same(fused.result, plain.result)
+    assert torch.equal(fused.valid, plain.valid)
+
+
+@pytest.mark.cuda
+def test_fused_epoch_is_one_launch(cuda, tmp_path):
+    """The device ops of one traced epoch of the fused path: exactly one #2
+    launch, no copy and no set."""
+    import json
+
+    from openpystruct_tpu_torch.utils import profile_trace
+
+    sc = sample_scenarios(torch.Generator().manual_seed(5), 512, device=cuda)
+    fused, _ = fold._bodies(sc, fold._opt("semi"))
+    st = fused(beam_opt._lane_state_init(
+        torch.full((512, sc.num_nodes - 1), BEAM.I0, device=cuda)), 0)
+    torch.cuda.synchronize()
+    with profile_trace(str(tmp_path)) as prof:
+        st = fused(st, 1)
+        torch.cuda.synchronize()
+    events = json.loads(open(prof.trace_path).read())["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert len(device) == 1, [e["name"] for e in device]
+    assert device[0]["cat"] == "kernel"
+    assert "beam_opt_step_kernel" in device[0]["name"]
 
 
 @pytest.mark.cuda

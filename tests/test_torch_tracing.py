@@ -15,7 +15,9 @@ readers of them, on CPU batches.
   equal what the benchmark's wrappers (``portbench/entries/datagen.py``
   ``_wrappers``) record on the same batches, and ``launched_epochs_per_lane``
   reads the wrappers' launched lanes over the lanes drawn; the sampler's
-  ``h2d_bytes`` count in ``datagen.sample`` is its (B, k) compact form.
+  ``h2d_bytes`` count in ``datagen.sample`` is its (B, k) compact form;
+  every fused step launch also counts ``freeze_fused`` (its epoch's
+  bookkeeping inside the launch), the float64 rescue's none.
 - (d) The readers ``sampler_s_per_batch``, ``host_ms_per_epoch``,
   ``sync_wait_ms_per_epoch`` and ``launched_epochs_per_lane`` on an empty
   ``Readings`` and on hand-built spans.
@@ -31,7 +33,7 @@ import pytest
 import torch
 
 from openpystruct_tpu_torch import cli
-from openpystruct_tpu_torch.config import ScenarioConfig
+from openpystruct_tpu_torch.config import OptimizerConfig, ScenarioConfig
 from openpystruct_tpu_torch.datagen import generate
 from openpystruct_tpu_torch.opt.beam_opt import _compact_sizes
 from openpystruct_tpu_torch.utils import profiling
@@ -133,10 +135,13 @@ def test_spans_of_a_traced_batch(runs, lanes):
     assert all(s["parent"] == prog["id"] for s in stages)
     n = SCEN.num_nodes
     for s in stages:
-        # one step launch an epoch, at the stage's bucket, counted in the
-        # stage's own span
-        semi = _key(kind="semi", lanes=s["attrs"]["lanes"], n=n, refine=REFINE)
-        assert s["counts"] == {("launch", semi): s["attrs"]["epochs"]}
+        # one step launch an epoch, at the stage's bucket, doing the epoch's
+        # bookkeeping too, counted in the stage's own span
+        b = s["attrs"]["lanes"]
+        semi = _key(kind="semi", lanes=b, n=n, refine=REFINE)
+        assert s["counts"] == {("launch", semi): s["attrs"]["epochs"],
+                               ("freeze_fused", _key(lanes=b)):
+                               s["attrs"]["epochs"]}
     launched = run["counts"]["launch"]
     assert sum(s["attrs"]["epochs"] for s in stages) == sum(
         v for k, v in launched.items() if dict(k)["kind"] == "semi") > 0
@@ -162,7 +167,7 @@ def test_spans_of_a_traced_batch(runs, lanes):
 @pytest.mark.parametrize("lanes", LANES)
 def test_counts_equal_the_benchmark_wrappers(runs, lanes):
     run = runs[lanes]
-    assert set(run["counts"]) == {"launch", "h2d_bytes"}
+    assert set(run["counts"]) == {"launch", "h2d_bytes", "freeze_fused"}
     # each lane's float64 L, and float32 loads, int32 indices and draw
     # positions of its k = m_forces_max kept forces; the fixed rollers'
     # int32 indices and positions and bool flags once; the (n,) float64
@@ -189,6 +194,68 @@ def test_counts_equal_the_benchmark_wrappers(runs, lanes):
     assert run["needed"][("analysis", n, REFINE)] == lanes
     assert run["needed"][("semi", n, REFINE)] == int(
         run["on"].result.n_epochs.sum())
+
+
+def _under(spans, root):
+    """The spans inside ``root`` (itself included)."""
+    ids, out = {root["id"]}, [root]
+    for s in spans:              # in open order: parents come first
+        if s["parent"] in ids:
+            ids.add(s["id"])
+            out.append(s)
+    return out
+
+
+def _step_counts(spans):
+    """{(name, kind or None, lanes): n} of the step launches and the
+    ``freeze_fused`` counts in ``spans``."""
+    out = {}
+    for s in spans:
+        for (name, key), v in s["counts"].items():
+            k = dict(key)
+            if name == "freeze_fused" or k.get("kind") in ("semi", "opt_dd"):
+                at = (name, k.get("kind"), k["lanes"])
+                out[at] = out.get(at, 0) + v
+    return out
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_freeze_fused_counts_every_fused_launch(runs, lanes):
+    """A CPU ``run_batch`` under a profiler: as many ``freeze_fused``
+    counts as semi launches, at each bucket."""
+    got = _step_counts(runs[lanes]["spans"])
+    semi = {b: v for (name, kind, b), v in got.items() if kind == "semi"}
+    fused = {b: v for (name, _, b), v in got.items()
+             if name == "freeze_fused"}
+    assert semi and fused == semi
+
+
+def test_freeze_fused_counts_nothing_on_the_rescue():
+    """The float64 rescue (``rescue="dd"``, #8's plain version) keeps the
+    torch bookkeeping: its stages count ``opt_dd`` launches and no
+    ``freeze_fused``, while the batch program's count one a launch.  A
+    pivot gate no lane passes sends every lane to the rescue."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            profiling.reset()
+            generate.generate_batch(
+                torch.Generator().manual_seed(3), 48, SCEN,
+                opt_cfg=OptimizerConfig(max_epochs=20), refine=REFINE,
+                pivot_tol=float("inf"), rescue="dd", device="cpu")
+            spans = profiling.spans()
+    finally:
+        torch.set_num_threads(threads)
+        profiling.reset()
+    (rescue,) = _by_name(spans, "datagen.rescue")
+    (prog,) = _by_name(spans, "datagen.run_batch")
+    dd = _step_counts(_under(spans, rescue))
+    assert dd and all(kind == "opt_dd" for (_, kind, _) in dd)
+    main = _step_counts(_under(spans, prog))
+    assert sum(v for (n, _, _), v in main.items() if n == "launch") == sum(
+        v for (n, _, _), v in main.items() if n == "freeze_fused") > 0
 
 
 def _span(sid, name, t0, t1, parent=None, counts=None, **attrs):
